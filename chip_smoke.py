@@ -1,0 +1,593 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each reported on its own lines:
+
+1. Card and toolchain: the card's name and power limit, ``torch.version.cuda``
+   and ``nvcc --version``; then the kernels are built from
+   ``src/repro_torch/kernels/csrc/`` (``nvcc``, ``sm_90a``).
+2. Kernel checks: every CUDA kernel against its plain PyTorch version on the
+   same CUDA tensors, at the shapes the main path gives it, with chunk
+   invariance bit for bit; each timed with CUDA events beside its plain
+   version, its bound and one library call as a yardstick.
+3. Main path, paper scale: Algorithm 2 (``VanishingIdealClassifier``, OAVI
+   fast engine, psi = 0.005) on the 2,000,000-sample Appendix C set, 60/40
+   split; the per-class fits are then run again on the CPU and compared.
+4. Main path, wide: one OAVI fit on class 0 of the spam-shaped set (n = 57),
+   which grows to Lcap = Kcap = 2048; compared with the same fit on the CPU.
+
+Every check that fails raises, and the script exits non-zero before its last
+line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
+lines are the kernels' JSON record, the ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PSI = 0.005
+# published peaks of one H100 SXM (fp32 outside the tensor cores; HBM3)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# kernel vs plain version: the same fp32 products, each 256-row block summed
+# in another order, the blocks folded in the same order.  Gram entries are
+# sums of non-negative terms, so a block's partial moves by ~sqrt(256)*eps
+# relative and the fold averages that over the blocks: far below 1e-6.  TF32
+# products (inputs rounded to 10 bits) moved the entries by 5.1e-6 to 3.8e-5
+# at the shapes below on an H100; a control run of the plain version with
+# TF32 must fail this tolerance.
+GRAM_RTOL = 1e-6
+# IHB chains on well-conditioned columns (condition number ~10)
+IHB_RTOL, IHB_ATOL = 1e-4, 1e-5
+# card fit vs CPU fit: the Theorem 4.9 inverse engine amplifies fp32
+# summation-order noise by kappa(A)^2 (up to ~3e-3 on the 58-term spam fit),
+# so both fp32 fits are held against numpy's float64 least-squares solution
+# on the same data: the card may be no further from it than twice the CPU
+# fp32 fit, or 1e-4.  A control fit with TF32 products is reported beside
+# it: its coefficients can be as accurate as fp32 ones, so this check does
+# not stand guard against TF32; the Gram tolerance above does.
+FIT_ERR_FACTOR, FIT_ERR_FLOOR = 2.0, 1e-4
+# At paper scale (kappa small) the card's and the CPU's coefficients are also
+# held allclose at the parity tests' tolerance; on the wide fit the card's and
+# the CPU's fp32 fits differ by several 1e-3, each about as far from the
+# float64 solution, so it is not.
+FIT_DIRECT_TOL = (1e-4, 1e-5)
+BAND = 1e-3  # verdicts within BAND * psi of psi may flip between sum orders
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def close(got, want, rtol, atol):
+    """Largest absolute error, and whether every entry is within tolerance."""
+    import torch
+
+    err = (got - want).abs()
+    return float(err.max()), bool(torch.all(err <= atol + rtol * want.abs()))
+
+
+def check_close(name, got, want, rtol, atol):
+    worst, ok = close(got, want, rtol, atol)
+    log(f"  {name}: max_abs_err {worst:.6g} (tolerance {atol:.3g} + {rtol:.1g}*|plain|)")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels
+# ---------------------------------------------------------------------------
+
+
+def gram_inputs(rng, m, L, n, K, dev):
+    """m data rows, zero-padded to a multiple of 512 rows as the fit pads."""
+    import torch
+
+    m_pad = -(-m // 512) * 512
+    A = torch.zeros((m_pad, L), dtype=torch.float32, device=dev)
+    X = torch.zeros((m_pad, n), dtype=torch.float32, device=dev)
+    A[:m] = torch.from_numpy(rng.uniform(0, 1, (m, L)).astype(np.float32)).to(dev)
+    X[:m] = torch.from_numpy(rng.uniform(0, 1, (m, n)).astype(np.float32)).to(dev)
+    p = torch.from_numpy(rng.integers(0, L, K)).to(dev)
+    v = torch.from_numpy(rng.integers(0, n, K)).to(dev)
+    return A, X, p, v
+
+
+def gram_work(A, X, p, carry: bool):
+    """Least work of the Gram function on these inputs: B = A[:, p] * X[:, v]
+    (m*K products), QL = A^T B (2*m*L*K) and the upper triangle of the
+    symmetric C = B^T B (m*K*(K+1)); every input read once, QL and C written
+    once (and the carry read once)."""
+    m, L = A.shape
+    n, K = X.shape[1], p.shape[0]
+    flops = m * K + 2.0 * m * L * K + 1.0 * m * K * (K + 1)
+    nbytes = (A.element_size() * (m * L + m * n) + 2 * p.element_size() * K
+              + A.element_size() * (L * K + K * K) * (2 if carry else 1))
+    return flops, nbytes
+
+
+def check_gram_acc(dev, m, L, n, K, split_blocks, reps):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_update import gram_update_acc
+
+    rng = np.random.default_rng(m + L)
+    A, X, p, v = gram_inputs(rng, m, L, n, K, dev)
+    ql0 = torch.from_numpy(rng.uniform(0, 1, (L, K)).astype(np.float32)).to(dev)
+    c0 = torch.from_numpy(rng.uniform(0, 1, (K, K)).astype(np.float32)).to(dev)
+    bm = ops.GRAM_BLOCK
+    got = ops.gram_accumulate(A, X, p, v, (ql0, c0))
+    want = ops.gram_accumulate(A, X, p, v, (ql0, c0), use_kernel=False)
+    torch.cuda.synchronize()
+    tag = f"gram_update_acc m={m} L={L} n={n} K={K}"
+    err = max(check_close(f"{tag} {nm}", g, w, GRAM_RTOL, 0.0)
+              for nm, g, w in zip(("QL", "C"), got, want))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = ops.gram_accumulate(A, X, p, v, (ql0, c0), use_kernel=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    verdicts = [close(t, w, GRAM_RTOL, 0.0) for t, w in zip(tf32, want)]
+    rel = max(float(((t - w).abs() / w.abs()).max()) for t, w in zip(tf32, want))
+    log(f"  {tag}: control, the plain version with TF32 products: max_abs_err "
+        f"{max(e for e, _ in verdicts):.6g}, max relative error {rel:.3g}, within "
+        f"tolerance: {[ok for _, ok in verdicts]}")
+    if all(ok for _, ok in verdicts):
+        raise AssertionError(f"{tag}: the tolerance does not tell TF32 from fp32")
+    # chunk invariance: two carried calls split at 256*k rows == one call
+    s = split_blocks * bm
+    first = ops.gram_accumulate(A[:s], X[:s], p, v, (ql0, c0))
+    chained = ops.gram_accumulate(A[s:], X[s:], p, v, first)
+    for a, b in zip(got, chained):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: chunked at {s} rows is not bit-identical")
+    log(f"  {tag}: chunked at {s} rows bit-identical to one call")
+
+    def library():
+        B = A[:, p] * X[:, v]
+        return torch.addmm(ql0, A.T, B), torch.addmm(c0, B.T, B)
+
+    ms = time_ms(lambda: gram_update_acc(A, X, p, v, ql0, c0, bm=bm), reps)
+    plain_ms = time_ms(lambda: ops.gram_accumulate(A, X, p, v, (ql0, c0),
+                                                   use_kernel=False), max(1, reps // 4))
+    lib_ms = time_ms(library, reps)
+    b_ms, b_by = bound(*gram_work(A, X, p, carry=True))
+    log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, shape=dict(m=m, L=L, n=n, K=K))
+
+
+def check_gram_update(dev, m, L, n, K, reps):
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gram_update import gram_update
+
+    rng = np.random.default_rng(m + 7)
+    A, X, p, v = gram_inputs(rng, m, L, n, K, dev)
+    got = ops.gram_update(A, X, p, v, bm=512)
+    zeros = (A.new_zeros((L, K)), A.new_zeros((K, K)))
+
+    def plain():  # the kernel's semantics: zero carry, 512-row blocks in order
+        return ref.gram_accumulate_ref(A, X, p, v, *zeros, bm=512)
+
+    want = plain()
+    torch.cuda.synchronize()
+    tag = f"gram_update m={m} L={L} n={n} K={K} bm=512"
+    err = max(check_close(f"{tag} {nm}", g, w, GRAM_RTOL, 0.0)
+              for nm, g, w in zip(("QL", "C"), got, want))
+
+    def library():
+        B = A[:, p] * X[:, v]
+        return A.T @ B, B.T @ B
+
+    ms = time_ms(lambda: gram_update(A, X, p, v, bm=512), reps)
+    plain_ms = time_ms(plain, max(1, reps // 4))
+    lib_ms = time_ms(library, reps)
+    b_ms, b_by = bound(*gram_work(A, X, p, carry=False))
+    log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, shape=dict(m=m, L=L, n=n, K=K))
+
+
+def check_ihb(dev, L, steps, reps):
+    """A chain of ``steps`` appends from ell = L / 2, kernel chain vs plain
+    chain, on well-conditioned (Gaussian) columns."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ihb_update import ihb_update
+
+    rng = np.random.default_rng(L)
+    m = 4 * L
+    cols = rng.standard_normal((m, L))
+    G = cols.T @ cols / m  # float64 Gram of all L columns
+    ell0 = L // 2
+    N0 = np.eye(L)
+    N0[:ell0, :ell0] = np.linalg.inv(G[:ell0, :ell0])
+    Nk = Np = torch.tensor(N0, dtype=torch.float32, device=dev)
+    qs, btbs = [], []
+    for s in range(steps):
+        ell = ell0 + s
+        q = np.zeros(L)
+        q[:ell] = G[:ell, ell]
+        qs.append(torch.tensor(q, dtype=torch.float32, device=dev))
+        btbs.append(torch.tensor(G[ell, ell], dtype=torch.float32, device=dev))
+    for s in range(steps):
+        ell = torch.tensor(ell0 + s, dtype=torch.int32, device=dev)
+        Nk = ops.ihb_update(Nk, qs[s], btbs[s], ell)
+        Np = ops.ihb_update(Np, qs[s], btbs[s], ell, use_kernel=False)
+    torch.cuda.synchronize()
+    tag = f"ihb_update L={L} chain of {steps} appends from ell={ell0}"
+    err = check_close(tag, Nk, Np, IHB_RTOL, IHB_ATOL)
+    end = ell0 + steps
+    if not torch.equal(Nk[end:, end:], torch.eye(L - end, device=dev)):
+        raise AssertionError(f"{tag}: identity padding beyond ell={end} changed")
+    log(f"  {tag}: identity padding beyond ell={end} bit-exact")
+
+    N1, q1, b1 = Nk, qs[-1], btbs[-1]
+    ell1 = torch.tensor(end - 1, dtype=torch.int32, device=dev)
+    alpha = 1.0 / float(b1)
+
+    def library():
+        u = torch.mv(N1, q1)
+        return torch.addr(N1, u, u, alpha=alpha)
+
+    ms = time_ms(lambda: ihb_update(N1, q1, b1, ell1), reps)
+    plain_ms = time_ms(lambda: ref.ihb_update_ref(N1, q1, b1, ell1), reps)
+    lib_ms = time_ms(library, reps)
+    # q is zero and N the identity from ell on, so u = N q and the rank-1
+    # update need only the leading block; N is read once and N' written once
+    e = end - 1
+    b_ms, b_by = bound(2.0 * e * e + 2.0 * e + 3.0 * (e + 1) ** 2,
+                       4.0 * (2 * L * L + L + 1) + 4)
+    log(f"  ihb_update L={L}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, shape=dict(L=L))
+
+
+# ---------------------------------------------------------------------------
+# Phases 3-4: main path
+# ---------------------------------------------------------------------------
+
+
+def recording_fit(fit_fn):
+    """Run ``fit_fn`` with the port's ``collect_degree`` wrapped so every
+    candidate's (term, mse, accepted) is logged."""
+    from repro_torch.core import oavi
+
+    log_ = []
+    inner = oavi.collect_degree
+
+    def collect(book, border, accepted, mses, coeffs, generators):
+        for i, (term, _, _) in enumerate(border):
+            log_.append((term, float(mses[i]), bool(accepted[i])))
+        return inner(book, border, accepted, mses, coeffs, generators)
+
+    oavi.collect_degree = collect
+    try:
+        out = fit_fn()
+    finally:
+        oavi.collect_degree = inner
+    return out, log_
+
+
+@contextlib.contextmanager
+def plain_tf32():
+    """The control fit: every op on its plain version, with TF32 products."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    inner, tf32 = ops._kernel_path, torch.backends.cuda.matmul.allow_tf32
+    ops._kernel_path = lambda t, use_kernel: False
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        ops._kernel_path = inner
+
+
+def lstsq_coeffs(model, X):
+    """Every generator's coefficients as numpy's float64 least-squares
+    solution over the O columns it was fitted on (the fast engine solves
+    ``min_c |O c + lead|`` through the normal equations).  Only the structure
+    comes from ``model``."""
+    Z = np.asarray(X, np.float64)
+    if model.feature_perm is not None:
+        Z = Z[:, model.feature_perm]
+    parents, vars_ = model.book.parents, model.book.vars
+    O = np.ones((Z.shape[0], len(parents)))
+    for i in range(1, len(parents)):
+        O[:, i] = O[:, parents[i]] * Z[:, vars_[i]]
+    by_len = {}
+    for j, g in enumerate(model.generators):
+        by_len.setdefault(len(g.coeffs), []).append(j)
+    out = [None] * model.num_G
+    for ell, js in by_len.items():
+        lead = np.stack([O[:, model.generators[j].parent_idx]
+                         * Z[:, model.generators[j].var] for j in js], axis=1)
+        sol = np.linalg.lstsq(O[:, :ell], -lead, rcond=None)[0]
+        for k, j in enumerate(js):
+            out[j] = sol[:, k]
+    return out
+
+
+def _structure(models):
+    return [(m.book.terms, [g.term for g in m.generators]) for m in models]
+
+
+def _coeff_err(models, witnesses):
+    return max((float(np.abs(g.coeffs - w).max())
+                for m, ws in zip(models, witnesses)
+                for g, w in zip(m.generators, ws)), default=0.0)
+
+
+def judge_fits(card_models, cpu_models, card_log, cpu_log, witnesses, direct):
+    """Why the card fits fail the check against the CPU fits (None if they
+    pass), and the distances behind the verdict.
+
+    Verdicts must be equal up to the first candidate whose MSE lies in the
+    band.  With none in the band: equal structure; the card's coefficients no
+    further from numpy's float64 least-squares solution than FIT_ERR_FACTOR
+    times the CPU fp32 fit's (or FIT_ERR_FLOOR); and, where ``direct`` gives
+    an ``(rtol, atol)``, allclose to the CPU fit's coefficients."""
+    banded = [i for i, (_, mse, _) in enumerate(cpu_log) if abs(mse - PSI) <= BAND * PSI]
+    stop = banded[0] if banded else len(cpu_log)
+    if [(t, a) for t, _, a in card_log[:stop]] != [(t, a) for t, _, a in cpu_log[:stop]]:
+        return "card and CPU verdicts differ", {}
+    if banded:
+        log(f"  candidate {cpu_log[stop]} lies within {BAND}*psi of psi; "
+            f"verdicts compared up to it ({stop} candidates) and equal")
+        return None, {}
+    if _structure(card_models) != _structure(cpu_models):
+        return "card and CPU structure differ", {}
+    cpu_coeffs = [[g.coeffs for g in m.generators] for m in cpu_models]
+    dist = dict(err_card=_coeff_err(card_models, witnesses),
+                err_cpu=_coeff_err(cpu_models, witnesses),
+                card_vs_cpu=_coeff_err(card_models, cpu_coeffs))
+    limit = max(FIT_ERR_FACTOR * dist["err_cpu"], FIT_ERR_FLOOR)
+    if dist["err_card"] > limit:
+        return (f"coefficients {dist['err_card']:.3g} from the float64 witness, "
+                f"over the limit {limit:.3g}"), dist
+    if direct is not None and not all(
+            np.allclose(g.coeffs, c, rtol=direct[0], atol=direct[1])
+            for m, cs in zip(card_models, cpu_coeffs) for g, c in zip(m.generators, cs)):
+        return f"coefficients not allclose to the CPU fit's at {direct}", dist
+    return None, dist
+
+
+def compare_fits(tag, card_models, cpu_models, card_log, cpu_log, data, control,
+                 direct=None):
+    """Hold the card fits against the CPU fp32 fits; then report how the same
+    check judges the control fits (plain ops with TF32 products)."""
+    witnesses = [lstsq_coeffs(m, X) for m, X in zip(cpu_models, data)]
+    why, dist = judge_fits(card_models, cpu_models, card_log, cpu_log,
+                           witnesses, direct)
+    if why is not None:
+        raise AssertionError(f"{tag}: {why}")
+    log(f"  {tag}: |O| {[m.num_O for m in card_models]} |G| "
+        f"{[m.num_G for m in card_models]} equal on card and CPU; coefficients' "
+        f"max distance from the float64 least-squares witness: card "
+        f"{dist.get('err_card')!r}, CPU fp32 {dist.get('err_cpu')!r}; card vs CPU "
+        f"{dist.get('card_vs_cpu')!r}")
+    ctl_models, ctl_log = control
+    ctl_why, ctl = judge_fits(ctl_models, cpu_models, ctl_log, cpu_log, witnesses,
+                              direct)
+    log(f"  {tag}: control fit (plain ops, TF32 products): "
+        f"{ctl_why or 'passes the check'}; distances {ctl}")
+    return dict(dist, control=ctl_why or "passes", control_dist=ctl)
+
+
+def main_path_paper_scale():
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    log("phase 3: Algorithm 2 on appendix_c(m=2_000_000), 60/40 split, psi=0.005")
+    X, y = synthetic.appendix_c(m=2_000_000, seed=0)
+    Xtr, ytr, Xte, yte = synthetic.train_test_split(X, y, test_frac=0.4, seed=0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    clf, card_log = recording_fit(
+        lambda: VanishingIdealClassifier(PipelineConfig(method="fast", psi=PSI)).fit(Xtr, ytr)
+    )
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    feats = clf.transform(Xte)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t1
+    acc = float(np.mean(clf.head(feats) == yte))
+    launches = ops.launch_counts()
+    s = clf.stats
+    log(f"  fit {fit_s:.3f} s (generators {s['time_generators']:.3f} s, transform "
+        f"{s['time_transform']:.3f} s, svm {s['time_svm']:.3f} s, svm iters "
+        f"{s['svm']['iters']}); test transform of {Xte.shape[0]} rows {transform_s:.3f} s; "
+        f"accuracy {acc:.4f}")
+    for c, m in zip(clf.classes_, clf.models):
+        log(f"  class {c}: |O|={m.num_O} |G|={m.num_G} degrees {m.stats['degrees']} "
+            f"borders {m.stats['border_sizes']} degree_times "
+            f"{[round(t, 4) for t in m.stats['degree_times']]}")
+    appends = sum(not a for _, _, a in card_log)
+    log(f"  kernel launches on the main path: {launches}; of the ihb_update "
+        f"launches, {appends} append a column and the rest are gated off")
+    for name in ("gram_update_acc", "ihb_update"):
+        if launches[name] <= 0:
+            raise AssertionError(f"main path did not launch {name}")
+    if not (feats.shape == (Xte.shape[0], sum(m.num_G for m in clf.models))
+            and np.all(np.isfinite(feats))):
+        raise AssertionError("features are not finite of the expected shape")
+    if acc < 0.8:
+        raise AssertionError(f"accuracy {acc} below 0.8")
+
+    Xs = clf.scaler.transform(Xtr)
+    classes = [Xs[ytr == c] for c in clf.classes_]
+    t2 = time.perf_counter()
+    cpu_models, cpu_log = recording_fit(
+        lambda: api.fit_classes(classes, psi=PSI, device="cpu"))
+    log(f"  the same per-class fits on the CPU: {time.perf_counter() - t2:.3f} s")
+    with plain_tf32():
+        control = recording_fit(lambda: api.fit_classes(classes, psi=PSI))
+    check = compare_fits("paper scale", clf.models, cpu_models, card_log, cpu_log,
+                         classes, control, direct=FIT_DIRECT_TOL)
+    return launches, dict(fit_s=fit_s, transform_s=transform_s, accuracy=acc,
+                          ihb_appends=appends, **check)
+
+
+def main_path_wide():
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    log("phase 4: api.fit on class 0 of uci_like('spam') (n=57), psi=0.005")
+    X, y = synthetic.uci_like("spam", seed=0)
+    X0 = MinMaxScaler(dtype="float32").fit_transform(X)[y == 0]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, card_log = recording_fit(lambda: api.fit(X0, "oavi", psi=PSI))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st = card.stats
+    appends = sum(not a for _, _, a in card_log)
+    log(f"  m={X0.shape[0]} fit {fit_s:.3f} s; borders {st['border_sizes']}; "
+        f"Lcap {st['Lcap_final']} after {st['regrowths']} regrowths; degree_times "
+        f"{[round(t, 4) for t in st['degree_times']]}; launches {launches}, "
+        f"{appends} of the ihb_update launches append a column")
+    if st["Lcap_final"] != 2048:
+        raise AssertionError(f"expected Lcap 2048, got {st['Lcap_final']}")
+    for name in ("gram_update_acc", "ihb_update"):
+        if launches[name] <= 0:
+            raise AssertionError(f"wide path did not launch {name}")
+    feats = card.transform(X0)
+    if not np.all(np.isfinite(feats)):
+        raise AssertionError("wide-fit features are not finite")
+    t1 = time.perf_counter()
+    cpu, cpu_log = recording_fit(lambda: api.fit(X0, "oavi", psi=PSI, device="cpu"))
+    log(f"  the same fit on the CPU: {time.perf_counter() - t1:.3f} s")
+    with plain_tf32():
+        ctl, ctl_log = recording_fit(lambda: api.fit(X0, "oavi", psi=PSI))
+    check = compare_fits("wide", [card], [cpu], card_log, cpu_log, [X0],
+                         ([ctl], ctl_log))
+    return launches, dict(fit_s=fit_s, ihb_appends=appends, **check)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    log("phase 1: card and toolchain")
+    log(f"  {smi}; torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True).stdout.strip().splitlines()
+    log(f"  {nvcc[-2]} / {nvcc[-1]}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    for src, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  {src}: {line.strip()}")
+
+    log("phase 2: kernels against their plain versions on the card")
+    gacc = check_gram_acc(dev, 2_000_000, 64, 3, 64, split_blocks=3001, reps=10)
+    gacc_wide = check_gram_acc(dev, 4608, 2048, 57, 2048, split_blocks=7, reps=3)
+    gupd = check_gram_update(dev, 2_000_000, 64, 3, 64, reps=10)
+    ihb = {L: check_ihb(dev, L, steps=min(32, L // 4), reps=50) for L in (64, 512, 2048)}
+
+    launches, paper = main_path_paper_scale()
+    wide_launches, wide = main_path_wide()
+
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = [
+        dict(name="gram_update_acc", route="cuda", source=src + "gram_update.cu",
+             replaces="src/repro/kernels/gram_update.py:118",
+             launches=launches["gram_update_acc"], **gacc),
+        dict(name="gram_update", route="cuda", source=src + "gram_update.cu",
+             replaces="src/repro/kernels/gram_update.py:77",
+             launches=launches["gram_update"], **gupd),
+        dict(name="ihb_update", route="cuda", source=src + "ihb_update.cu",
+             replaces="src/repro/kernels/ihb_update.py:52",
+             launches=launches["ihb_update"], **ihb[64]),
+    ]
+    log("wide shapes: " + json.dumps({
+        "gram_update_acc": gacc_wide,
+        "ihb_update": {L: ihb[L] for L in (512, 2048)},
+        "launches_wide_fit": wide_launches,
+        "wide_fit": wide,
+        "paper_scale": paper,
+    }))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(nvidia_smi_line())
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

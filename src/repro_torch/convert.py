@@ -1,0 +1,59 @@
+"""Carry fitted parameters from the JAX package into the port.
+
+The JAX package's models serialize to a flat dict of numpy arrays plus JSON
+metadata (``OAVIModel.to_state_dict`` and
+``VanishingIdealClassifier.to_state_dict`` in ``repro``).  The functions here
+build the port's objects from that output, so both packages compute the same
+thing from the same parameters.  They read plain numpy and dicts only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from .core.oavi import OAVIModel
+from .core.pipeline import PipelineConfig, VanishingIdealClassifier
+from .core.svm import LinearSVMConfig
+
+
+def oavi_model_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
+                              device=None) -> OAVIModel:
+    """Port :class:`OAVIModel` from ``repro``'s ``OAVIModel.to_state_dict()``."""
+    if meta.get("kind") != "oavi":
+        raise ValueError(f"expected an OAVI model, got kind {meta.get('kind')!r}")
+    return OAVIModel.from_state_dict(arrays, meta, device=device)
+
+
+def classifier_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
+                              device=None) -> VanishingIdealClassifier:
+    """Port :class:`VanishingIdealClassifier` from ``repro``'s
+    ``VanishingIdealClassifier.to_state_dict()``: the scaler, the per-class
+    models and the SVM head."""
+    if meta.get("kind") != "classifier":
+        raise ValueError(f"expected a classifier, got kind {meta.get('kind')!r}")
+    cfg = meta["config"]
+    clf = VanishingIdealClassifier(
+        PipelineConfig(
+            method=cfg["method"],
+            psi=cfg["psi"],
+            svm=LinearSVMConfig(**cfg["svm"]),
+            oavi_kw=cfg["oavi_kw"],
+            batch_size=cfg["batch_size"],
+        ),
+        device=device,
+    )
+    clf.scaler.lo = np.asarray(arrays["scaler_lo"])
+    clf.scaler.scale = np.asarray(arrays["scaler_scale"])
+    clf.models = []
+    for i, model_meta in enumerate(meta["models"]):
+        prefix = f"model_{i:03d}."
+        sub = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+        clf.models.append(oavi_model_from_reference(sub, model_meta, device=clf.device))
+    clf.classes_ = np.asarray(arrays["classes"])
+    clf.svm.W = np.asarray(arrays["svm_W"])
+    clf.svm.b = np.asarray(arrays["svm_b"])
+    clf.svm.classes_ = clf.classes_
+    clf.stats = dict(meta.get("stats") or {})
+    return clf

@@ -1,0 +1,542 @@
+"""OAVI — the Oracle Approximate Vanishing Ideal algorithm (Algorithm 1).
+
+Counterpart of ``src/repro/core/oavi.py``, ``engine='fast'`` (closed-form
+IHB decisions, both ``inverse_engine`` choices).
+
+Host-side Python owns the *combinatorics* (term book, DegLex borders, Theorem
+4.3); PyTorch owns the linear algebra.  Per degree ``d`` the whole border is
+processed by one degree step:
+
+1.  Gram blocks ``QL = A^T B`` (L x K) and ``C = B^T B`` (K x K) of the
+    candidate columns ``B = A[:, parents] * X[:, vars]``: the only O(m) work,
+    done by :func:`repro_torch.kernels.ops.gram_accumulate` (the hand-written
+    CUDA kernel on the card, the plain blocked version on the CPU), reduced
+    in the canonical ``GRAM_BLOCK``-row order.
+2.  A loop over the K candidates replays the sequential semantics of
+    Algorithm 1 from the Gram blocks alone: the ``A^T b`` vector of candidate
+    ``a`` is ``QL[:, a]`` plus ``C[j, a]`` scattered into the slots of the
+    candidates ``j < a`` appended this degree.  A rejected candidate appends
+    its column through :func:`repro_torch.core.ihb.append_column` (the CUDA
+    ``ihb_update`` kernel on the card).  Every decision stays on the device —
+    the append is gated by a device flag, not a host branch — so the loop
+    syncs with the host once per degree, not once per candidate.
+3.  The appended candidate columns are written into ``A``.
+
+``|O|`` capacity (``Lcap``) and border capacity (``Kcap``) are power-of-two
+buckets that grow on demand, as in the reference.  ``A`` and ``X`` are kept
+with ``m`` padded to a multiple of ``GRAM_BLOCK`` by zero rows, so the Gram
+op never copies them to pad.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _device
+from ..kernels import ops as kernel_ops
+from . import ihb as ihb_mod
+from . import terms as terms_mod
+from .ordering import pearson_order
+
+_ORACLE_TODO = (
+    "engine='oracle' (the convex-oracle variants) is not ported yet: "
+    "ROADMAP.md queue 1 item 5"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class OAVIConfig:
+    """The reference's ``OAVIConfig`` less the oracle engine's fields
+    (``solver``, ``ihb``, ``wihb``), which come with ROADMAP queue 1 item 5."""
+
+    psi: float = 0.005
+    engine: str = "fast"  # 'fast' ('oracle' is not ported yet)
+    inverse_engine: str = "inverse"  # 'inverse' (Thm 4.9) | 'chol' (beyond-paper)
+    max_degree: int = 10
+    cap_terms: int = 64  # initial |O| capacity bucket; grows on demand
+    cap_border: int = 64  # initial border capacity; grows on demand
+    dtype: str = "float32"
+    ordering: str = "pearson"  # 'pearson' | 'none' | 'reverse_pearson'
+
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def ihb_factors(self) -> Tuple[str, ...]:
+        return ihb_mod.factors_for(self.engine, self.inverse_engine)
+
+
+class Generator(NamedTuple):
+    term: terms_mod.Term  # leading term
+    parent_idx: int  # index (into O) of the parent term, term = parent * x_var
+    var: int
+    coeffs: np.ndarray  # coefficients over O terms (length = |O| at accept time)
+    mse: float
+
+
+@dataclasses.dataclass
+class OAVIModel:
+    """Output of OAVI: term book for O, generators G, and transform machinery.
+
+    ``device`` is where :meth:`evaluate_O` / :meth:`evaluate_G` run.
+    """
+
+    n: int
+    psi: float
+    book: terms_mod.TermBook
+    generators: List[Generator]
+    feature_perm: Optional[np.ndarray]  # Pearson ordering permutation (or None)
+    stats: Dict
+    dtype: str = "float32"
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+
+    @property
+    def num_O(self) -> int:
+        return len(self.book)
+
+    @property
+    def num_G(self) -> int:
+        return len(self.generators)
+
+    def term_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        return (
+            np.asarray(self.book.parents, dtype=np.int32),
+            np.asarray(self.book.vars, dtype=np.int32),
+        )
+
+    def generator_arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        k = len(self.generators)
+        ell = len(self.book)
+        C = np.zeros((ell, k), dtype=np.dtype(self.dtype))
+        gp = np.zeros((k,), dtype=np.int32)
+        gv = np.zeros((k,), dtype=np.int32)
+        for j, g in enumerate(self.generators):
+            C[: len(g.coeffs), j] = g.coeffs
+            gp[j] = g.parent_idx
+            gv[j] = g.var
+        return C, gp, gv
+
+    def _as_input(self, Z) -> torch.Tensor:
+        return _device.tensor(Z, getattr(torch, self.dtype), self.device)
+
+    def evaluate_O(self, Z) -> torch.Tensor:
+        """Evaluation matrix O(Z): (q, |O|) — degree-wavefront evaluation."""
+        parents, vars_ = self.term_arrays()
+        return evaluate_terms(self._as_input(Z), parents, vars_)
+
+    def evaluate_G(self, Z) -> torch.Tensor:
+        """Evaluation matrix G(Z): (q, |G|).  Theorem 4.2 machinery."""
+        Z = self._as_input(Z)
+        if self.feature_perm is not None:
+            Z = Z[:, torch.as_tensor(self.feature_perm, device=self.device)]
+        cols = self.evaluate_O(Z)
+        if not self.generators:
+            return Z.new_zeros((Z.shape[0], 0))
+        C, gp, gv = self.generator_arrays()
+        dev = self.device
+        lead = cols[:, torch.as_tensor(gp, device=dev).long()] * Z[
+            :, torch.as_tensor(gv, device=dev).long()
+        ]
+        return cols @ torch.as_tensor(C, device=dev) + lead
+
+    def mse(self, Z) -> torch.Tensor:
+        """Per-generator MSE over Z."""
+        G = self.evaluate_G(Z)
+        return torch.mean(G * G, dim=0)
+
+    def transform(self, Z) -> np.ndarray:
+        """(FT) for this model alone: ``|G(Z)|`` as (q, |G|) in model dtype."""
+        return np.abs(self.evaluate_G(Z).cpu().numpy())
+
+    def to_state_dict(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """Flat array tree + JSON-safe metadata, in the JAX package's layout
+        (the term book and leading terms replay from the ``(parent, var)``
+        chains)."""
+        parents, vars_ = self.term_arrays()
+        k = len(self.generators)
+        L = len(self.book)
+        coeffs = np.zeros((k, L), dtype=np.dtype(self.dtype))
+        lens = np.zeros((k,), np.int32)
+        gp = np.zeros((k,), np.int32)
+        gv = np.zeros((k,), np.int32)
+        mses = np.zeros((k,), np.float64)
+        for j, g in enumerate(self.generators):
+            coeffs[j, : len(g.coeffs)] = g.coeffs
+            lens[j] = len(g.coeffs)
+            gp[j] = g.parent_idx
+            gv[j] = g.var
+            mses[j] = g.mse
+        perm = (
+            np.asarray(self.feature_perm, np.int32)
+            if self.feature_perm is not None
+            else np.zeros((0,), np.int32)
+        )
+        arrays = {
+            "book_parents": parents,
+            "book_vars": vars_,
+            "gen_coeffs": coeffs,
+            "gen_lens": lens,
+            "gen_parent": gp,
+            "gen_var": gv,
+            "gen_mse": mses,
+            "feature_perm": perm,
+        }
+        meta = {
+            "kind": "oavi",
+            "n": int(self.n),
+            "psi": float(self.psi),
+            "dtype": str(self.dtype),
+            "has_perm": self.feature_perm is not None,
+            "stats": self.stats,
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state_dict(cls, arrays: Dict[str, np.ndarray], meta: Dict,
+                        device=None) -> "OAVIModel":
+        """Rebuild a model from :meth:`to_state_dict` output (also the JAX
+        package's); ``device=None`` means the CUDA card."""
+        n = int(meta["n"])
+        dtype = str(meta["dtype"])
+        bp = np.asarray(arrays["book_parents"]).astype(np.int64)
+        bv = np.asarray(arrays["book_vars"]).astype(np.int64)
+        book = terms_mod.TermBook(n=n)
+        for i in range(1, bp.shape[0]):
+            parent = book.terms[int(bp[i])]
+            var = int(bv[i])
+            book.append(terms_mod.multiply_by_var(parent, var), parent, var)
+        coeffs = np.asarray(arrays["gen_coeffs"]).astype(np.dtype(dtype))
+        lens = np.asarray(arrays["gen_lens"]).astype(np.int64)
+        gp = np.asarray(arrays["gen_parent"]).astype(np.int64)
+        gv = np.asarray(arrays["gen_var"]).astype(np.int64)
+        mses = np.asarray(arrays["gen_mse"]).astype(np.float64)
+        generators = []
+        for j in range(gp.shape[0]):
+            p, v = int(gp[j]), int(gv[j])
+            generators.append(
+                Generator(
+                    term=terms_mod.multiply_by_var(book.terms[p], v),
+                    parent_idx=p,
+                    var=v,
+                    coeffs=coeffs[j, : int(lens[j])].copy(),
+                    mse=float(mses[j]),
+                )
+            )
+        perm = (
+            np.asarray(arrays["feature_perm"]).astype(np.int64)
+            if meta.get("has_perm")
+            else None
+        )
+        return cls(
+            n=n,
+            psi=float(meta["psi"]),
+            book=book,
+            generators=generators,
+            feature_perm=perm,
+            stats=dict(meta.get("stats") or {}),
+            dtype=dtype,
+            device=_device.resolve(device),
+        )
+
+    def save(self, path: str) -> str:
+        raise NotImplementedError(
+            "saving models (checkpoint/store.py) is not ported yet: ROADMAP.md "
+            "queue 1 item 15"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Term evaluation: degree wavefronts
+# ---------------------------------------------------------------------------
+
+
+def wavefront_schedule(parents, vars_):
+    """Degree-wavefront evaluation plan for a term book.
+
+    A term's parent has exactly one degree less (``term = parent * x_var``),
+    so all terms of one degree evaluate in one batched gather+product over the
+    previous degree's block — O(max_degree) sequential steps, not O(|O|).
+
+    Returns ``(waves, perm)``: ``waves[d] = (parent_pos, var)`` with
+    ``parent_pos`` indexing into the degree-``d-1`` block, and ``perm`` the
+    gather restoring original column order after concatenating the blocks
+    (``None`` when the book is already degree-ordered).
+    """
+    parents = np.asarray(parents, np.int64)
+    vars_np = np.asarray(vars_, np.int64)
+    L = parents.shape[0]
+    deg = np.zeros((L,), np.int64)
+    for i in range(1, L):
+        deg[i] = deg[parents[i]] + 1
+    waves = []
+    prev_idx = np.zeros((1,), np.int64)  # wave 0: the constant column
+    order = [prev_idx]
+    for d in range(1, int(deg.max()) + 1 if L > 1 else 1):
+        idx = np.nonzero(deg == d)[0]
+        pos = np.searchsorted(prev_idx, parents[idx])
+        if not np.array_equal(prev_idx[pos], parents[idx]):
+            raise ValueError("term book is not an order ideal: parent not at degree d-1")
+        waves.append((pos, vars_np[idx]))
+        order.append(idx)
+        prev_idx = idx
+    order = np.concatenate(order)
+    perm = None if np.array_equal(order, np.arange(L)) else np.argsort(order)
+    return tuple(waves), perm
+
+
+def apply_wavefronts(Z: torch.Tensor, waves, perm=None) -> torch.Tensor:
+    """Evaluate a wavefront schedule over ``Z``: one column gather + product
+    per degree (each reading only the previous degree's block), one concat,
+    and — only for fused multi-book plans — one column permutation.
+
+    The JAX package expressed the gathers as one-hot matmuls for the TPU's
+    matrix unit; on the GPU they are index gathers, which give the same bits
+    (a one-hot product sums one value and exact zeros).
+    """
+    dev = Z.device
+    prev = Z.new_ones((Z.shape[0], 1))
+    blocks = [prev]
+    for pos, var in waves:
+        pos_t = torch.as_tensor(pos, device=dev)
+        var_t = torch.as_tensor(var, device=dev)
+        prev = prev[:, pos_t] * Z[:, var_t]
+        blocks.append(prev)
+    cols = torch.cat(blocks, dim=1) if len(blocks) > 1 else blocks[0]
+    if perm is not None:
+        cols = cols[:, torch.as_tensor(perm, device=dev)]
+    return cols
+
+
+def evaluate_terms(Z: torch.Tensor, parents, vars_) -> torch.Tensor:
+    """Evaluate all O terms over Z: ``col_i = col_parent * Z[:, var]``."""
+    waves, perm = wavefront_schedule(parents, vars_)
+    return apply_wavefronts(Z, waves, perm)
+
+
+# ---------------------------------------------------------------------------
+# The degree step
+# ---------------------------------------------------------------------------
+
+
+class DegreeResult(NamedTuple):
+    """Host copies of one degree's decisions (first K candidates)."""
+
+    accepted: np.ndarray  # (K,) bool
+    mses: np.ndarray  # (K,)
+    coeffs: np.ndarray  # (K, Lcap)
+    slots: np.ndarray  # (K,) slot of each appended candidate, Lcap otherwise
+
+
+def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
+               ell0: int, K: int, m_total: int):
+    """Every accept/reject decision of one degree from the raw Gram
+    statistics alone (the reference's ``_make_stats_degree_step``, fast
+    engine).  Returns ``(DegreeResult, new IHB state)``.
+
+    The K valid candidates run in order; padded lanes ``K..Kcap`` are never
+    visited (the reference masks them to no-ops).
+    """
+    dtype = cfg.torch_dtype()
+    np_dtype = np.dtype(cfg.dtype)
+    dev = QL_raw.device
+    Lcap, Kcap = QL_raw.shape
+    psi = torch.tensor(cfg.psi, dtype=dtype, device=dev)
+    # normalized Gram convention (Abar = A / sqrt(m)): MSE(g) = btb + q^T y;
+    # 1/m is rounded in the working dtype, as the reference does
+    inv_m = torch.tensor(np_dtype.type(1.0) / np_dtype.type(m_total), dtype=dtype,
+                         device=dev)
+    QL = (QL_raw * inv_m).to(dtype)
+    C = (C_raw * inv_m).to(dtype)
+    # one trash row at index Lcap absorbs the scatter of candidates that were
+    # not appended, so the scatter below needs no host-side mask
+    QLx = torch.cat([QL, QL.new_zeros((1, Kcap))], dim=0)
+
+    use_chol = cfg.inverse_engine == "chol"
+    ar = torch.arange(Lcap, device=dev)
+    ell = torch.tensor(ell0, dtype=torch.int32, device=dev)
+    slots = torch.full((K,), Lcap, dtype=torch.long, device=dev)
+    accepted = torch.zeros((K,), dtype=torch.bool, device=dev)
+    coeffs = torch.zeros((K, Lcap), dtype=dtype, device=dev)
+    mses = torch.zeros((K,), dtype=dtype, device=dev)
+    no_slot = torch.tensor(Lcap, dtype=torch.long, device=dev)
+
+    for a in range(K):
+        q = QLx[:, a].clone()
+        if a > 0:
+            # correction for the columns appended earlier in this degree; the
+            # slots are distinct, so the scatter is deterministic
+            before = slots[:a]
+            q.index_put_((before,), q[before] + C[:a, a])
+        q = q[:Lcap]
+        btb = C[a, a]
+        if use_chol:
+            y0 = ihb_mod.closed_form_cholesky(state, q)
+        else:
+            y0 = ihb_mod.closed_form_inverse(state, q)
+        y0 = torch.where(ar < ell, y0, 0.0)
+        # sum(q * y0), the reduction the reference uses
+        mse0 = btb + torch.sum(q * y0)
+        accept = mse0 <= psi
+        # on reject: append the column to O (slot = ell) and update the factor
+        do_append = ~accept
+        state = ihb_mod.append_column(state, q, btb, ell, active=do_append)
+        slots[a] = torch.where(do_append, ell.long(), no_slot)
+        ell = ell + do_append.to(torch.int32)
+        accepted[a] = accept
+        coeffs[a] = torch.where(accept, y0, 0.0)
+        mses[a] = mse0
+
+    result = DegreeResult(
+        accepted=accepted.cpu().numpy(),
+        mses=mses.cpu().numpy(),
+        coeffs=coeffs.cpu().numpy(),
+        slots=slots.cpu().numpy(),
+    )
+    return result, state
+
+
+def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,
+                m_total: int):
+    """One degree in memory: the fused Gram op, the candidate loop
+    (:func:`stats_step`), and the appended columns written into ``A``.
+
+    ``A`` is updated in place (the JAX package donates it to the same end).
+    Returns ``(DegreeResult, new IHB state)``.
+    """
+    dev = A.device
+    p_t = torch.as_tensor(parents, device=dev)
+    v_t = torch.as_tensor(vars_, device=dev)
+    # all O(m) work: the hand-written kernel on the card
+    QL_raw, C_raw = kernel_ops.gram_accumulate(A, X, p_t, v_t)
+    res, state = stats_step(cfg, QL_raw, C_raw, state, ell0, K, m_total)
+    Lcap = A.shape[1]
+    idx = np.nonzero((~res.accepted) & (res.slots < Lcap))[0]
+    if idx.size:
+        sel = torch.as_tensor(idx, device=dev)
+        cols = A[:, p_t[sel]] * X[:, v_t[sel]]
+        A.index_copy_(1, torch.as_tensor(res.slots[idx], device=dev), cols)
+    return res, state
+
+
+def pow2_bucket(x: int) -> int:
+    """Smallest power of two >= x (shape bucketing for Lcap / Kcap)."""
+    return 1 << max(int(x) - 1, 1).bit_length() if x > 2 else 2
+
+
+def border_index_arrays(book: terms_mod.TermBook, border, Kcap: int):
+    """Padded (parents, vars, valid) host arrays for one degree's border."""
+    parents = np.zeros((Kcap,), np.int64)
+    vars_ = np.zeros((Kcap,), np.int64)
+    valid = np.zeros((Kcap,), bool)
+    for i, (term, parent, j) in enumerate(border):
+        parents[i] = book.index[parent]
+        vars_[i] = j
+        valid[i] = True
+    return parents, vars_, valid
+
+
+def collect_degree(book, border, accepted, mses, coeffs, generators) -> int:
+    """Host-side bookkeeping after a degree step: accepted candidates become
+    generators, rejected ones extend the term book.  Returns the new |O|."""
+    for i, (term, parent, j) in enumerate(border):
+        if accepted[i]:
+            ell_at = len(book)
+            generators.append(
+                Generator(
+                    term=term,
+                    parent_idx=book.index[parent],
+                    var=j,
+                    coeffs=coeffs[i, :ell_at].copy(),
+                    mse=float(mses[i]),
+                )
+            )
+        else:
+            book.append(term, parent, j)
+    return len(book)
+
+
+def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
+    """Run OAVI on ``X`` (m, n) in [0,1]^n.  ``device=None`` means the CUDA
+    card (and raises without one); pass ``device="cpu"`` for the CPU."""
+    if config.engine != "fast":
+        raise NotImplementedError(_ORACLE_TODO)
+    dev = _device.resolve(device)
+    dtype = config.torch_dtype()
+    t_start = time.perf_counter()
+    launches0 = kernel_ops.launch_counts()
+    X = np.asarray(X)
+    m, n = X.shape
+    stats: Dict = {"border_sizes": [], "degrees": [], "degree_times": [],
+                   "regrowths": 0, "m": m, "n": n}
+
+    perm = None
+    if config.ordering in ("pearson", "reverse_pearson"):
+        perm = pearson_order(X, reverse=(config.ordering == "reverse_pearson"))
+        X = X[:, perm]
+    elif config.ordering != "none":
+        raise ValueError(f"unknown ordering {config.ordering!r}")
+
+    # rows padded once to the Gram block with zeros (bitwise no-ops)
+    m_pad = kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK)
+    Xd = torch.zeros((m_pad, n), dtype=dtype, device=dev)
+    Xd[:m] = _device.tensor(X, dtype, dev)
+    book = terms_mod.TermBook(n=n)
+    generators: List[Generator] = []
+
+    Lcap = pow2_bucket(config.cap_terms)
+    A = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
+    A[:m, 0] = 1.0
+    # normalized Gram convention: AtA[0,0] = ||1||^2 / m = 1
+    state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(),
+                               device=dev)
+    ell = 1
+
+    d = 0
+    while True:
+        d += 1
+        if d > config.max_degree:
+            stats["termination"] = f"max_degree={config.max_degree}"
+            break
+        border = book.border(d)
+        if not border:
+            stats["termination"] = "empty_border"
+            break
+        K = len(border)
+        stats["border_sizes"].append(K)
+        stats["degrees"].append(d)
+
+        # capacity management: regrowth into the next pow2 bucket
+        while ell + K > Lcap:
+            Lcap *= 2
+            stats["regrowths"] += 1
+            grown = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
+            grown[:, : A.shape[1]] = A
+            A = grown
+            state = ihb_mod.grow_state(state, Lcap)
+
+        Kcap = max(config.cap_border, pow2_bucket(K))
+        parents, vars_, _ = border_index_arrays(book, border, Kcap)
+        t0 = time.perf_counter()
+        res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m)
+        stats["degree_times"].append(time.perf_counter() - t0)
+        ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
+                             generators)
+
+    launches1 = kernel_ops.launch_counts()
+    stats["kernel_launches"] = {k: launches1[k] - launches0[k] for k in launches1}
+    stats["Lcap_final"] = Lcap
+    stats["time_total"] = time.perf_counter() - t_start
+    return OAVIModel(
+        n=n,
+        psi=config.psi,
+        book=book,
+        generators=generators,
+        feature_perm=perm,
+        stats=stats,
+        dtype=config.dtype,
+        device=dev,
+    )

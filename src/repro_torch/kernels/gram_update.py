@@ -1,0 +1,96 @@
+"""Launcher of the hand-written CUDA Gram kernel (``csrc/gram_update.cu``).
+
+The CUDA counterpart of the Pallas kernels ``gram_update_acc`` and
+``gram_update`` (``src/repro/kernels/gram_update.py``): border evaluation
+``B = A[:, parents] * X[:, vars]`` fused with both Gram products, reduced in
+the canonical order (per ``bm``-row block partials folded left to right onto
+the carry).  The plain PyTorch version is
+:func:`repro_torch.kernels.ref.gram_accumulate_ref`; dispatch and padding live
+in :mod:`repro_torch.kernels.ops`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+# rows staged per shared-memory slab in the kernel: bm must be a multiple
+SLAB_ROWS = 32
+# largest partials buffer one call allocates; row blocks beyond it are walked
+# in groups (each group a carried call, so the grouping changes no bit)
+SCRATCH_BYTES = 256 << 20
+_MAX_GRID_Y = 65535
+
+# kernel launches made through this wrapper, by Pallas kernel name
+launches = {"gram_update_acc": 0, "gram_update": 0}
+
+
+def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
+    device = A.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {device}")
+    if A.dim() != 2 or X.dim() != 2:
+        raise ValueError("A and X must be 2-D")
+    m, L = A.shape
+    n = X.shape[1]
+    K = parents.shape[0]
+    _check_f32("A", A, (m, L), device)
+    _check_f32("X", X, (m, n), device)
+    if parents.shape != (K,) or vars_.shape != (K,):
+        raise ValueError("parents and vars must be 1-D of equal length")
+    if bm <= 0 or bm % SLAB_ROWS or m % bm:
+        raise ValueError(
+            f"m={m} must be a multiple of bm={bm}, itself a multiple of {SLAB_ROWS}"
+        )
+    if acc is not None:
+        _check_f32("ql0", acc[0], (L, K), device)
+        _check_f32("c0", acc[1], (K, K), device)
+    QL = torch.empty((L, K), dtype=torch.float32, device=device)
+    C = torch.empty((K, K), dtype=torch.float32, device=device)
+    if K == 0:
+        return QL, C
+    p32 = parents.to(device=device, dtype=torch.int32).contiguous()
+    v32 = vars_.to(device=device, dtype=torch.int32).contiguous()
+    nb = m // bm
+    per_block = (L + K) * K
+    group = max(1, min(nb, _MAX_GRID_Y, SCRATCH_BYTES // (4 * per_block)))
+    scratch = torch.empty(group * per_block, dtype=torch.float32, device=device)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.repro_gram_update(
+            A.data_ptr(), X.data_ptr(), p32.data_ptr(), v32.data_ptr(),
+            acc[0].data_ptr() if acc is not None else None,
+            acc[1].data_ptr() if acc is not None else None,
+            QL.data_ptr(), C.data_ptr(), scratch.data_ptr(),
+            m, L, n, K, bm, group, stream,
+        )
+    _build.check(err, name)
+    launches[name] += 1
+    return QL, C
+
+
+def gram_update_acc(A, X, parents, vars_, ql0=None, c0=None, *, bm: int):
+    """``(ql0 + A^T B, c0 + B^T B)`` on the card, ``m`` a multiple of ``bm``;
+    no carry (``ql0 = c0 = None``) starts from zeros."""
+    acc = None if ql0 is None and c0 is None else (ql0, c0)
+    return _launch(A, X, parents, vars_, acc, bm, "gram_update_acc")
+
+
+def gram_update(A, X, parents, vars_, *, bm: int = 512):
+    """``(A^T B, B^T B)`` on the card: the zero-carry form of the same kernel."""
+    return _launch(A, X, parents, vars_, None, bm, "gram_update")

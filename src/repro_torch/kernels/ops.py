@@ -1,0 +1,106 @@
+"""Public wrappers around the hand-written kernels: padding and dispatch.
+
+Counterpart of ``src/repro/kernels/ops.py``.  Each op pads its inputs to the
+kernel's row block and dispatches on where its tensors lie:
+
+* a CPU tensor goes to the plain PyTorch version in :mod:`.ref`;
+* a CUDA tensor launches the CUDA kernel, or raises (a failed build or launch
+  is an error, never a quiet switch to the plain version).
+
+``use_kernel=False`` forces the plain version on a CUDA tensor; only the tests
+and ``chip_smoke.py`` pass it, to compare the kernel with its plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import gram_update as _gram
+from . import ihb_update as _ihb
+from . import ref
+
+# Row-block granularity of the canonical (streamable) Gram reduction: the
+# degree step reduces in GRAM_BLOCK row blocks, so a chunked reduction is
+# bit-identical to one call for any chunk that is a multiple of this.
+GRAM_BLOCK = 256
+
+
+def round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _kernel_path(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """True to launch the CUDA kernel, False for the plain version."""
+    if t.device.type == "cuda":
+        return use_kernel is not False
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")
+    if use_kernel:
+        raise ValueError("use_kernel=True needs CUDA tensors")
+    return False
+
+
+def _pad_rows(T: torch.Tensor, m_pad: int) -> torch.Tensor:
+    return T if T.shape[0] == m_pad else F.pad(T, (0, 0, 0, m_pad - T.shape[0]))
+
+
+def gram_update(A, X, parents, vars_, *, bm: int = 512, use_kernel=None):
+    """``(QL, C) = (A^T B, B^T B)`` with ``B = A[:, parents] * X[:, vars]``.
+
+    Un-normalized (the caller divides by m).  The kernel path pads m to a
+    multiple of ``bm``; the plain path is one un-blocked product, as in the
+    JAX package's off-TPU fallback.
+    """
+    if not _kernel_path(A, use_kernel):
+        return ref.gram_update_gather_ref(A, X, parents, vars_)
+    m_pad = round_up(A.shape[0], bm)
+    return _gram.gram_update(
+        _pad_rows(A, m_pad), _pad_rows(X, m_pad), parents, vars_, bm=bm
+    )
+
+
+def gram_accumulate(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BLOCK,
+                    use_kernel=None):
+    """Canonical blocked Gram reduction with carry: ``(acc_QL + A^T B,
+    acc_C + B^T B)`` accumulated sequentially over ``bm``-row blocks.
+
+    This is the degree step's Gram op.  ``acc=None`` starts from zeros.  ``m``
+    is padded to a multiple of ``bm`` with zero rows (bitwise no-ops: the OAVI
+    domain is >= +0.0).  Un-normalized; the caller divides by m.
+    """
+    L = A.shape[1]
+    K = parents.shape[0]
+    m_pad = round_up(A.shape[0], bm)
+    A = _pad_rows(A, m_pad)
+    X = _pad_rows(X, m_pad)
+    if not _kernel_path(A, use_kernel):
+        if acc is None:
+            acc = (A.new_zeros((L, K)), A.new_zeros((K, K)))
+        return ref.gram_accumulate_ref(A, X, parents, vars_, acc[0], acc[1], bm=bm)
+    ql0, c0 = (None, None) if acc is None else acc
+    return _gram.gram_update_acc(A, X, parents, vars_, ql0, c0, bm=bm)
+
+
+def ihb_update(N, q, btb, ell, *, active=None, use_kernel=None):
+    """Theorem 4.9 padded block-inverse update (see :func:`.ref.ihb_update_ref`).
+
+    ``active`` (a bool tensor) makes the update conditional without a host
+    sync: false returns ``N`` unchanged.
+    """
+    if not _kernel_path(N, use_kernel):
+        return ref.ihb_update_ref(N, q, btb, ell, active)
+    return _ihb.ihb_update(N, q, btb, ell, active)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each CUDA kernel since the last reset, by Pallas kernel."""
+    return {**_gram.launches, **_ihb.launches}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_gram.launches, _ihb.launches):
+        for k in counts:
+            counts[k] = 0

@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the Pallas kernels' semantics.
+
+Counterparts of ``src/repro/kernels/ref.py``.  The CPU path of
+:mod:`repro_torch.kernels.ops` runs these, the tests hold them against the
+JAX package's references, and ``chip_smoke.py`` holds the CUDA kernels
+against them on the card.  Matrix products here are full fp32 only while
+``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default); a
+comparison with the kernels, which never use TF32, sets it so itself.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def border_columns_ref(A, X, parents, vars_):
+    """Candidate columns ``B = A[:, parents] * X[:, vars]`` by direct gather."""
+    return A.index_select(1, parents) * X.index_select(1, vars_)
+
+
+def gram_update_gather_ref(A, X, parents, vars_):
+    """``(A^T B, B^T B)`` with the candidate columns built by gather."""
+    B = border_columns_ref(A, X, parents, vars_)
+    return A.T @ B, B.T @ B
+
+
+def gram_accumulate_ref(A, X, parents, vars_, ql0, c0, *, bm: int):
+    """Blocked carry-in Gram reduction in the canonical order: both Grams of
+    every ``bm``-row block (one batched product), then the block partials
+    folded onto ``(ql0, c0)`` strictly left to right.
+
+    Each block's partial depends on that block's rows alone, so chaining calls
+    over row chunks that are multiples of ``bm`` gives the same bits as one
+    call.  ``A.shape[0]`` must be a multiple of ``bm`` (ops pads with zero
+    rows, which add exact zeros: every OAVI value is >= +0.0).
+    """
+    m, L = A.shape
+    nb = m // bm
+    B = border_columns_ref(A, X, parents, vars_)
+    Ab = A.reshape(nb, bm, L)
+    Bb = B.reshape(nb, bm, B.shape[1])
+    QLb = torch.bmm(Ab.transpose(1, 2), Bb)
+    Cb = torch.bmm(Bb.transpose(1, 2), Bb)
+    ql, c = ql0, c0
+    for b in range(nb):
+        ql = ql + QLb[b]
+        c = c + Cb[b]
+    return ql, c
+
+
+def ihb_update_ref(N, q, btb, ell, active=None):
+    """Theorem 4.9 block-inverse update on the padded inverse (identity in the
+    inactive block); mirrors ``repro.kernels.ref.ihb_update_ref``.
+
+    Contract: ``q`` is zero at slot ``ell`` and beyond, and row/column ``ell``
+    of ``N`` is its identity row, so ``u[ell] = 0``.  The Schur complement
+    reduces as ``sum(q * u)``.  ``ell``, ``btb`` and ``active`` may be device
+    tensors (no host sync); ``active`` false returns ``N`` unchanged.
+    """
+    L = N.shape[0]
+    dtype = N.dtype
+    ell_t = torch.as_tensor(ell, device=N.device).reshape(1).long()
+    onehot = (torch.arange(L, device=N.device) == ell_t).to(dtype)
+    keep = 1.0 - onehot
+    u = N @ q
+    s = torch.clamp(btb - torch.sum(q * u), min=1e-30)
+    n2 = -u / s
+    P = N + torch.outer(u, u) / s
+    colrow = n2 * keep + onehot / s  # new row & column ell (diag = 1/s)
+    P = P.index_copy(1, ell_t, colrow[:, None])
+    P = P.index_copy(0, ell_t, colrow[None, :])
+    if active is not None:
+        P = torch.where(active, P, N)
+    return P

@@ -21,3 +21,10 @@ def planted_cube():
     X[:, 3] = X[:, 0] * X[:, 1] + rng.normal(0, 0.01, 1200)
     X[:, 3] = np.clip(X[:, 3], 0, 1)
     return X
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA card; run there with `pytest -m gpu tests/`",
+    )

@@ -17,6 +17,18 @@ Phases, each reported on its own lines:
    split; the per-class fits are then run again on the CPU and compared.
 4. Main path, wide: one OAVI fit on class 0 of the spam-shaped set (n = 57),
    which grows to Lcap = Kcap = 2048; compared with the same fit on the CPU.
+5. Flash attention: the CUDA kernel in bf16 against its plain version
+   computed in fp32 from the same bf16 inputs, at the serve shape (Qwen3-8B,
+   batch 4, 2048 tokens), a ragged causal length, a ragged non-causal key
+   length and dv != d; the bf16 plain version's own error beside it; each
+   timed beside its bound, the plain version and PyTorch's
+   ``scaled_dot_product_attention``.
+6. Main path, LM serving: ``launch.serve.serve`` of Qwen3-8B at its full
+   width (36 layers, random weights from seed 0), batch 4, 2048-token
+   prompts, 32 generated tokens; the prefill must launch the kernel once per
+   layer.  The same model's prefill logits and one teacher-forced decode step
+   are then held against the model run with the plain attention and against
+   an fp32 copy of it.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -37,8 +49,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PSI = 0.005
-# published peaks of one H100 SXM (fp32 outside the tensor cores; HBM3)
+# published peaks of one H100 SXM (fp32 outside the tensor cores, bf16 dense
+# on them; HBM3)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version: the same fp32 products, each 256-row block summed
 # in another order, the blocks folded in the same order.  Gram entries are
@@ -64,6 +78,20 @@ FIT_ERR_FACTOR, FIT_ERR_FLOOR = 2.0, 1e-4
 # float64 solution, so it is not.
 FIT_DIRECT_TOL = (1e-4, 1e-5)
 BAND = 1e-3  # verdicts within BAND * psi of psi may flip between sum orders
+# flash kernel (bf16) vs the plain version in fp32 on the same bf16 inputs:
+# the JAX package's tolerance for its bf16 flash kernel (tests/test_kernels.py);
+# the output's own bf16 rounding is up to 2^-9 relative, p's rounding to bf16
+# adds as much again
+FLASH_TOL = 2e-2
+# LM logits: the kernel model and the plain-attention model are both bf16 and
+# differ only in attention's roundings (the kernel keeps the scores in fp32,
+# the plain version rounds them to bf16 before the softmax).  How far bf16
+# rounding moves these logits at this depth is measured in the run: the plain
+# bf16 model's distance from an fp32 copy of the same weights.  The kernel
+# model may be no further from the fp32 model than LM_FACTOR times that, and
+# no further from the plain bf16 model than LM_FACTOR times that either; a
+# wrong mask or head mapping moves logits by their whole spread instead.
+LM_FACTOR = 2.0
 
 
 def log(*parts):
@@ -94,8 +122,8 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -524,6 +552,195 @@ def main_path_wide():
     return launches, dict(fit_s=fit_s, ihb_appends=appends, **check)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: flash attention
+# ---------------------------------------------------------------------------
+
+
+def check_flash(dev, tag, B, Hq, Hkv, Sq, Sk, d, dv, causal, reps):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention, uses_tensor_cores
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(Sq * 31 + Sk + d)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = draw(B * Hq, Sq, d), draw(B * Hkv, Sk, d), draw(B * Hkv, Sk, dv)
+    group = Hq // Hkv
+    got = ops.multihead_attention(q.view(B, Hq, Sq, d), k.view(B, Hkv, Sk, d),
+                                  v.view(B, Hkv, Sk, dv), causal=causal)
+    got = got.reshape(B * Hq, Sq, dv)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             q_heads_per_kv=group)
+    plain_bf16 = ref.attention_ref(q, k, v, causal=causal, q_heads_per_kv=group)
+    torch.cuda.synchronize()
+    name = (f"flash_attention {tag}: (B*Hq, Sq, d)=({B * Hq}, {Sq}, {d}), Sk={Sk}, dv={dv}, "
+            f"group {group}, causal={causal}, "
+            f"{'mma.sync' if uses_tensor_cores(q.dtype, d, dv) else 'scalar'} variant")
+    err = check_close(name, got.float(), want, FLASH_TOL, FLASH_TOL)
+    plain_err = float((plain_bf16.float() - want).abs().max())
+    log(f"  {name}: the bf16 plain version's own max_abs_err {plain_err:.6g}")
+    del want, plain_bf16
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.view(B, Hq, Sq, d), k.view(B, Hkv, Sk, d), v.view(B, Hkv, Sk, dv),
+            is_causal=causal, enable_gqa=group > 1)
+
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, q_heads_per_kv=group), reps)
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
+                                                 q_heads_per_kv=group), max(1, reps // 10))
+    try:
+        lib_ms = time_ms(library, reps)
+    except RuntimeError as exc:  # no SDPA backend takes these shapes
+        log(f"  {name}: scaled_dot_product_attention refused: {exc}")
+        lib_ms = None
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    flops = 2.0 * (d + dv) * B * Hq * pairs
+    nbytes = 2.0 * (B * Hq * Sq * (d + dv) + B * Hkv * Sk * (d + dv))
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"library (sdpa) {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, plain_bf16_max_abs_err=plain_err,
+                shape=dict(BHq=B * Hq, Sq=Sq, Sk=Sk, d=d, dv=dv, group=group, causal=causal))
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: LM serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _logit_dists(kernel, plain, fp32):
+    import torch
+
+    k, p, w = kernel.float(), plain.float(), fp32.float()
+    return dict(kernel_vs_plain=float((k - p).abs().max()),
+                kernel_vs_fp32=float((k - w).abs().max()),
+                plain_vs_fp32=float((p - w).abs().max()),
+                logit_std=float(w.std()),
+                top1_equal=bool(torch.equal(k.argmax(-1), p.argmax(-1))))
+
+
+def judge_logits(tag, dists):
+    limit = LM_FACTOR * dists["plain_vs_fp32"]
+    log(f"  {tag}: max |logit| distance kernel vs plain {dists['kernel_vs_plain']:.6g}, "
+        f"kernel vs fp32 {dists['kernel_vs_fp32']:.6g}, plain bf16 vs fp32 "
+        f"{dists['plain_vs_fp32']:.6g} (limit {limit:.6g}); fp32 logit std "
+        f"{dists['logit_std']:.6g}; same top-1 token: {dists['top1_equal']}")
+    if dists["kernel_vs_fp32"] > limit or dists["kernel_vs_plain"] > limit:
+        raise AssertionError(f"{tag}: the kernel model's logits are off")
+
+
+def main_path_serve(dev):
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_config("qwen3-8b")
+    batch, prompt_len, gen_tokens = 4, 2048, 32
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    log(f"phase 6: serve {cfg.name} at full width ({cfg.n_periods} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), batch {batch}, prompt {prompt_len}, "
+        f"{gen_tokens} generated tokens, seed 0")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve(cfg, batch=batch, prompt_len=prompt_len, gen_tokens=gen_tokens, seed=0)
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen = out["generated"]
+    log(f"  serve: {serve_s:.3f} s in all (init included); prefill {out['prefill_s']:.4f} s "
+        f"({batch * prompt_len / out['prefill_s']:.1f} prompt tokens/s); decode "
+        f"{out['decode_s']:.4f} s for {gen_tokens - 1} steps, {out['tokens_per_s']:.2f} "
+        f"tokens/s; peak memory {peak_gb:.2f} GB; kernel launches {launches}")
+    if launches["flash_attention"] != n_attn:
+        raise AssertionError(f"prefill launched flash_attention {launches['flash_attention']} "
+                             f"times, expected {n_attn}")
+    if gen.shape != (batch, gen_tokens) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {gen.shape} out of range")
+
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt_len)),
+        dtype=torch.long, device=dev)
+    S_max = prompt_len + gen_tokens
+    pos = torch.full((batch,), prompt_len, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        lk, ck = model.prefill(prompts, S_max)
+        tok = lk[:, -1].argmax(-1)
+        log(f"  the same weights rebuilt from seed 0: first generated tokens "
+            f"{tok.tolist()}, serve gave {gen[:, 0].tolist()}")
+        dk, _ = model.decode_step(ck, tok, pos)
+        # the device's busy time by kernel in one prefill and one decode step
+        prof = {"prefill": profile_device("prefill", lambda: model.prefill(prompts, S_max)),
+                "decode": profile_device("decode step", lambda: model.decode_step(ck, tok, pos))}
+        del ck
+        lp, cp = model.prefill(prompts, S_max, use_kernel=False)
+        dp, _ = model.decode_step(cp, tok, pos)
+        del cp
+        model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                          model.state_dict(), device=dev)
+        del model
+        l32, c32 = model32.prefill(prompts, S_max, use_kernel=False)
+        d32, _ = model32.decode_step(c32, tok, pos)
+        del c32, model32
+    pre = _logit_dists(lk[:, -1], lp[:, -1], l32[:, -1])
+    dec = _logit_dists(dk[:, 0], dp[:, 0], d32[:, 0])
+    for tag, dists, t in (("prefill last-token logits", pre, lk),
+                          ("teacher-forced decode logits", dec, dk)):
+        if t.shape[-1] != cfg.vocab_size or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{tag}: not finite of width {cfg.vocab_size}")
+        judge_logits(tag, dists)
+    torch.cuda.empty_cache()
+    return launches, dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                          tokens_per_s=out["tokens_per_s"], serve_s=serve_s,
+                          peak_memory_gb=peak_gb, prefill_logits=pre, decode_logits=dec,
+                          profile=prof)
+
+
+def profile_device(tag, fn):
+    """Device time by kernel over one call of ``fn`` (after a warm-up call),
+    and the device's busy share of its wall time, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's device time repeats its kernels'
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"  profiled {tag}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle share {100 * (1 - busy_ms / wall_ms):.1f}%, "
+        f"{sum(r[1] for r in rows)} kernel launches")
+    for ms, count, key in rows[:8]:
+        log(f"    {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% x{count:<5d} {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=sum(r[1] for r in rows),
+                top=[dict(ms=ms, count=count, name=key[:120]) for ms, count, key in rows[:8]])
+
+
 def main() -> int:
     import torch
 
@@ -561,6 +778,17 @@ def main() -> int:
     launches, paper = main_path_paper_scale()
     wide_launches, wide = main_path_wide()
 
+    log("phase 5: flash_attention against its plain version on the card (bf16)")
+    flash = {
+        "serve": check_flash(dev, "serve shape", 4, 32, 8, 2048, 2048, 128, 128, True, 20),
+        "ragged_causal": check_flash(dev, "ragged causal", 4, 32, 8, 2000, 2000, 128, 128,
+                                     True, 10),
+        "ragged_noncausal": check_flash(dev, "non-causal, ragged Sk", 4, 32, 8, 2048, 1999,
+                                        128, 128, False, 10),
+        "mla_dv": check_flash(dev, "dv != d", 4, 16, 16, 2048, 2048, 192, 128, True, 10),
+    }
+    serve_launches, lm = main_path_serve(dev)
+
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(name="gram_update_acc", route="cuda", source=src + "gram_update.cu",
@@ -572,6 +800,9 @@ def main() -> int:
         dict(name="ihb_update", route="cuda", source=src + "ihb_update.cu",
              replaces="src/repro/kernels/ihb_update.py:52",
              launches=launches["ihb_update"], **ihb[64]),
+        dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:81",
+             launches=serve_launches["flash_attention"], **flash["serve"]),
     ]
     log("wide shapes: " + json.dumps({
         "gram_update_acc": gacc_wide,
@@ -579,6 +810,8 @@ def main() -> int:
         "launches_wide_fit": wide_launches,
         "wide_fit": wide,
         "paper_scale": paper,
+        "flash_attention": {k: v for k, v in flash.items() if k != "serve"},
+        "serve_qwen3_8b": lm,
     }))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

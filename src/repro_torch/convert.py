@@ -2,16 +2,18 @@
 
 The JAX package's models serialize to a flat dict of numpy arrays plus JSON
 metadata (``OAVIModel.to_state_dict`` and
-``VanishingIdealClassifier.to_state_dict`` in ``repro``).  The functions here
-build the port's objects from that output, so both packages compute the same
-thing from the same parameters.  They read plain numpy and dicts only.
+``VanishingIdealClassifier.to_state_dict`` in ``repro``), and its LM keeps
+its parameters in a pytree of arrays.  The functions here build the port's
+objects from that output, so both packages compute the same thing from the
+same parameters.  They read plain numpy and dicts only.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .core.oavi import OAVIModel
 from .core.pipeline import PipelineConfig, VanishingIdealClassifier
@@ -57,3 +59,35 @@ def classifier_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
     clf.svm.classes_ = clf.classes_
     clf.stats = dict(meta.get("stats") or {})
     return clf
+
+
+def lm_params_from_reference(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The port's LM state dict (CPU tensors, keys of
+    :class:`repro_torch.models.model.Transformer`) from the JAX package's
+    ``init_params`` pytree, its leaves as numpy arrays.
+
+    The JAX package stacks each period position over a leading
+    ``(n_periods, ...)`` axis (``params["blocks"]["00_attn"]["wq"][i]``); the
+    port holds one module per sub-block, sub-block ``i * len(period) + j``
+    being period ``i``'s position ``j``.
+    """
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+            return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a.copy())
+
+    state = {"embed": tensor(params["embed"]),
+             "final_norm": tensor(params["final_norm"])}
+    if not cfg.tie_embeddings:
+        state["head"] = tensor(params["head"])
+    n_pos = len(cfg.period)
+    for j, btype in enumerate(cfg.period):
+        for leaf, stacked in params["blocks"][f"{j:02d}_{btype}"].items():
+            stacked = np.asarray(stacked)
+            if stacked.shape[0] != cfg.n_periods:
+                raise ValueError(f"{btype}.{leaf}: leading axis {stacked.shape[0]}, "
+                                 f"expected n_periods={cfg.n_periods}")
+            for i in range(cfg.n_periods):
+                state[f"blocks.{i * n_pos + j}.{leaf}"] = tensor(stacked[i])
+    return state

@@ -1,9 +1,11 @@
-"""Hand-written CUDA kernels (sm_90a) for the OAVI hot path.
+"""Hand-written CUDA kernels (sm_90a), one for each Pallas TPU kernel.
 
-- gram_update: fused border evaluation + both Gram products, canonical
+- gram_update:     fused border evaluation + both Gram products, canonical
   carried reduction (replaces Pallas ``gram_update_acc`` and ``gram_update``)
-- ihb_update:  Theorem 4.9 block-inverse update (replaces Pallas
+- ihb_update:      Theorem 4.9 block-inverse update (replaces Pallas
   ``ihb_update``)
+- flash_attention: online-softmax GQA attention, causal or not, dv != d,
+  bf16 on the tensor cores (replaces Pallas ``flash_attention``)
 
 ``ops`` holds the public wrappers (plain PyTorch on CPU tensors, the kernel
 on CUDA tensors); ``ref`` holds the plain versions.

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "repro_gram_update": [_vp] * 9 + [_ll, _i, _i, _i, _i, _i, _vp],
     # N, q, btb, ell, active, out, u_scratch, L, stream
     "repro_ihb_update": [_vp] * 7 + [_i, _vp],
+    # q, k, v, o, BHq, Sq, Sk, d, dv, group, causal, dtype, stream
+    "repro_flash_attention": [_vp] * 4 + [_i] * 8 + [_vp],
+    # d, dv
+    "repro_flash_attention_has_mma": [_i, _i],
 }
 
 

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from . import flash_attention as _flash
 from . import gram_update as _gram
 from . import ihb_update as _ihb
 from . import ref
@@ -95,12 +96,37 @@ def ihb_update(N, q, btb, ell, *, active=None, use_kernel=None):
     return _ihb.ihb_update(N, q, btb, ell, active)
 
 
+def multihead_attention(q, k, v, *, causal=True, use_kernel=None):
+    """Attention over ``(B, Hq, Sq, d)`` queries and ``(B, Hkv, Sk, d|dv)``
+    keys and values, GQA folded onto the flattened head axis; returns
+    ``(B, Hq, Sq, dv)`` in q's type.
+
+    Unlike the JAX package's op, nothing is padded and no shape goes to the
+    plain version on the card: the kernel masks ragged edges itself.  Causal
+    attention needs ``Sq == Sk`` on both paths.
+    """
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    group = Hq // Hkv
+    qf = q.reshape(B * Hq, Sq, d)
+    kf = k.reshape(B * Hkv, Sk, d)
+    vf = v.reshape(B * Hkv, Sk, dv)
+    if _kernel_path(q, use_kernel):
+        out = _flash.flash_attention(qf, kf, vf, causal=causal, q_heads_per_kv=group)
+    else:
+        out = ref.attention_ref(qf, kf, vf, causal=causal, q_heads_per_kv=group)
+    return out.reshape(B, Hq, Sq, dv)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel since the last reset, by Pallas kernel."""
-    return {**_gram.launches, **_ihb.launches}
+    return {**_gram.launches, **_ihb.launches, **_flash.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gram.launches, _ihb.launches):
+    for counts in (_gram.launches, _ihb.launches, _flash.launches):
         for k in counts:
             counts[k] = 0

@@ -72,3 +72,33 @@ def ihb_update_ref(N, q, btb, ell, active=None):
     if active is not None:
         P = torch.where(active, P, N)
     return P
+
+
+# masked score of the plain version, as in the JAX package (finite, so a
+# fully masked row gives a uniform softmax, never NaN)
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal=True, q_heads_per_kv=1):
+    """Dense softmax attention; mirrors ``repro.kernels.ref.attention_ref``.
+
+    ``q (BHq, Sq, d)``; ``k (BHkv, Sk, d)``, ``v (BHkv, Sk, dv)`` with
+    ``BHq = BHkv * q_heads_per_kv``.  Scores are the product in the inputs'
+    type, then fp32 times ``1/sqrt(d)``; p is cast to v's type before P V; the
+    output takes q's type.  Causal needs ``Sq == Sk``: the JAX package's plain
+    version masks bottom-right and its kernel top-left, which agree only
+    there, and the port computes one function on both paths.
+    """
+    Sq, d = q.shape[1], q.shape[2]
+    Sk = k.shape[1]
+    if causal and Sq != Sk:
+        raise ValueError(f"causal attention needs Sq == Sk, got {Sq} and {Sk}")
+    if q_heads_per_kv != 1:
+        k = k.repeat_interleave(q_heads_per_kv, dim=0)
+        v = v.repeat_interleave(q_heads_per_kv, dim=0)
+    s = torch.einsum("hqd,hkd->hqk", q, k).float() * (1.0 / d**0.5)
+    if causal:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril(Sk - Sq)
+        s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", p.to(v.dtype), v).to(q.dtype)

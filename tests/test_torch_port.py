@@ -29,7 +29,14 @@ from repro_torch.data import synthetic
 
 SLICE_MODULES = [
     "repro_torch",
+    "repro_torch._device",
     "repro_torch.api",
+    "repro_torch.configs",
+    "repro_torch.configs.phi4_mini_3_8b",
+    "repro_torch.configs.qwen1_5_4b",
+    "repro_torch.configs.qwen2_1_5b",
+    "repro_torch.configs.qwen3_8b",
+    "repro_torch.configs.shapes",
     "repro_torch.convert",
     "repro_torch.core",
     "repro_torch.core.ihb",
@@ -43,10 +50,17 @@ SLICE_MODULES = [
     "repro_torch.data.synthetic",
     "repro_torch.kernels",
     "repro_torch.kernels._build",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.gram_update",
     "repro_torch.kernels.ihb_update",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
+    "repro_torch.launch",
+    "repro_torch.launch.serve",
+    "repro_torch.models",
+    "repro_torch.models.attention",
+    "repro_torch.models.layers",
+    "repro_torch.models.model",
 ]
 
 

@@ -10,8 +10,10 @@ Phases, each reported on its own lines:
    ``src/repro_torch/kernels/csrc/`` (``nvcc``, ``sm_90a``).
 2. Kernel checks: every CUDA kernel against its plain PyTorch version on the
    same CUDA tensors, at the shapes the main path gives it, with chunk
-   invariance bit for bit; each timed with CUDA events beside its plain
-   version, its bound and one library call as a yardstick.
+   invariance bit for bit; each timed with CUDA events (the median of three
+   timed groups) beside its plain version, its bound and one library call as
+   a yardstick.  Each Gram shape logs the reduction path and border source
+   it took.
 3. Main path, paper scale: Algorithm 2 (``VanishingIdealClassifier``, OAVI
    fast engine, psi = 0.005) on the 2,000,000-sample Appendix C set, 60/40
    split; the per-class fits are then run again on the CPU and compared.
@@ -22,7 +24,8 @@ Phases, each reported on its own lines:
    batch 4, 2048 tokens), a ragged causal length, a ragged non-causal key
    length and dv != d; the bf16 plain version's own error beside it; each
    timed beside its bound, the plain version and PyTorch's
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``.  Each shape logs the kernel variant it
+   took; the serve shape must take the wgmma one.
 6. Main path, LM serving: ``launch.serve.serve`` of Qwen3-8B at its full
    width (36 layers, random weights from seed 0), batch 4, 2048-token
    prompts, 32 generated tokens; the prefill must launch the kernel once per
@@ -106,26 +109,36 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, groups: int = 3) -> float:
+    """Milliseconds per call: the median over ``groups`` timed groups of
+    ``reps`` back-to-back calls each, CUDA events around each group."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    per_call = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return float(np.median(per_call))
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rate_note(flops, ms, b_ms):
+    """Achieved TFLOP/s and the share of the bound reached."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of bound"
 
 
 def close(got, want, rtol, atol):
@@ -180,7 +193,7 @@ def check_gram_acc(dev, m, L, n, K, split_blocks, reps):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gram_update import gram_update_acc
+    from repro_torch.kernels.gram_update import borders, gram_update_acc, path
 
     rng = np.random.default_rng(m + L)
     A, X, p, v = gram_inputs(rng, m, L, n, K, dev)
@@ -191,6 +204,8 @@ def check_gram_acc(dev, m, L, n, K, split_blocks, reps):
     want = ops.gram_accumulate(A, X, p, v, (ql0, c0), use_kernel=False)
     torch.cuda.synchronize()
     tag = f"gram_update_acc m={m} L={L} n={n} K={K}"
+    kind = f"{path(L, K, dev)} path, borders {borders(L, n)}"
+    log(f"  {tag}: {kind}")
     err = max(check_close(f"{tag} {nm}", g, w, GRAM_RTOL, 0.0)
               for nm, g, w in zip(("QL", "C"), got, want))
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -220,18 +235,19 @@ def check_gram_acc(dev, m, L, n, K, split_blocks, reps):
     plain_ms = time_ms(lambda: ops.gram_accumulate(A, X, p, v, (ql0, c0),
                                                    use_kernel=False), max(1, reps // 4))
     lib_ms = time_ms(library, reps)
-    b_ms, b_by = bound(*gram_work(A, X, p, carry=True))
-    log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    flops, nbytes = gram_work(A, X, p, carry=True)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms ({rate_note(flops, ms, b_ms)}), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, shape=dict(m=m, L=L, n=n, K=K))
+                bound_by=b_by, library_ms=lib_ms, variant=kind, shape=dict(m=m, L=L, n=n, K=K))
 
 
 def check_gram_update(dev, m, L, n, K, reps):
     import torch
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gram_update import gram_update
+    from repro_torch.kernels.gram_update import borders, gram_update, path
 
     rng = np.random.default_rng(m + 7)
     A, X, p, v = gram_inputs(rng, m, L, n, K, dev)
@@ -244,6 +260,8 @@ def check_gram_update(dev, m, L, n, K, reps):
     want = plain()
     torch.cuda.synchronize()
     tag = f"gram_update m={m} L={L} n={n} K={K} bm=512"
+    kind = f"{path(L, K, dev)} path, borders {borders(L, n)}"
+    log(f"  {tag}: {kind}")
     err = max(check_close(f"{tag} {nm}", g, w, GRAM_RTOL, 0.0)
               for nm, g, w in zip(("QL", "C"), got, want))
 
@@ -254,11 +272,12 @@ def check_gram_update(dev, m, L, n, K, reps):
     ms = time_ms(lambda: gram_update(A, X, p, v, bm=512), reps)
     plain_ms = time_ms(plain, max(1, reps // 4))
     lib_ms = time_ms(library, reps)
-    b_ms, b_by = bound(*gram_work(A, X, p, carry=False))
-    log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+    flops, nbytes = gram_work(A, X, p, carry=False)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms ({rate_note(flops, ms, b_ms)}), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, shape=dict(m=m, L=L, n=n, K=K))
+                bound_by=b_by, library_ms=lib_ms, variant=kind, shape=dict(m=m, L=L, n=n, K=K))
 
 
 def check_ihb(dev, L, steps, reps):
@@ -562,7 +581,7 @@ def check_flash(dev, tag, B, Hq, Hkv, Sq, Sk, d, dv, causal, reps):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention, uses_tensor_cores
+    from repro_torch.kernels.flash_attention import flash_attention, variant
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(Sq * 31 + Sk + d)
@@ -579,9 +598,9 @@ def check_flash(dev, tag, B, Hq, Hkv, Sq, Sk, d, dv, causal, reps):
                              q_heads_per_kv=group)
     plain_bf16 = ref.attention_ref(q, k, v, causal=causal, q_heads_per_kv=group)
     torch.cuda.synchronize()
+    kind = variant(q.dtype, d, dv)
     name = (f"flash_attention {tag}: (B*Hq, Sq, d)=({B * Hq}, {Sq}, {d}), Sk={Sk}, dv={dv}, "
-            f"group {group}, causal={causal}, "
-            f"{'mma.sync' if uses_tensor_cores(q.dtype, d, dv) else 'scalar'} variant")
+            f"group {group}, causal={causal}, {kind} variant")
     err = check_close(name, got.float(), want, FLASH_TOL, FLASH_TOL)
     plain_err = float((plain_bf16.float() - want).abs().max())
     log(f"  {name}: the bf16 plain version's own max_abs_err {plain_err:.6g}")
@@ -604,11 +623,11 @@ def check_flash(dev, tag, B, Hq, Hkv, Sq, Sk, d, dv, causal, reps):
     flops = 2.0 * (d + dv) * B * Hq * pairs
     nbytes = 2.0 * (B * Hq * Sq * (d + dv) + B * Hkv * Sk * (d + dv))
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    log(f"  {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+    log(f"  {name}: kernel {ms:.4f} ms ({rate_note(flops, ms, b_ms)}), plain {plain_ms:.4f} ms, "
         f"library (sdpa) {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
         f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, plain_bf16_max_abs_err=plain_err,
+                library_ms=lib_ms, plain_bf16_max_abs_err=plain_err, variant=kind,
                 shape=dict(BHq=B * Hq, Sq=Sq, Sk=Sk, d=d, dv=dv, group=group, causal=causal))
 
 
@@ -787,6 +806,9 @@ def main() -> int:
                                         128, 128, False, 10),
         "mla_dv": check_flash(dev, "dv != d", 4, 16, 16, 2048, 2048, 192, 128, True, 10),
     }
+    if flash["serve"]["variant"] != "wgmma":
+        raise AssertionError(f"the serve shape took the {flash['serve']['variant']} variant, "
+                             "not wgmma")
     serve_launches, lm = main_path_serve(dev)
 
     src = "src/repro_torch/kernels/csrc/"

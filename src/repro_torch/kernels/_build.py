@@ -32,15 +32,24 @@ build_log: Dict[str, str] = {}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # A, X, parents, vars, ql0, c0, ql, c, scratch, m, L, n, K, bm, group, stream
-    "repro_gram_update": [_vp] * 9 + [_ll, _i, _i, _i, _i, _i, _vp],
+    # A, X, parents, vars, ql0, c0, ql, c, scratch, border, m, L, n, K, bm,
+    # group, fold, stream
+    "repro_gram_update": [_vp] * 10 + [_ll, _i, _i, _i, _i, _i, _i, _vp],
+    # L, K
+    "repro_gram_tiles": [_i, _i],
+    "repro_gram_partial_floats": [_i, _i],
+    # L, n
+    "repro_gram_can_gather": [_i, _i],
     # N, q, btb, ell, active, out, u_scratch, L, stream
     "repro_ihb_update": [_vp] * 7 + [_i, _vp],
     # q, k, v, o, BHq, Sq, Sk, d, dv, group, causal, dtype, stream
     "repro_flash_attention": [_vp] * 4 + [_i] * 8 + [_vp],
-    # d, dv
-    "repro_flash_attention_has_mma": [_i, _i],
+    # dtype, d, dv
+    "repro_flash_attention_variant": [_i, _i, _i],
 }
+
+
+_RESTYPES = {"repro_gram_partial_floats": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -116,7 +125,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

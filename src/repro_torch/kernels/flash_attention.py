@@ -5,10 +5,10 @@ The CUDA counterpart of the Pallas kernel ``flash_attention``
 flattened heads, ``q (B*Hq, Sq, d)``, ``k (B*Hkv, Sk, d)``, ``v (B*Hkv, Sk,
 dv)``, query head ``h`` reading kv head ``h // q_heads_per_kv``.  The kernel
 masks the ragged edges itself, so nothing is padded here.  bf16 head sizes
-(64, 64), (128, 128) and (192, 128) run on the tensor cores; fp32, and other
-bf16 head sizes up to 256, run the scalar variant.  The plain PyTorch version
-is :func:`repro_torch.kernels.ref.attention_ref`; dispatch lives in
-:mod:`repro_torch.kernels.ops`.
+(128, 128), (64, 64) and (192, 128) run the wgmma + TMA variant; fp32, and
+other bf16 head sizes up to 256, run the scalar variant.  The
+plain PyTorch version is :func:`repro_torch.kernels.ref.attention_ref`;
+dispatch lives in :mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -22,17 +22,20 @@ launches = {"flash_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+VARIANTS = ("scalar", "wgmma")
 
 
-def uses_tensor_cores(dtype: torch.dtype, d: int, dv: int) -> bool:
-    """Whether a call with this type and these head sizes takes the mma.sync
-    variant (else the scalar one)."""
-    return dtype == torch.bfloat16 and bool(
-        _build.library().repro_flash_attention_has_mma(d, dv))
+def variant(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The kernel a call with this type and these head sizes takes, one of
+    :data:`VARIANTS`."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+    return VARIANTS[_build.library().repro_flash_attention_variant(_DTYPES[dtype], d, dv)]
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the kernel's vector loads)."""
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector and
+    TMA loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -7,6 +7,17 @@ the canonical order (per ``bm``-row block partials folded left to right onto
 the carry).  The plain PyTorch version is
 :func:`repro_torch.kernels.ref.gram_accumulate_ref`; dispatch and padding live
 in :mod:`repro_torch.kernels.ops`.
+
+Two choices are made here, per call, from the shapes alone (so a chunked
+call takes the same ones as the whole call, and no bit changes between them):
+
+* the reduction: where the kernel's output tiles fill the card, one block per
+  tile walks every row block and folds in registers (``path() == "fold"``);
+  otherwise every row block's partial is computed in parallel into scratch
+  and folded by a second pass (``"partials"``);
+* the border columns: gathered inside the kernel from whole rows of A and X
+  staged in shared memory (where they fit: small L and n), or materialised
+  once per call into an ``m x K`` buffer and staged as plain columns.
 """
 
 from __future__ import annotations
@@ -18,14 +29,35 @@ import torch
 from . import _build
 
 # rows staged per shared-memory slab in the kernel: bm must be a multiple
-SLAB_ROWS = 32
+SLAB_ROWS = 16
 # largest partials buffer one call allocates; row blocks beyond it are walked
 # in groups (each group a carried call, so the grouping changes no bit)
 SCRATCH_BYTES = 256 << 20
 _MAX_GRID_Y = 65535
+# the in-block fold needs at least this many output tiles (None: one per SM)
+FOLD_MIN_TILES: Optional[int] = None
+# gather the border products inside the kernel where whole rows of A and X
+# fit its staging ring (False: always materialise them first)
+GATHER_BORDERS = True
 
 # kernel launches made through this wrapper, by Pallas kernel name
 launches = {"gram_update_acc": 0, "gram_update": 0}
+
+
+def path(L: int, K: int, device: torch.device) -> str:
+    """``"fold"`` or ``"partials"``: the reduction a call of these widths takes."""
+    tiles = _build.library().repro_gram_tiles(L, K)
+    need = FOLD_MIN_TILES
+    if need is None:
+        need = torch.cuda.get_device_properties(device).multi_processor_count
+    return "fold" if tiles >= need else "partials"
+
+
+def borders(L: int, n: int) -> str:
+    """``"gathered"`` or ``"materialised"``: where a call with these widths
+    takes its border columns from."""
+    gather = GATHER_BORDERS and bool(_build.library().repro_gram_can_gather(L, n))
+    return "gathered" if gather else "materialised"
 
 
 def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
@@ -66,9 +98,16 @@ def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
     p32 = parents.to(device=device, dtype=torch.int32).contiguous()
     v32 = vars_.to(device=device, dtype=torch.int32).contiguous()
     nb = m // bm
-    per_block = (L + K) * K
-    group = max(1, min(nb, _MAX_GRID_Y, SCRATCH_BYTES // (4 * per_block)))
-    scratch = torch.empty(group * per_block, dtype=torch.float32, device=device)
+    fold = path(L, K, device) == "fold"
+    if fold:
+        group, scratch = nb, None
+    else:
+        per_block = _build.library().repro_gram_partial_floats(L, K)
+        group = max(1, min(nb, _MAX_GRID_Y, SCRATCH_BYTES // (4 * per_block)))
+        scratch = torch.empty(group * per_block, dtype=torch.float32, device=device)
+    border = None
+    if borders(L, n) == "materialised" and m > 0:
+        border = torch.empty((m, K), dtype=torch.float32, device=device)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -76,8 +115,10 @@ def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
             A.data_ptr(), X.data_ptr(), p32.data_ptr(), v32.data_ptr(),
             acc[0].data_ptr() if acc is not None else None,
             acc[1].data_ptr() if acc is not None else None,
-            QL.data_ptr(), C.data_ptr(), scratch.data_ptr(),
-            m, L, n, K, bm, group, stream,
+            QL.data_ptr(), C.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            border.data_ptr() if border is not None else None,
+            m, L, n, K, bm, group, int(fold), stream,
         )
     _build.check(err, name)
     launches[name] += 1

@@ -187,3 +187,56 @@ def test_flash_kernel_raises_on_bad_input(cuda):
         flash_mod.flash_attention(x.half(), x.half(), x.half())
     with pytest.raises(ValueError):
         flash_mod.flash_attention(x, x[:1], x[:1], q_heads_per_kv=3)
+
+
+# (B, Hq, Hkv, Sq, Sk, d, causal): shapes of the wgmma variant (128-row
+# q-tiles, 128-key k-tiles) off its tile grid
+_WGMMA_CASES = [
+    (1, 4, 4, 300, 300, 128, True),      # group 1, Sq = Sk not a multiple of 128
+    (1, 8, 2, 300, 300, 128, False),     # group 4, the same, not causal
+    (1, 8, 1, 200, 200, 128, True),      # group 8
+    (2, 4, 1, 50, 50, 128, True),        # Sk smaller than one k-tile
+    (1, 4, 1, 1, 1, 128, True),          # S = 1
+    (1, 4, 2, 1, 77, 128, False),        # one query row over a ragged Sk
+    (1, 4, 2, 257, 90, 64, False),       # d = dv = 64
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _WGMMA_CASES)
+def test_flash_wgmma_vs_plain(cuda, case):
+    """The wgmma + TMA variant against the plain version in fp32 on the same
+    bf16 inputs, within the JAX tests' bf16 tolerance."""
+    B, Hq, Hkv, Sq, Sk, d, causal = case
+    assert flash_mod.variant(torch.bfloat16, d, d) == "wgmma"
+    rng = np.random.default_rng(Sq * 11 + Sk + Hq)
+    q, k, v = _qkv(rng, B, Hq, Hkv, Sq, Sk, d)
+    got = _port(q, k, v, causal, dtype=torch.bfloat16, device=cuda)
+    t = [torch.from_numpy(a).to(cuda, torch.bfloat16).float() for a in (q, k, v)]
+    want = ops.multihead_attention(*t, causal=causal, use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Hq, Sq, d)
+    torch.testing.assert_close(got.float(), want, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_never_reads_past_a_head(cuda, causal):
+    """q, k and v are views of buffers whose next head is NaN: a tile that
+    crossed the last head's ragged edge would bring NaN into the output."""
+    BHq, BHkv, S, d = 8, 2, 200, 128
+    rng = np.random.default_rng(3)
+
+    def with_nan_head(heads):
+        buf = torch.full((heads + 1, S, d), float("nan"), dtype=torch.bfloat16, device=cuda)
+        buf[:heads] = torch.from_numpy(rng.standard_normal((heads, S, d))).to(cuda)
+        return buf[:heads]
+
+    q, k, v = with_nan_head(BHq), with_nan_head(BHkv), with_nan_head(BHkv)
+    assert q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+    got = flash_mod.flash_attention(q, k, v, causal=causal, q_heads_per_kv=BHq // BHkv)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             q_heads_per_kv=BHq // BHkv)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want, rtol=BF16_TOL, atol=BF16_TOL)

@@ -85,6 +85,77 @@ def test_gram_accumulate_kernel_scratch_groups_bit_exact(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
+def _force(monkeypatch, path, border):
+    """Pin the Gram kernel's reduction path and its border-column source."""
+    monkeypatch.setattr(gram_mod, "FOLD_MIN_TILES", 0 if path == "fold" else 10**9)
+    monkeypatch.setattr(gram_mod, "GATHER_BORDERS", border == "gathered")
+
+
+# L and K off the 128-column tile grid, K > L, and K <= 64 (the narrow tile)
+_RAGGED = [(1024, 70, 5, 150), (768, 200, 9, 130), (512, 40, 3, 64), (512, 129, 4, 1)]
+
+
+@pytest.mark.parametrize("border", ["gathered", "materialised"])
+@pytest.mark.parametrize("path", ["fold", "partials"])
+@pytest.mark.parametrize("m,L,n,K", _RAGGED)
+def test_gram_paths_vs_plain(cuda, monkeypatch, m, L, n, K, path, border):
+    """Both reductions, with the border columns gathered in the load or
+    materialised first, against the plain version; the carry's own lower
+    triangle is folded into C's lower triangle."""
+    _force(monkeypatch, path, border)
+    assert gram_mod.path(L, K, cuda) == path
+    rng = np.random.default_rng(m + L * K)
+    A, X, p, v = _gram_inputs(rng, m, L, n, K, cuda)
+    acc = (torch.rand(L, K, device=cuda), torch.rand(K, K, device=cuda))
+    got = ops.gram_accumulate(A, X, p, v, acc)
+    want = ops.gram_accumulate(A, X, p, v, acc, use_kernel=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=GRAM_RTOL, atol=GRAM_ATOL)
+
+
+@pytest.mark.parametrize("m,L,n,K", _RAGGED)
+def test_gram_paths_bit_identical(cuda, monkeypatch, m, L, n, K):
+    """The in-block fold and the partials + fold pass sum the same products
+    in the same order, gathered or materialised: the same bits, and C's Gram
+    part exactly symmetric."""
+    rng = np.random.default_rng(7 * m + K)
+    A, X, p, v = _gram_inputs(rng, m, L, n, K, cuda)
+    outs = []
+    for path in ("fold", "partials"):
+        for border in ("gathered", "materialised"):
+            _force(monkeypatch, path, border)
+            outs.append(ops.gram_accumulate(A, X, p, v))
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    C = outs[0][1]
+    assert torch.equal(C, C.T)
+
+
+@pytest.mark.parametrize("m,L,n,K,split_blocks", [
+    (2560, 64, 3, 48, 3),        # one output tile: partials
+    (768, 1280, 57, 1280, 1),    # 155 output tiles: the in-block fold
+])
+def test_gram_chunk_invariance_each_path(cuda, m, L, n, K, split_blocks):
+    """Chunk invariance bit for bit on each side of the path threshold, with
+    the path the wrapper picks by itself."""
+    rng = np.random.default_rng(K + split_blocks)
+    A, X, p, v = _gram_inputs(rng, m, L, n, K, cuda)
+    want_path = "fold" if K == 1280 else "partials"
+    assert gram_mod.path(L, K, cuda) == want_path
+    acc = (torch.rand(L, K, device=cuda), torch.rand(K, K, device=cuda))
+    whole = ops.gram_accumulate(A, X, p, v, acc)
+    s = split_blocks * ops.GRAM_BLOCK
+    first = ops.gram_accumulate(A[:s], X[:s], p, v, acc)
+    chained = ops.gram_accumulate(A[s:], X[s:], p, v, acc=first)
+    for a, b in zip(whole, chained):
+        assert torch.equal(a, b)
+    want = ops.gram_accumulate(A, X, p, v, acc, use_kernel=False)
+    for g, w in zip(whole, want):
+        torch.testing.assert_close(g, w, rtol=GRAM_RTOL, atol=GRAM_ATOL)
+
+
 @pytest.mark.parametrize("m,L,n,K", [(1000, 16, 3, 32), (1536, 64, 8, 40)])
 def test_gram_update_kernel_vs_plain(cuda, m, L, n, K):
     rng = np.random.default_rng(m * 3 + K)

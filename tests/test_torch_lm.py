@@ -219,7 +219,7 @@ def test_serve_without_device_raises_without_card(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d_head", [16, 128])  # the scalar and the mma.sync variant
+@pytest.mark.parametrize("d_head", [16, 128])  # the scalar and the wgmma variant
 def test_model_on_card_kernel_vs_plain(monkeypatch, d_head):
     """A bf16 reduced model on the card: one flash launch per attention layer
     in prefill, and logits no further from an fp32 copy of the model than

@@ -13,12 +13,15 @@ Phases, each reported on its own lines:
    invariance bit for bit; each timed with CUDA events (the median of three
    timed groups) beside its plain version, its bound and one library call as
    a yardstick.  Each Gram shape logs the reduction path and border source
-   it took.
+   it took.  The IHB update is checked as an in-place chain and as the
+   degree's whole candidate loop in one launch (``ihb_degree``).
 3. Main path, paper scale: Algorithm 2 (``VanishingIdealClassifier``, OAVI
    fast engine, psi = 0.005) on the 2,000,000-sample Appendix C set, 60/40
    split; the per-class fits are then run again on the CPU and compared.
 4. Main path, wide: one OAVI fit on class 0 of the spam-shaped set (n = 57),
-   which grows to Lcap = Kcap = 2048; compared with the same fit on the CPU.
+   which grows to Lcap = Kcap = 2048; compared with the same fit on the CPU;
+   one more wide fit under ``torch.profiler`` (device busy share, kernel time
+   by name).
 5. Flash attention: the CUDA kernel in bf16 against its plain version
    computed in fp32 from the same bf16 inputs, at the serve shape (Qwen3-8B,
    batch 4, 2048 tokens), a ragged causal length, a ragged non-causal key
@@ -67,6 +70,9 @@ PEAK_BYTES = 3.35e12
 GRAM_RTOL = 1e-6
 # IHB chains on well-conditioned columns (condition number ~10)
 IHB_RTOL, IHB_ATOL = 1e-4, 1e-5
+# the degree loop chains up to ~800 such updates (kappa of the Gram ~10), each
+# matvec summed in another order: the tolerance of tests/test_torch_gpu.py
+IHB_DEGREE_RTOL, IHB_DEGREE_ATOL = 1e-3, 1e-4
 # card fit vs CPU fit: the Theorem 4.9 inverse engine amplifies fp32
 # summation-order noise by kappa(A)^2 (up to ~3e-3 on the 58-term spam fit),
 # so both fp32 fits are held against numpy's float64 least-squares solution
@@ -128,6 +134,29 @@ def time_ms(fn, reps: int, warmup: int = 2, groups: int = 3) -> float:
         end.synchronize()
         per_call.append(start.elapsed_time(end) / reps)
     return float(np.median(per_call))
+
+
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Milliseconds of device time per launch of the kernel whose name
+    contains ``kernel``, over ``reps`` calls of ``fn`` under
+    ``torch.profiler``: what the card spends, where a host-bound loop's
+    CUDA-event time measures the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    count = sum(ev.count for ev in rows)
+    if count != reps:
+        raise AssertionError(f"profiled {count} launches of {kernel}, expected {reps}")
+    return sum(ev.self_device_time_total for ev in rows) / 1e3 / count
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -281,12 +310,14 @@ def check_gram_update(dev, m, L, n, K, reps):
 
 
 def check_ihb(dev, L, steps, reps):
-    """A chain of ``steps`` appends from ell = L / 2, kernel chain vs plain
-    chain, on well-conditioned (Gaussian) columns."""
+    """A chain of ``steps`` in-place appends from ell = L / 2, kernel chain
+    vs plain chain, on well-conditioned (Gaussian) columns; then one update
+    timed with ``N`` fixed and a separate output buffer, and a gated-off
+    launch."""
     import torch
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ihb_update import ihb_update
+    from repro_torch.kernels.ihb_update import ihb_update_
 
     rng = np.random.default_rng(L)
     m = 4 * L
@@ -295,46 +326,171 @@ def check_ihb(dev, L, steps, reps):
     ell0 = L // 2
     N0 = np.eye(L)
     N0[:ell0, :ell0] = np.linalg.inv(G[:ell0, :ell0])
-    Nk = Np = torch.tensor(N0, dtype=torch.float32, device=dev)
-    qs, btbs = [], []
+    Nk = torch.tensor(N0, dtype=torch.float32, device=dev)
+    Np = Nk.clone()
+    qs, btbs, ells = [], [], []
     for s in range(steps):
         ell = ell0 + s
         q = np.zeros(L)
         q[:ell] = G[:ell, ell]
         qs.append(torch.tensor(q, dtype=torch.float32, device=dev))
         btbs.append(torch.tensor(G[ell, ell], dtype=torch.float32, device=dev))
+        ells.append(torch.tensor(ell, dtype=torch.int32, device=dev))
     for s in range(steps):
-        ell = torch.tensor(ell0 + s, dtype=torch.int32, device=dev)
-        Nk = ops.ihb_update(Nk, qs[s], btbs[s], ell)
-        Np = ops.ihb_update(Np, qs[s], btbs[s], ell, use_kernel=False)
+        ops.ihb_update_(Nk, qs[s], btbs[s], ells[s])
+        Np = ops.ihb_update(Np, qs[s], btbs[s], ells[s], use_kernel=False)
     torch.cuda.synchronize()
-    tag = f"ihb_update L={L} chain of {steps} appends from ell={ell0}"
+    tag = f"ihb_update L={L} chain of {steps} in-place appends from ell={ell0}"
     err = check_close(tag, Nk, Np, IHB_RTOL, IHB_ATOL)
     end = ell0 + steps
     if not torch.equal(Nk[end:, end:], torch.eye(L - end, device=dev)):
         raise AssertionError(f"{tag}: identity padding beyond ell={end} changed")
     log(f"  {tag}: identity padding beyond ell={end} bit-exact")
 
-    N1, q1, b1 = Nk, qs[-1], btbs[-1]
-    ell1 = torch.tensor(end - 1, dtype=torch.int32, device=dev)
+    N1, q1, b1, ell1 = Nk.clone(), qs[-1], btbs[-1], ells[-1]
+    off = torch.tensor(False, device=dev)
+    ihb_update_(N1, q1, b1, ell1, active=off)
+    torch.cuda.synchronize()
+    if not torch.equal(N1, Nk):
+        raise AssertionError(f"{tag}: a gated-off launch changed N")
+    log(f"  {tag}: a gated-off launch leaves N bit-identical")
+    Nout = N1.clone()
     alpha = 1.0 / float(b1)
 
     def library():
         u = torch.mv(N1, q1)
         return torch.addr(N1, u, u, alpha=alpha)
 
-    ms = time_ms(lambda: ihb_update(N1, q1, b1, ell1), reps)
+    # N1 fixed and Nout a separate buffer: the in-place update's bytes, and
+    # repeated launches do not drift the chain's numbers
+    ms = time_ms(lambda: ihb_update_(N1, q1, b1, ell1, out=Nout), reps)
+    off_ms = time_ms(lambda: ihb_update_(N1, q1, b1, ell1, active=off), reps)
+    dev_ms = device_ms(lambda: ihb_update_(N1, q1, b1, ell1, out=Nout),
+                       "ihb_update_kernel", reps)
+    off_dev_ms = device_ms(lambda: ihb_update_(N1, q1, b1, ell1, active=off),
+                           "ihb_update_kernel", reps)
     plain_ms = time_ms(lambda: ref.ihb_update_ref(N1, q1, b1, ell1), reps)
     lib_ms = time_ms(library, reps)
     # q is zero and N the identity from ell on, so u = N q and the rank-1
-    # update need only the leading block; N is read once and N' written once
+    # update need only the leading block: e^2 entries of N read once, the
+    # (e+1)^2 block written once, q's e entries and two scalars
     e = end - 1
-    b_ms, b_by = bound(2.0 * e * e + 2.0 * e + 3.0 * (e + 1) ** 2,
-                       4.0 * (2 * L * L + L + 1) + 4)
-    log(f"  ihb_update L={L}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    flops = 2.0 * e * e + 2.0 * e + 3.0 * (e + 1) ** 2
+    b_ms, b_by = bound(flops, 4.0 * (e * e + (e + 1) ** 2 + e + 2))
+    full_ms, _ = bound(flops, 4.0 * (2 * L * L + L + 1) + 4)
+    log(f"  ihb_update L={L} ell={e}: kernel {ms:.4f} ms (gated off {off_ms:.4f} ms), "
+        f"of it on the device {dev_ms:.4f} ms (gated off {off_dev_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; "
+        f"the full-L^2 bound of earlier runs {full_ms:.6f} ms)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, shape=dict(L=L))
+                bound_by=b_by, library_ms=lib_ms, gated_off_ms=off_ms,
+                device_ms=dev_ms, gated_off_device_ms=off_dev_ms,
+                full_l2_bound_ms=full_ms, shape=dict(L=L, ell=e))
+
+
+def degree_inputs(seed, Lcap, ell0, K, appended, Kcap):
+    """Normalized Gram blocks of one degree, QL transposed, as ``stats_step``
+    hands them to the candidate loop: ``ell0`` Gaussian columns in O (N
+    their exact inverse, padded with the identity) and K candidates, of which
+    those with ``appended[a]`` are independent (MSE near 1: appended) and the
+    others a combination of O's columns plus noise of variance psi / 5
+    (accepted).  The same construction as ``tests/test_torch_gpu.py``."""
+    rng = np.random.default_rng(seed)
+    m = 4 * (ell0 + K)
+    A = rng.standard_normal((m, ell0))
+    B = rng.standard_normal((m, K))
+    dep = ~np.asarray(appended)
+    B[:, dep] = (A @ rng.standard_normal((ell0, dep.sum())) / np.sqrt(ell0)
+                 + np.sqrt(PSI / 5) * rng.standard_normal((m, dep.sum())))
+    N = np.eye(Lcap)
+    N[:ell0, :ell0] = np.linalg.inv(A.T @ A / m)
+    QLt = np.zeros((Kcap, Lcap))
+    QLt[:K, :ell0] = (A.T @ B / m).T
+    C = np.zeros((Kcap, Kcap))
+    C[:K, :K] = B.T @ B / m
+    return [x.astype(np.float32) for x in (QLt, C, N)]
+
+
+def degree_work(acc, ell0, K, Lcap):
+    """Least work of one degree's candidate loop on this run's decisions:
+    candidate a reads ell_a entries of its QL row (plus one C entry per
+    column appended this degree) and its btb; the initial block of N is read
+    once and the final one written once; every output is written once.
+    Operations: the matvec and the Schur reduction of every candidate, and
+    the rank-1 update of every append."""
+    ells = ell0 + np.concatenate([[0], np.cumsum(~acc)[:-1]])
+    ell_f = ell0 + int((~acc).sum())
+    flops = float(np.sum(2.0 * ells ** 2 + 3.0 * ells - ell0)
+                  + np.sum((3.0 * ells ** 2 + 2.0 * ells + 1)[~acc]))
+    nbytes = (4.0 * (np.sum(2 * ells - ell0) + K + ell0 ** 2 + ell_f ** 2 + K * Lcap + K)
+              + 8.0 * K + K + 4)
+    return float(flops), float(nbytes)
+
+
+def check_ihb_degree(dev, Lcap, ell0, K, Kcap, reps):
+    """The degree's candidate loop in one launch against the plain eager
+    loop, on Grams where about half the candidates are appended."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ihb_update import ihb_degree
+
+    rng = np.random.default_rng(Lcap + ell0 + K)
+    appended = rng.uniform(size=K) < 0.5
+    QLt, C, N0 = (torch.from_numpy(x).to(dev)
+                  for x in degree_inputs(K + ell0, Lcap, ell0, K, appended, Kcap))
+    Nk, Np = N0.clone(), N0.clone()
+    got = ops.ihb_degree(QLt, C, Nk, ell0, PSI, K)
+    want = ops.ihb_degree(QLt, C, Np, ell0, PSI, K, use_kernel=False)
+    torch.cuda.synchronize()
+    tag = f"ihb_degree Lcap={Lcap} ell0={ell0} K={K}"
+    acc, p_acc = got[0].cpu().numpy(), want[0].cpu().numpy()
+    p_mses = want[1].cpu().numpy()
+    banded = np.nonzero(np.abs(p_mses - PSI) <= BAND * PSI)[0]
+    stop = int(banded[0]) if banded.size else K
+    if not (np.array_equal(acc[:stop], p_acc[:stop])
+            and torch.equal(got[3][:stop], want[3][:stop])):
+        raise AssertionError(f"{tag}: kernel and plain verdicts differ")
+    log(f"  {tag}: {int((~p_acc).sum())} appended, final ell {int(want[4])}; verdicts "
+        f"and slots equal on {stop} of {K} candidates"
+        + ("" if stop == K else f" (candidate {stop}'s MSE lies in the band)"))
+    err = 0.0
+    if stop == K:
+        if int(got[4]) != int(want[4]):
+            raise AssertionError(f"{tag}: final ell {int(got[4])} != {int(want[4])}")
+        err = max(check_close(f"{tag} {nm}", g, w, IHB_DEGREE_RTOL, IHB_DEGREE_ATOL)
+                  for nm, g, w in (("mses", got[1], want[1]), ("coeffs", got[2], want[2]),
+                                   ("N", Nk, Np)))
+        e = int(got[4])
+        if not (torch.equal(Nk[e:], N0[e:]) and torch.equal(Nk[:, e:], N0[:, e:])):
+            raise AssertionError(f"{tag}: N changed past the final ell={e}")
+        log(f"  {tag}: N past the final ell={e} bit-exact")
+    again = N0.clone()
+    out2 = ops.ihb_degree(QLt, C, again, ell0, PSI, K)
+    if not (torch.equal(again, Nk) and all(torch.equal(a, b) for a, b in zip(got, out2))):
+        raise AssertionError(f"{tag}: two launches gave different bits")
+    log(f"  {tag}: two launches bit-identical")
+
+    Nw = N0.clone()
+
+    def reset():
+        Nw.copy_(N0)
+
+    # each launch updates N in place, so each timed call first restores it;
+    # the restore is timed alone and taken off
+    ms = time_ms(lambda: (reset(), ihb_degree(QLt, C, Nw, ell0, PSI, K)), reps)
+    ms -= time_ms(reset, reps)
+    plain_ms = time_ms(lambda: (reset(), ops.ihb_degree(QLt, C, Nw, ell0, PSI, K,
+                                                        use_kernel=False)),
+                       1, warmup=1, groups=1)
+    flops, nbytes = degree_work(p_acc, ell0, K, Lcap)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms ({1e3 * ms / K:.2f} us a candidate), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: {flops / 1e6:.2f} MFLOP, "
+        f"{nbytes / 1e6:.2f} MB)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, appended=int((~p_acc).sum()),
+                shape=dict(Lcap=Lcap, ell0=ell0, K=K, Kcap=Kcap))
 
 
 # ---------------------------------------------------------------------------
@@ -505,11 +661,15 @@ def main_path_paper_scale():
             f"borders {m.stats['border_sizes']} degree_times "
             f"{[round(t, 4) for t in m.stats['degree_times']]}")
     appends = sum(not a for _, _, a in card_log)
-    log(f"  kernel launches on the main path: {launches}; of the ihb_update "
-        f"launches, {appends} append a column and the rest are gated off")
-    for name in ("gram_update_acc", "ihb_update"):
+    degrees = sum(len(m.stats["degrees"]) for m in clf.models)
+    log(f"  kernel launches on the main path: {launches}; {degrees} degrees, "
+        f"{len(card_log)} candidates, {appends} appended")
+    for name in ("gram_update_acc", "ihb_degree"):
         if launches[name] <= 0:
             raise AssertionError(f"main path did not launch {name}")
+    if launches["ihb_degree"] != degrees:
+        raise AssertionError(f"ihb_degree launched {launches['ihb_degree']} times, "
+                             f"expected one per degree ({degrees})")
     if not (feats.shape == (Xte.shape[0], sum(m.num_G for m in clf.models))
             and np.all(np.isfinite(feats))):
         raise AssertionError("features are not finite of the expected shape")
@@ -551,13 +711,18 @@ def main_path_wide():
     appends = sum(not a for _, _, a in card_log)
     log(f"  m={X0.shape[0]} fit {fit_s:.3f} s; borders {st['border_sizes']}; "
         f"Lcap {st['Lcap_final']} after {st['regrowths']} regrowths; degree_times "
-        f"{[round(t, 4) for t in st['degree_times']]}; launches {launches}, "
-        f"{appends} of the ihb_update launches append a column")
+        f"{st['degree_times']}; launches {launches}; {len(card_log)} candidates, "
+        f"{appends} appended")
     if st["Lcap_final"] != 2048:
         raise AssertionError(f"expected Lcap 2048, got {st['Lcap_final']}")
-    for name in ("gram_update_acc", "ihb_update"):
+    for name in ("gram_update_acc", "ihb_degree"):
         if launches[name] <= 0:
             raise AssertionError(f"wide path did not launch {name}")
+    if launches["ihb_degree"] != len(st["degrees"]):
+        raise AssertionError(f"ihb_degree launched {launches['ihb_degree']} times, "
+                             f"expected one per degree")
+    # the device's busy share and its time by kernel over one wide fit
+    prof = profile_device("wide fit", lambda: api.fit(X0, "oavi", psi=PSI))
     feats = card.transform(X0)
     if not np.all(np.isfinite(feats)):
         raise AssertionError("wide-fit features are not finite")
@@ -568,7 +733,8 @@ def main_path_wide():
         ctl, ctl_log = recording_fit(lambda: api.fit(X0, "oavi", psi=PSI))
     check = compare_fits("wide", [card], [cpu], card_log, cpu_log, [X0],
                          ([ctl], ctl_log))
-    return launches, dict(fit_s=fit_s, ihb_appends=appends, **check)
+    return launches, dict(fit_s=fit_s, degree_times=st["degree_times"],
+                          ihb_appends=appends, profile=prof, **check)
 
 
 # ---------------------------------------------------------------------------
@@ -793,6 +959,10 @@ def main() -> int:
     gacc_wide = check_gram_acc(dev, 4608, 2048, 57, 2048, split_blocks=7, reps=3)
     gupd = check_gram_update(dev, 2_000_000, 64, 3, 64, reps=10)
     ihb = {L: check_ihb(dev, L, steps=min(32, L // 4), reps=50) for L in (64, 512, 2048)}
+    degree = {shape: check_ihb_degree(dev, *shape, reps=reps)
+              for shape, reps in (((64, 4, 40, 64), 20), ((2048, 1, 57, 64), 20),
+                                  ((2048, 58, 1653, 2048), 5),
+                                  ((2048, 1024, 512, 512), 5))}
 
     launches, paper = main_path_paper_scale()
     wide_launches, wide = main_path_wide()
@@ -819,9 +989,12 @@ def main() -> int:
         dict(name="gram_update", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:77",
              launches=launches["gram_update"], **gupd),
+        # the main path launches the update as the degree loop's kernel
         dict(name="ihb_update", route="cuda", source=src + "ihb_update.cu",
              replaces="src/repro/kernels/ihb_update.py:52",
-             launches=launches["ihb_update"], **ihb[64]),
+             launches=launches["ihb_degree"], entry="ihb_degree",
+             **degree[(2048, 58, 1653, 2048)],
+             single_update=dict(launches=launches["ihb_update"], **ihb[64])),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"], **flash["serve"]),
@@ -829,6 +1002,7 @@ def main() -> int:
     log("wide shapes: " + json.dumps({
         "gram_update_acc": gacc_wide,
         "ihb_update": {L: ihb[L] for L in (512, 2048)},
+        "ihb_degree": {"x".join(map(str, k)): v for k, v in degree.items()},
         "launches_wide_fit": wide_launches,
         "wide_fit": wide,
         "paper_scale": paper,

@@ -13,10 +13,12 @@ to the identity (so the padded ``N`` is the exact inverse of the padded
 for the Theorem 4.9 inverse, ``R`` for the Cholesky engine) is kept and
 updated only when the configured engine needs it (:func:`factors_for`).
 
-The ``N`` update goes through :func:`repro_torch.kernels.ops.ihb_update`: the
-CUDA kernel on the card, its plain PyTorch version on the CPU.  Every update
-takes ``ell``, ``btb`` and an optional ``active`` flag as device tensors, so
-the OAVI candidate loop runs without a host sync per candidate.
+The ``N`` update goes through :func:`repro_torch.kernels.ops.ihb_update_`, in
+place: the CUDA kernel on the card, its plain PyTorch version on the CPU.
+Every update takes ``ell``, ``btb`` and an optional ``active`` flag as device
+tensors, so a candidate loop runs without a host sync per candidate.  The fast
+engine's own candidate loop runs through ``ops.ihb_degree`` instead
+(:func:`repro_torch.core.oavi.stats_step`), one launch per degree on the card.
 """
 
 from __future__ import annotations
@@ -123,8 +125,10 @@ def append_column(
 
     Only the factors present in ``state`` are updated (``None`` stays
     ``None``).  With ``active`` false every factor comes back unchanged.
+    ``N`` is updated in place (the returned state holds the same tensor);
+    ``AtA`` and ``R`` are new tensors.
     """
-    ell_t = torch.as_tensor(ell, device=q.device).reshape(())
+    ell_t = torch.as_tensor(ell, dtype=torch.int32, device=q.device).reshape(())
     if state.AtA is not None or state.R is not None:
         onehot = (torch.arange(q.shape[0], device=q.device) == ell_t).to(q.dtype)
         keep = 1.0 - onehot
@@ -145,9 +149,9 @@ def append_column(
         )
 
     if state.N is not None:
-        # inverse update (Thm 4.9): the CUDA kernel on the card, its plain
-        # version on the CPU
-        N = kernel_ops.ihb_update(state.N, q, btb, ell_t, active=active)
+        # inverse update (Thm 4.9), in place: the CUDA kernel on the card,
+        # its plain version on the CPU
+        N = kernel_ops.ihb_update_(state.N, q, btb, ell_t, active=active)
 
     if state.R is not None:
         # Cholesky append: R^T r = q ; rho = sqrt(btb - r^T r)

@@ -15,11 +15,12 @@ processed by one degree step:
 2.  A loop over the K candidates replays the sequential semantics of
     Algorithm 1 from the Gram blocks alone: the ``A^T b`` vector of candidate
     ``a`` is ``QL[:, a]`` plus ``C[j, a]`` scattered into the slots of the
-    candidates ``j < a`` appended this degree.  A rejected candidate appends
-    its column through :func:`repro_torch.core.ihb.append_column` (the CUDA
-    ``ihb_update`` kernel on the card).  Every decision stays on the device —
-    the append is gated by a device flag, not a host branch — so the loop
-    syncs with the host once per degree, not once per candidate.
+    candidates ``j < a`` appended this degree, and a rejected candidate is
+    appended by the Theorem 4.9 update.  On the inverse engine the whole loop
+    is :func:`repro_torch.kernels.ops.ihb_degree`: one launch of the CUDA
+    kernel per degree on the card, the plain eager loop on the CPU.  Every
+    decision stays on the device, so the loop syncs with the host once per
+    degree, not once per candidate.
 3.  The appended candidate columns are written into ``A``.
 
 ``|O|`` capacity (``Lcap``) and border capacity (``Kcap``) are power-of-two
@@ -338,24 +339,45 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
     engine).  Returns ``(DegreeResult, new IHB state)``.
 
     The K valid candidates run in order; padded lanes ``K..Kcap`` are never
-    visited (the reference masks them to no-ops).
+    visited (the reference masks them to no-ops).  With ``inverse_engine=
+    'inverse'`` the loop is ``ops.ihb_degree``: one launch of the
+    hand-written kernel on the card (the state's ``N`` updated in place), its
+    plain eager version on the CPU.  The ``chol`` engine runs the eager loop
+    here.  Either way the host reads the results once per degree.
     """
     dtype = cfg.torch_dtype()
     np_dtype = np.dtype(cfg.dtype)
     dev = QL_raw.device
-    Lcap, Kcap = QL_raw.shape
-    psi = torch.tensor(cfg.psi, dtype=dtype, device=dev)
     # normalized Gram convention (Abar = A / sqrt(m)): MSE(g) = btb + q^T y;
     # 1/m is rounded in the working dtype, as the reference does
     inv_m = torch.tensor(np_dtype.type(1.0) / np_dtype.type(m_total), dtype=dtype,
                          device=dev)
     QL = (QL_raw * inv_m).to(dtype)
     C = (C_raw * inv_m).to(dtype)
+    if cfg.inverse_engine == "chol":
+        out = _chol_degree_loop(cfg, QL, C, state, ell0, K)
+        state = out[-1]
+    else:
+        out = kernel_ops.ihb_degree(QL.T.contiguous(), C, state.N, ell0, cfg.psi, K)
+    accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
+    return DegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots), state
+
+
+def _chol_degree_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
+                      ell0: int, K: int):
+    """The candidate loop of :func:`stats_step` on the Cholesky engine, in
+    eager ops: :func:`repro_torch.kernels.ref.ihb_degree_ref`'s loop with two
+    triangular solves for the closed form and the append of
+    :func:`repro_torch.core.ihb.append_column`.  Every decision stays on the
+    device (the append is gated by a device flag), so the loop never syncs
+    with the host.  Returns ``(accepted, mses, coeffs, slots, state)``."""
+    dtype = cfg.torch_dtype()
+    dev = QL.device
+    Lcap, Kcap = QL.shape
+    psi = torch.tensor(cfg.psi, dtype=dtype, device=dev)
     # one trash row at index Lcap absorbs the scatter of candidates that were
     # not appended, so the scatter below needs no host-side mask
     QLx = torch.cat([QL, QL.new_zeros((1, Kcap))], dim=0)
-
-    use_chol = cfg.inverse_engine == "chol"
     ar = torch.arange(Lcap, device=dev)
     ell = torch.tensor(ell0, dtype=torch.int32, device=dev)
     slots = torch.full((K,), Lcap, dtype=torch.long, device=dev)
@@ -373,10 +395,7 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
             q.index_put_((before,), q[before] + C[:a, a])
         q = q[:Lcap]
         btb = C[a, a]
-        if use_chol:
-            y0 = ihb_mod.closed_form_cholesky(state, q)
-        else:
-            y0 = ihb_mod.closed_form_inverse(state, q)
+        y0 = ihb_mod.closed_form_cholesky(state, q)
         y0 = torch.where(ar < ell, y0, 0.0)
         # sum(q * y0), the reduction the reference uses
         mse0 = btb + torch.sum(q * y0)
@@ -389,14 +408,7 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
         accepted[a] = accept
         coeffs[a] = torch.where(accept, y0, 0.0)
         mses[a] = mse0
-
-    result = DegreeResult(
-        accepted=accepted.cpu().numpy(),
-        mses=mses.cpu().numpy(),
-        coeffs=coeffs.cpu().numpy(),
-        slots=slots.cpu().numpy(),
-    )
-    return result, state
+    return accepted, mses, coeffs, slots, state
 
 
 def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,

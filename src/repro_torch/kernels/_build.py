@@ -40,8 +40,11 @@ _SIGNATURES = {
     "repro_gram_partial_floats": [_i, _i],
     # L, n
     "repro_gram_can_gather": [_i, _i],
-    # N, q, btb, ell, active, out, u_scratch, L, stream
+    # N_in, N_out, q, btb, ell, active, u_scratch, L, stream
     "repro_ihb_update": [_vp] * 7 + [_i, _vp],
+    # QLt, C, N, Lcap, Kcap, ell0, K, psi, accepted, mses, coeffs, slots,
+    # ell_out, u_scratch, stream
+    "repro_ihb_degree": [_vp] * 3 + [_i] * 4 + [ctypes.c_float] + [_vp] * 7,
     # q, k, v, o, BHq, Sq, Sk, d, dv, group, causal, dtype, stream
     "repro_flash_attention": [_vp] * 4 + [_i] * 8 + [_vp],
     # dtype, d, dv

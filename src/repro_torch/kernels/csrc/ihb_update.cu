@@ -1,126 +1,346 @@
-// Theorem 4.9 block-inverse update of Inverse Hessian Boosting.
+// Theorem 4.9 block-inverse update of Inverse Hessian Boosting, and the OAVI
+// candidate loop of one degree built on it.
 //
 // Replaces the Pallas TPU kernel `ihb_update` (_ihb_kernel) of
 // src/repro/kernels/ihb_update.py.  Given the padded inverse N (L x L, the
 // identity beyond the active block), the new column's Gram vector q (zero
-// from slot ell on) and its squared norm btb, it writes
+// from slot ell on) and its squared norm btb, the update is
 //     u = N q,   s = max(btb - sum(q * u), 1e-30),
-//     N' = N + u u^T / s,  then row and column ell := -u / s, (ell, ell) := 1/s
-// out of place into `out`.  With the identity padding and q's zeros the
-// entries beyond ell come out bit-exact (x + (0 * 0) / s == x).
+//     N' = N + u u^T / s,  then row and column ell := -u / s, (ell, ell) := 1/s.
+// With the identity padding and q's zeros, every entry outside the leading
+// (ell+1) x (ell+1) block comes out equal to N's (x + (0 * 0) / s == x, and
+// the new row and column are +0 beyond ell), so only that block is read and
+// written: entries past ell are never touched and stay bit-exact.
 //
-// btb, ell and the optional `active` flag are read from device memory, so the
-// OAVI candidate loop needs no host sync per candidate: when *active == 0 the
-// kernel copies N to out unchanged (the rejected/accepted branch of the
-// reference's lax.cond).
+// Two entry points, both one cooperative persistent launch (at most one block
+// per SM, every block co-resident):
 //
-// What bounds it on the H100: bytes.  The work is ~5 L^2 flops over
-// 2 L^2 * 4 bytes of N read and N' written, under 1 flop per byte, and at the
-// OAVI sizes (L = 64 .. 2048) the launch latency dominates below L ~ 512.
+//   repro_ihb_update  one update.  btb, ell and the optional `active` flag are
+//       read from device memory; with *active == 0 every block returns after
+//       reading the flag and no byte of N moves.  N_in and N_out may alias
+//       (the fit updates in place).
+//   repro_ihb_degree  the fast engine's candidate loop of one degree
+//       (src/repro/core/oavi.py, _make_stats_degree_step, engine='fast',
+//       inverse_engine='inverse'): for a = 0..K-1, q = QL[:, a] plus C[j, a]
+//       at the slots of the candidates j < a appended earlier, btb = C[a, a],
+//       u = N q, mse = btb - sum(q * u) (= btb + q . y with y = -u on the
+//       active block), accept = mse <= psi, and on reject the update above at
+//       slot ell, ell += 1.  N is updated in place; the decisions, mses,
+//       coefficients (-u when accepted), slots and the final ell are written
+//       for the host, which reads them once per degree.
 //
-// What the design does about it: the update needs the old N whole before any
-// row of N' is written (u = N q reads every row), so it is three launches in
-// stream order, each a plain streaming pass:
-//   1. ihb_matvec_kernel: one warp per row, u[i] = sum_j N[i,j] q[j] with
-//      lane-strided partial sums and a fixed shuffle tree (deterministic);
-//   2. ihb_schur_kernel: one block reduces sum(q * u) in a fixed order and
-//      writes s;
-//   3. ihb_rank1_kernel: one thread per element, coalesced along rows.
-// Writing out of place keeps N intact, so the caller's state stays valid.
+// What bounds it on the H100: latency.  The bytes are the active block, read
+// once and written once: at most 2 (ell+1)^2 * 4 bytes, 33 MB at ell = 2047,
+// 10 us at 3.35 TB/s; at the OAVI sizes it is far less.  The dependence chain
+// is the limit: u needs every active row of N before any row can be
+// rewritten, and in the degree loop candidate a + 1 needs N after candidate
+// a's update.
+//
+// What the design does about it:
+//   * Row i of N belongs to block i % G for the whole launch (cyclic, so the
+//     rows of a small active block spread over many SMs).  A block reads and
+//     writes only its own rows, so the only data that crosses blocks is u.
+//     One grid barrier per update: each block writes u for its rows, the
+//     barrier, then each block reads all of u, reduces sum(q * u) in one fixed
+//     order (the same bits in every block, so every block takes the same
+//     branch; no atomics anywhere) and updates its own rows.  The next
+//     candidate's matvec reads rows that only this block wrote, so it needs
+//     no barrier; u is double-buffered so that a fast block writing the next
+//     candidate's u never overwrites what a slow block still reads.
+//   * Where a block's rows fit its shared memory (always at Lcap <= 2048 on
+//     the H100) they are staged there: the degree loop reads the initial
+//     active block from device memory once and writes the final one once;
+//     the single update reads each active row once.  Otherwise the rows are
+//     read and written in device memory (L2) in place.
+//   * Dot products: one warp per row, lane-strided FMAs and a fixed shuffle
+//     tree (deterministic).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// rows a block is given at least before another block joins the grid
+constexpr int kMinRowsPerBlock = 8;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ bool is_active(const unsigned char* active) {
-  return active == nullptr || *active != 0;
-}
+struct Band {
+  float* smem;    // staged rows (local index k = i / G), or null
+  int ld_s;       // row stride of the staged rows
+  float* global;  // N in device memory
+  int L;          // row stride of N
+  int b, G;       // this block, grid size
 
-__global__ void __launch_bounds__(kThreads)
-ihb_matvec_kernel(const float* __restrict__ N, const float* __restrict__ q,
-                  const unsigned char* active, float* __restrict__ u, int L) {
-  if (!is_active(active)) return;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * (kThreads / 32) + warp;
-  if (i >= L) return;
-  const float* row = N + (long long)i * L;
-  float s = 0.0f;
-  for (int j = lane; j < L; j += 32) s = __fmaf_rn(row[j], q[j], s);
+  __device__ float* row(int i) const {
+    return smem ? smem + (size_t)(i / G) * ld_s : global + (size_t)i * L;
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-  if (lane == 0) u[i] = s;
+  return s;  // lane 0 holds the sum
 }
 
-__global__ void __launch_bounds__(kThreads)
-ihb_schur_kernel(const float* __restrict__ q, const float* __restrict__ btb,
-                 const unsigned char* active, float* __restrict__ u, int L) {
-  if (!is_active(active)) return;
-  __shared__ float part[kThreads];
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < L; i += kThreads)
-    s = __fadd_rn(s, __fmul_rn(q[i], u[i]));
-  part[threadIdx.x] = s;
+// u[i] = sum_{j < ell} row_i[j] q[j] for the block's rows i < ell.
+__device__ void band_matvec(const Band& band, const float* q_s, int ell,
+                            float* u_out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = band.b + warp * band.G; i < ell; i += kWarps * band.G) {
+    const float* r = band.row(i);
+    float acc = 0.0f;
+    for (int j = lane; j < ell; j += 32) acc = __fmaf_rn(r[j], q_s[j], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) u_out[i] = acc;
+  }
+}
+
+// u_s[0..ell) := u (written by every block before the grid barrier) and
+// returns sum_{i < ell} q_i u_i, reduced in one fixed order: the same bits in
+// every block.  u is read through L2 (__ldcg): L1 is not coherent across SMs.
+__device__ float gather_u_and_reduce(const float* u, const float* q_s,
+                                     float* u_s, float* red, int ell) {
+  float part = 0.0f;
+  for (int i = threadIdx.x; i < ell; i += kThreads) {
+    const float ui = __ldcg(u + i);
+    u_s[i] = ui;
+    part = __fadd_rn(part, __fmul_rn(q_s[i], ui));
+  }
+  part = warp_sum(part);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = part;
   __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w)
-      part[threadIdx.x] = __fadd_rn(part[threadIdx.x], part[threadIdx.x + w]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) u[L] = fmaxf(__fsub_rn(*btb, part[0]), 1e-30f);
+  float total = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) total = __fadd_rn(total, red[w]);
+  __syncthreads();  // red is reused by the next call
+  return total;
 }
 
-// u holds N q in [0, L) and s at [L].
-__global__ void __launch_bounds__(kThreads)
-ihb_rank1_kernel(const float* __restrict__ N, const float* __restrict__ u,
-                 const int* __restrict__ ell_p, const unsigned char* active,
-                 float* __restrict__ out, int L) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= (long long)L * L) return;
-  const float nij = N[e];
-  if (!is_active(active)) {
-    out[e] = nij;
-    return;
+// The rank-1 update of the block's rows at slot ell, from u_s[0..ell) and s:
+// rows i < ell read from `src` and written to `dst` (which may be the same
+// rows), row ell written whole.  The roundings are the reference's:
+// N + (u_i u_j) / s, and -u / s + 0 on the new row and column (the +0 turns a
+// -0 into +0, as `n2 * keep + onehot / s` does).
+__device__ void band_rank1(const Band& src, const Band& dst, const float* u_s,
+                           float s, int ell) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = src.b + warp * src.G; i <= ell; i += kWarps * src.G) {
+    float* w = dst.row(i);
+    if (i == ell) {
+      for (int j = lane; j < ell; j += 32)
+        w[j] = __fadd_rn(__fdiv_rn(-u_s[j], s), 0.0f);
+      if (lane == 0) w[ell] = __fdiv_rn(1.0f, s);
+      continue;
+    }
+    const float* r = src.row(i);
+    const float ui = u_s[i];
+    for (int j = lane; j < ell; j += 32)
+      w[j] = __fadd_rn(r[j], __fdiv_rn(__fmul_rn(ui, u_s[j]), s));
+    if (lane == 0) w[ell] = __fadd_rn(__fdiv_rn(-ui, s), 0.0f);
   }
-  const int i = (int)(e / L);
-  const int j = (int)(e % L);
+}
+
+// Copies rows i < nrows, columns j < ncols of the block's rows between N and
+// the staged band.
+__device__ void band_copy(const Band& band, int nrows, int ncols, bool to_smem) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = band.b + warp * band.G; i < nrows; i += kWarps * band.G) {
+    float* s = band.smem + (size_t)(i / band.G) * band.ld_s;
+    float* g = band.global + (size_t)i * band.L;
+    if (to_smem)
+      for (int j = lane; j < ncols; j += 32) s[j] = g[j];
+    else
+      for (int j = lane; j < ncols; j += 32) g[j] = s[j];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ihb_update_kernel(const float* N_in, float* N_out, const float* __restrict__ q,
+                  const float* __restrict__ btb_p, const int* __restrict__ ell_p,
+                  const unsigned char* __restrict__ active, float* u, int L,
+                  int staged, int ld_s) {
+  if (active != nullptr && *active == 0) return;  // every block returns
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
   const int ell = *ell_p;
-  const float s = u[L];
-  float v;
-  if (i == ell && j == ell) {
-    v = __fdiv_rn(1.0f, s);
-  } else if (i == ell || j == ell) {
-    // -u/s, plus +0 as the reference's `n2 * keep + onehot / s` adds it
-    // (turns a -0 from u == 0 into +0)
-    v = __fadd_rn(__fdiv_rn(-u[i == ell ? j : i], s), 0.0f);
-  } else {
-    v = __fadd_rn(nij, __fdiv_rn(__fmul_rn(u[i], u[j]), s));
+  float* q_s = smem;
+  float* u_s = q_s + L;
+  float* red = u_s + L;
+  float* rows = red + kWarps;
+  for (int j = threadIdx.x; j < ell; j += kThreads) q_s[j] = q[j];
+  Band in{staged ? rows : nullptr, ld_s, const_cast<float*>(N_in), L,
+          (int)blockIdx.x, (int)gridDim.x};
+  if (staged) band_copy(in, ell, ell, true);
+  __syncthreads();
+  band_matvec(in, q_s, ell, u);
+  grid.sync();
+  const float S = gather_u_and_reduce(u, q_s, u_s, red, ell);
+  const float s = fmaxf(__fsub_rn(*btb_p, S), 1e-30f);
+  Band out{nullptr, 0, N_out, L, (int)blockIdx.x, (int)gridDim.x};
+  band_rank1(in, out, u_s, s, ell);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ihb_degree_kernel(const float* __restrict__ QLt, const float* __restrict__ C,
+                  float* N, int Lcap, int Kcap, int ell0, int K, float psi,
+                  unsigned char* __restrict__ accepted, float* __restrict__ mses,
+                  float* __restrict__ coeffs, long long* __restrict__ slots,
+                  int* __restrict__ ell_out, float* ubuf, int ell_max,
+                  int staged, int ld_s) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  float* q_s = smem;
+  float* u_s = q_s + ell_max;
+  float* red = u_s + ell_max;
+  int* owner = reinterpret_cast<int*>(red + kWarps);  // slot - ell0 -> candidate
+  float* rows = reinterpret_cast<float*>(owner + (ell_max - ell0));
+  Band band{staged ? rows : nullptr, ld_s, N, Lcap, (int)blockIdx.x,
+            (int)gridDim.x};
+  if (staged) band_copy(band, ell0, ell0, true);
+  int ell = ell0;
+  for (int a = 0; a < K; ++a) {
+    float* u = ubuf + (a & 1) * Lcap;
+    const float* qa = QLt + (size_t)a * Lcap;
+    for (int j = threadIdx.x; j < ell; j += kThreads) {
+      float v = qa[j];
+      if (j >= ell0) v = __fadd_rn(v, C[(size_t)owner[j - ell0] * Kcap + a]);
+      q_s[j] = v;
+    }
+    __syncthreads();
+    band_matvec(band, q_s, ell, u);
+    grid.sync();
+    const float S = gather_u_and_reduce(u, q_s, u_s, red, ell);
+    const float mse = __fsub_rn(C[(size_t)a * Kcap + a], S);
+    const bool accept = mse <= psi;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      accepted[a] = accept;
+      mses[a] = mse;
+      slots[a] = accept ? Lcap : ell;
+    }
+    if (accept) {
+      // the generator's coefficients y = -u on the active block
+      for (int i = blockIdx.x + threadIdx.x * gridDim.x; i < ell;
+           i += kThreads * gridDim.x)
+        coeffs[(size_t)a * Lcap + i] = -u_s[i];
+    } else {
+      band_rank1(band, band, u_s, fmaxf(mse, 1e-30f), ell);
+      if (threadIdx.x == 0) owner[ell - ell0] = a;
+      ++ell;
+    }
+    __syncthreads();  // q_s, u_s and owner are rewritten by the next candidate
   }
-  out[e] = v;
+  if (staged) band_copy(band, ell, ell, false);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *ell_out = ell;
+}
+
+struct DeviceInfo {
+  int sms = 0;
+  int max_smem = 0;          // per block, opt-in
+  int set_update = 0;        // dynamic smem limit set on each kernel
+  int set_degree = 0;
+};
+DeviceInfo g_info[kMaxDevices];
+
+cudaError_t device_info(DeviceInfo** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_info[dev];
+  if (d.sms == 0) {
+    int coop = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaDeviceGetAttribute(&d.max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+// Grid size for `rows` active rows at most, and the layout of the staged band.
+void plan(const DeviceInfo& d, int rows, size_t fixed_bytes, int* G, int* staged,
+          int* ld_s, size_t* smem) {
+  int g = (rows + kMinRowsPerBlock - 1) / kMinRowsPerBlock;
+  if (g > d.sms) g = d.sms;
+  if (g < 1) g = 1;
+  const int per_block = (rows + g - 1) / g;
+  const size_t band = (size_t)per_block * rows * sizeof(float);
+  *G = g;
+  *ld_s = rows;
+  *staged = fixed_bytes + band <= (size_t)d.max_smem;
+  *smem = fixed_bytes + (*staged ? band : 0);
+}
+
+cudaError_t set_smem(const void* fn, int* current, size_t smem) {
+  if ((int)smem <= *current || smem <= 48 * 1024) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) *current = (int)smem;
+  return err;
 }
 
 }  // namespace
 
-// Host entry point.  u_scratch holds L + 1 floats.  active may be null
-// (always update).  Returns the first launch error, or cudaSuccess.
-extern "C" int repro_ihb_update(const float* N, const float* q,
+// One Theorem 4.9 update (see above).  u_scratch holds L floats.  active may
+// be null (always update).  Returns the first CUDA error, or cudaSuccess; a
+// grid that cannot be co-resident is an error (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int repro_ihb_update(const float* N_in, float* N_out, const float* q,
                                 const float* btb, const int* ell,
-                                const unsigned char* active, float* out,
-                                float* u_scratch, int L, cudaStream_t stream) {
-  const unsigned rows_blocks = (unsigned)((L + kThreads / 32 - 1) / (kThreads / 32));
-  ihb_matvec_kernel<<<rows_blocks, kThreads, 0, stream>>>(N, q, active,
-                                                          u_scratch, L);
-  cudaError_t err = cudaGetLastError();
+                                const unsigned char* active, float* u_scratch,
+                                int L, cudaStream_t stream) {
+  DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(&d);
   if (err != cudaSuccess) return (int)err;
-  ihb_schur_kernel<<<1, kThreads, 0, stream>>>(q, btb, active, u_scratch, L);
-  err = cudaGetLastError();
+  int G, staged, ld_s;
+  size_t smem;
+  plan(*d, L, (2 * (size_t)L + kWarps) * sizeof(float), &G, &staged, &ld_s, &smem);
+  err = set_smem((const void*)ihb_update_kernel, &d->set_update, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long E = (long long)L * L;
-  const unsigned blocks = (unsigned)((E + kThreads - 1) / kThreads);
-  ihb_rank1_kernel<<<blocks, kThreads, 0, stream>>>(N, u_scratch, ell, active,
-                                                    out, L);
-  return (int)cudaGetLastError();
+  void* args[] = {&N_in, &N_out, &q, &btb, &ell, &active, &u_scratch, &L,
+                  &staged, &ld_s};
+  err = cudaLaunchCooperativeKernel((const void*)ihb_update_kernel, dim3(G),
+                                    dim3(kThreads), args, smem, stream);
+  return (int)err;
+}
+
+// The candidate loop of one degree (see above).  QLt (Kcap x Lcap) and C
+// (Kcap x Kcap) are the normalized Gram blocks, QL transposed; N (Lcap x Lcap)
+// is updated in place.  Needs ell0 + K <= Lcap.  coeffs (K x Lcap) must hold
+// zeros; u_scratch holds 2 Lcap floats.
+extern "C" int repro_ihb_degree(const float* QLt, const float* C, float* N,
+                                int Lcap, int Kcap, int ell0, int K, float psi,
+                                unsigned char* accepted, float* mses,
+                                float* coeffs, long long* slots, int* ell_out,
+                                float* u_scratch, cudaStream_t stream) {
+  if (ell0 < 1 || K < 1 || ell0 + K > Lcap || K > Kcap)
+    return (int)cudaErrorInvalidValue;
+  DeviceInfo* d = nullptr;
+  cudaError_t err = device_info(&d);
+  if (err != cudaSuccess) return (int)err;
+  int ell_max = ell0 + K;
+  int G, staged, ld_s;
+  size_t smem;
+  const size_t fixed = (2 * (size_t)ell_max + kWarps) * sizeof(float) +
+                       (size_t)K * sizeof(int);
+  plan(*d, ell_max, (fixed + 15) / 16 * 16, &G, &staged, &ld_s, &smem);
+  err = set_smem((const void*)ihb_degree_kernel, &d->set_degree, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&QLt, &C, &N, &Lcap, &Kcap, &ell0, &K, &psi, &accepted,
+                  &mses, &coeffs, &slots, &ell_out, &u_scratch, &ell_max,
+                  &staged, &ld_s};
+  err = cudaLaunchCooperativeKernel((const void*)ihb_degree_kernel, dim3(G),
+                                    dim3(kThreads), args, smem, stream);
+  return (int)err;
 }

@@ -85,15 +85,33 @@ def gram_accumulate(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BLOCK,
     return _gram.gram_update_acc(A, X, parents, vars_, ql0, c0, bm=bm)
 
 
-def ihb_update(N, q, btb, ell, *, active=None, use_kernel=None):
-    """Theorem 4.9 padded block-inverse update (see :func:`.ref.ihb_update_ref`).
+def ihb_update_(N, q, btb, ell, *, active=None, use_kernel=None):
+    """Theorem 4.9 padded block-inverse update of ``N`` in place (see
+    :func:`.ref.ihb_update_ref`); returns ``N``.
 
     ``active`` (a bool tensor) makes the update conditional without a host
-    sync: false returns ``N`` unchanged.
+    sync: false leaves ``N`` as it is.  On the card ``btb`` (float32), ``ell``
+    (int32) and ``active`` must be one-element tensors there.
     """
     if not _kernel_path(N, use_kernel):
-        return ref.ihb_update_ref(N, q, btb, ell, active)
-    return _ihb.ihb_update(N, q, btb, ell, active)
+        return N.copy_(ref.ihb_update_ref(N, q, btb, ell, active))
+    return _ihb.ihb_update_(N, q, btb, ell, active)
+
+
+def ihb_update(N, q, btb, ell, *, active=None, use_kernel=None):
+    """The update of :func:`ihb_update_` on a copy of ``N``; ``N`` is
+    unchanged.  For tests and comparisons: the fit updates in place."""
+    return ihb_update_(N.clone(), q, btb, ell, active=active, use_kernel=use_kernel)
+
+
+def ihb_degree(QLt, C, N, ell0: int, psi: float, K: int, *, use_kernel=None):
+    """The fast engine's candidate loop of one degree (``inverse_engine=
+    'inverse'``), ``N`` updated in place: one launch of the hand-written
+    kernel on the card, :func:`.ref.ihb_degree_ref` on the CPU.  Returns
+    ``(accepted, mses, coeffs, slots, ell)`` as tensors on ``N``'s device."""
+    if not _kernel_path(N, use_kernel):
+        return ref.ihb_degree_ref(QLt, C, N, ell0, psi, K)
+    return _ihb.ihb_degree(QLt, C, N, ell0, psi, K)
 
 
 def multihead_attention(q, k, v, *, causal=True, use_kernel=None):

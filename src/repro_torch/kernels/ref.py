@@ -74,6 +74,60 @@ def ihb_update_ref(N, q, btb, ell, active=None):
     return P
 
 
+def ihb_degree_ref(QLt, C, N, ell0: int, psi, K: int):
+    """The fast engine's candidate loop of one degree, ``inverse_engine=
+    'inverse'`` (the reference's ``_make_stats_degree_step``), in eager ops.
+
+    ``QLt`` is the normalized ``QL`` transposed, ``(Kcap, Lcap)``; ``C`` the
+    normalized ``(Kcap, Kcap)`` candidate Gram.  Candidate ``a``'s ``A^T b``
+    vector is ``QL[:, a]`` plus ``C[j, a]`` scattered into the slots of the
+    candidates ``j < a`` appended earlier; ``y = -N q`` on the active block,
+    ``mse = btb + sum(q * y)``; a candidate with ``mse > psi`` is appended at
+    slot ``ell`` by :func:`ihb_update_ref`.  Every decision stays on the
+    device (the append is gated by a device flag), so the loop never syncs
+    with the host.  ``N`` is updated in place.  Returns ``(accepted, mses,
+    coeffs (K, Lcap), slots, ell)`` as device tensors.
+    """
+    dev, dtype = N.device, N.dtype
+    Lcap = N.shape[0]
+    Kcap = C.shape[0]
+    # one trash row at index Lcap absorbs the scatter of candidates that were
+    # not appended, so the scatter below needs no host-side mask
+    QLx = torch.cat([QLt.T, QLt.new_zeros((1, Kcap))], dim=0)
+    psi = torch.tensor(psi, dtype=dtype, device=dev)
+    ar = torch.arange(Lcap, device=dev)
+    ell = torch.tensor(ell0, dtype=torch.int32, device=dev)
+    slots = torch.full((K,), Lcap, dtype=torch.long, device=dev)
+    accepted = torch.zeros((K,), dtype=torch.bool, device=dev)
+    coeffs = torch.zeros((K, Lcap), dtype=dtype, device=dev)
+    mses = torch.zeros((K,), dtype=dtype, device=dev)
+    no_slot = torch.tensor(Lcap, dtype=torch.long, device=dev)
+
+    for a in range(K):
+        q = QLx[:, a].clone()
+        if a > 0:
+            # correction for the columns appended earlier in this degree; the
+            # slots are distinct, so the scatter is deterministic
+            before = slots[:a]
+            q.index_put_((before,), q[before] + C[:a, a])
+        q = q[:Lcap]
+        btb = C[a, a]
+        y0 = -(N @ q)
+        y0 = torch.where(ar < ell, y0, 0.0)
+        # sum(q * y0), the reduction the reference uses
+        mse0 = btb + torch.sum(q * y0)
+        accept = mse0 <= psi
+        # on reject: append the column to O (slot = ell) and update N
+        do_append = ~accept
+        N.copy_(ihb_update_ref(N, q, btb, ell, do_append))
+        slots[a] = torch.where(do_append, ell.long(), no_slot)
+        ell = ell + do_append.to(torch.int32)
+        accepted[a] = accept
+        coeffs[a] = torch.where(accept, y0, 0.0)
+        mses[a] = mse0
+    return accepted, mses, coeffs, slots, ell.reshape(1)
+
+
 # masked score of the plain version, as in the JAX package (finite, so a
 # fully masked row gives a uniform softmax, never NaN)
 NEG_INF = -1e30

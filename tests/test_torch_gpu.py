@@ -22,6 +22,12 @@ GRAM_RTOL, GRAM_ATOL = 1e-5, 1e-5
 # the IHB update divides by the Schur complement, which amplifies the matvec's
 # rounding; same tolerance as the CPU parity test of the update
 IHB_RTOL, IHB_ATOL = 1e-4, 1e-5
+# the degree loop chains up to ~800 such updates on columns of condition
+# number ~3 (kappa of the Gram ~10): each matvec summed in another order moves
+# N by a few fp32 ulps, and the chain adds them up
+DEGREE_RTOL, DEGREE_ATOL = 1e-3, 1e-4
+PSI = 0.005
+BAND = 1e-3  # verdicts within BAND * psi of psi may flip between sum orders
 
 
 @pytest.fixture
@@ -200,11 +206,122 @@ def test_ihb_update_kernel_vs_plain(cuda, L, ell):
 
 
 def test_ihb_update_kernel_inactive_is_copy(cuda):
+    """The in-place contract: a gated-off launch leaves N bit-identical, and
+    a gated-on one changes only the leading (ell + 1)^2 block, in place."""
     rng = np.random.default_rng(3)
     N, q, btb, ell = _ihb_inputs(rng, 64, 20, cuda)
+    ell_t = torch.tensor(ell, dtype=torch.int32, device=cuda)
+    before = N.clone()
     off = torch.tensor(False, device=cuda)
-    got = ops.ihb_update(N, q, btb, ell, active=off)
-    assert torch.equal(got, N) and got.data_ptr() != N.data_ptr()
+    assert ops.ihb_update_(N, q, btb, ell_t, active=off) is N
+    assert torch.equal(N, before)
+    on = torch.tensor(True, device=cuda)
+    ops.ihb_update_(N, q, btb, ell_t, active=on)
+    want = ops.ihb_update(before, q, btb, ell_t, use_kernel=False)
+    torch.testing.assert_close(N, want, rtol=IHB_RTOL, atol=IHB_ATOL)
+    assert torch.equal(N[ell + 1:, :], before[ell + 1:, :])
+    assert torch.equal(N[:, ell + 1:], before[:, ell + 1:])
+
+
+def test_ihb_update_kernel_out_of_place_leaves_input(cuda):
+    """With ``out`` the kernel reads N and writes only out's active block."""
+    from repro_torch.kernels.ihb_update import ihb_update_
+
+    rng = np.random.default_rng(4)
+    N, q, btb, ell = _ihb_inputs(rng, 512, 300, cuda)
+    ell_t = torch.tensor(ell, dtype=torch.int32, device=cuda)
+    before = N.clone()
+    out = N.clone()
+    ihb_update_(N, q, btb, ell_t, out=out)
+    assert torch.equal(N, before)
+    assert torch.equal(out, ops.ihb_update(N, q, btb, ell_t))
+
+
+def degree_inputs(seed, Lcap, ell0, K, appended, Kcap=None):
+    """Normalized Gram blocks of one degree, as ``stats_step`` hands them to
+    the candidate loop (QL transposed): ``ell0`` Gaussian columns in O (N
+    their exact inverse, padded with the identity) and K candidates, of which
+    those with ``appended[a]`` are independent (MSE near 1: appended) and the
+    others a combination of O's columns plus noise of variance psi / 5
+    (accepted).  Numpy arrays in float32."""
+    rng = np.random.default_rng(seed)
+    Kcap = Kcap or K
+    m = 4 * (ell0 + K)
+    A = rng.standard_normal((m, ell0))
+    B = rng.standard_normal((m, K))
+    dep = ~np.asarray(appended)
+    B[:, dep] = (A @ rng.standard_normal((ell0, dep.sum())) / np.sqrt(ell0)
+                 + np.sqrt(PSI / 5) * rng.standard_normal((m, dep.sum())))
+    N = np.eye(Lcap)
+    N[:ell0, :ell0] = np.linalg.inv(A.T @ A / m)
+    QLt = np.zeros((Kcap, Lcap))
+    QLt[:K, :ell0] = (A.T @ B / m).T
+    C = np.zeros((Kcap, Kcap))
+    C[:K, :K] = B.T @ B / m
+    return [x.astype(np.float32) for x in (QLt, C, N)]
+
+
+# (Lcap, ell0, K, Kcap): the wide fit's two degrees, a small one, and a
+# large active block; about half the candidates are appended
+_DEGREE_SHAPES = [(64, 4, 40, 64), (2048, 1, 57, 64), (2048, 58, 1653, 2048),
+                  (2048, 1024, 512, 512)]
+
+
+def _degree_case(cuda, Lcap, ell0, K, Kcap):
+    rng = np.random.default_rng(Lcap + ell0 + K)
+    appended = rng.uniform(size=K) < 0.5
+    QLt, C, N = (torch.from_numpy(x).to(cuda)
+                 for x in degree_inputs(K + ell0, Lcap, ell0, K, appended, Kcap))
+    return QLt, C, N
+
+
+@pytest.mark.parametrize("Lcap,ell0,K,Kcap", _DEGREE_SHAPES)
+def test_ihb_degree_kernel_vs_plain(cuda, Lcap, ell0, K, Kcap):
+    QLt, C, N0 = _degree_case(cuda, Lcap, ell0, K, Kcap)
+    Nk, Np = N0.clone(), N0.clone()
+    before = ops.launch_counts()["ihb_degree"]
+    got = ops.ihb_degree(QLt, C, Nk, ell0, PSI, K)
+    assert ops.launch_counts()["ihb_degree"] == before + 1
+    want = ops.ihb_degree(QLt, C, Np, ell0, PSI, K, use_kernel=False)
+    torch.cuda.synchronize()
+    acc, mses, coeffs, slots, ell = got
+    p_acc, p_mses, p_coeffs, p_slots, p_ell = want
+    # verdicts equal up to the first candidate within BAND * psi of psi
+    banded = torch.nonzero((p_mses - PSI).abs() <= BAND * PSI)
+    stop = int(banded[0]) if banded.numel() else K
+    assert torch.equal(acc[:stop], p_acc[:stop])
+    assert torch.equal(slots[:stop], p_slots[:stop])
+    assert 0.3 * K < int((~p_acc).sum()) < 0.7 * K  # about half appended
+    if stop < K:
+        return
+    assert torch.equal(ell, p_ell.to(torch.int32))
+    tol = dict(rtol=DEGREE_RTOL, atol=DEGREE_ATOL)
+    torch.testing.assert_close(mses, p_mses, **tol)
+    torch.testing.assert_close(coeffs, p_coeffs, **tol)
+    torch.testing.assert_close(Nk, Np, **tol)
+    # rows and columns past the final ell: bit-exact, never touched
+    e = int(ell)
+    assert torch.equal(Nk[e:, :], N0[e:, :]) and torch.equal(Nk[:, e:], N0[:, e:])
+
+
+@pytest.mark.parametrize("Lcap,ell0,K,Kcap", _DEGREE_SHAPES[2:])
+def test_ihb_degree_kernel_deterministic(cuda, Lcap, ell0, K, Kcap):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    QLt, C, N0 = _degree_case(cuda, Lcap, ell0, K, Kcap)
+    N1, N2 = N0.clone(), N0.clone()
+    out1 = ops.ihb_degree(QLt, C, N1, ell0, PSI, K)
+    out2 = ops.ihb_degree(QLt, C, N2, ell0, PSI, K)
+    assert torch.equal(N1, N2)
+    for a, b in zip(out1, out2):
+        assert torch.equal(a, b)
+
+
+def test_ihb_degree_kernel_raises_on_bad_input(cuda):
+    QLt, C, N = _degree_case(cuda, 64, 4, 40, 64)
+    with pytest.raises(ValueError):  # ell0 + K > Lcap
+        ops.ihb_degree(QLt, C, N, 30, PSI, 40)
+    with pytest.raises(TypeError):
+        ops.ihb_degree(QLt.double(), C, N, 4, PSI, 40)
 
 
 def test_kernels_raise_on_bad_input(cuda):
@@ -240,10 +357,11 @@ def test_fit_on_card_matches_cpu(cuda, ie):
     for a, b in zip(card.generators, cpu.generators):
         np.testing.assert_allclose(a.coeffs, b.coeffs, rtol=5e-3, atol=2e-3)
     launches = card.stats["kernel_launches"]
-    assert launches["gram_update_acc"] == len(card.stats["degrees"])
-    # one launch per candidate: the append is gated on the device, not skipped
-    candidates = sum(card.stats["border_sizes"])
-    assert launches["ihb_update"] == (candidates if ie == "inverse" else 0)
+    degrees = len(card.stats["degrees"])
+    assert launches["gram_update_acc"] == degrees
+    # the inverse engine's candidate loop: one launch per degree
+    assert launches["ihb_degree"] == (degrees if ie == "inverse" else 0)
+    assert launches["ihb_update"] == 0
 
 
 def test_classifier_on_card_matches_cpu(cuda):

@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import ihb as j_ihb
+from repro.core import oavi as j_oavi
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from test_torch_gpu import PSI, degree_inputs
 
 # Grams: the same fp32 products summed in another order (library matmul
 # blocking), sums of non-negative terms — the tolerance tests/test_kernels.py
@@ -32,6 +35,11 @@ GRAM_GRID = [  # tests/test_kernels.py::test_gram_update_shapes
     (128, 64, 16, 8, 128),
 ]
 IHB_GRID = [(8, 3), (16, 7), (32, 20), (64, 1)]  # test_ihb_update_vs_ref
+# The degree loop: both packages chain fp32 Theorem 4.9 updates with matvecs
+# summed in another order; the inverse engine's fit-parity tolerance
+# (tests/test_torch_oavi.py, where the reason is spelled out)
+DEGREE_TOL = dict(rtol=5e-3, atol=2e-3)
+BAND = 1e-3  # verdicts within BAND * psi of psi may flip between sum orders
 
 
 def _gram_inputs(seed, m, L, n, K):
@@ -157,6 +165,64 @@ def test_ihb_update_identity_padding_exact(L, ell):
     assert torch.equal(off, Nt)
 
 
+@pytest.mark.parametrize("L,ell", IHB_GRID)
+def test_ihb_update_in_place_equals_functional(L, ell):
+    """The fit's in-place update gives the functional update's bits, and
+    neither touches the block past ell + 1."""
+    N, q, btb = _ihb_inputs(L, ell)
+    Nt = torch.from_numpy(N)
+    args = (torch.from_numpy(q), torch.tensor(btb), torch.tensor(ell, dtype=torch.int32))
+    functional = ops.ihb_update(Nt, *args)
+    assert torch.equal(Nt, torch.from_numpy(N))  # N itself unchanged
+    inplace = Nt.clone()
+    assert ops.ihb_update_(inplace, *args) is inplace
+    assert torch.equal(inplace, functional)
+    for got in (functional, inplace):
+        assert torch.equal(got[ell + 1:, :], Nt[ell + 1:, :])
+        assert torch.equal(got[:, ell + 1:], Nt[:, ell + 1:])
+
+
+def _j_degree(QLt, C, N, ell0, K):
+    """The JAX package's statistics-only degree step, fast engine, on the raw
+    Grams with m_total = 1 (so its 1/m is exactly 1)."""
+    step = j_oavi._make_stats_degree_step(j_oavi.OAVIConfig(engine="fast", psi=PSI))
+    state = j_ihb.IHBState(AtA=None, N=jnp.asarray(N), R=None)
+    st = step(jnp.asarray(QLt.T), jnp.asarray(C), state, jnp.asarray(ell0, jnp.int32),
+              jnp.ones((C.shape[0],), bool), 1)
+    return st
+
+
+@pytest.mark.parametrize("Lcap,ell0,K,pattern", [
+    (16, 3, 10, "mixed"),
+    (32, 5, 20, "mixed"),
+    (64, 4, 40, "mixed"),
+    (32, 4, 16, "all"),
+    (32, 4, 16, "none"),
+])
+def test_ihb_degree_plain_vs_reference(Lcap, ell0, K, pattern):
+    rng = np.random.default_rng(Lcap + K)
+    appended = {"all": np.ones(K, bool), "none": np.zeros(K, bool),
+                "mixed": rng.uniform(size=K) < 0.5}[pattern]
+    QLt, C, N = degree_inputs(Lcap * K + ell0, Lcap, ell0, K, appended)
+    st = _j_degree(QLt, C, N, ell0, K)
+    Nt = torch.from_numpy(N)
+    acc, mses, coeffs, slots, ell = ops.ihb_degree(torch.from_numpy(QLt),
+                                                   torch.from_numpy(C), Nt, ell0, PSI, K)
+    j_mses = np.asarray(st.mses)
+    assert not np.any(np.abs(j_mses - PSI) <= BAND * PSI)  # no verdict in the band
+    assert np.array_equal(acc.numpy(), ~appended)
+    assert np.array_equal(acc.numpy(), np.asarray(st.accepted))
+    assert np.array_equal(slots.numpy(), np.asarray(st.slots))
+    assert int(ell) == int(st.ell) == ell0 + appended.sum()
+    np.testing.assert_allclose(mses.numpy(), j_mses, **DEGREE_TOL)
+    np.testing.assert_allclose(coeffs.numpy(), np.asarray(st.coeffs), **DEGREE_TOL)
+    np.testing.assert_allclose(Nt.numpy(), np.asarray(st.ihb.N), **DEGREE_TOL)
+    # N was updated in place; past the final active block it is untouched
+    e = int(ell)
+    assert torch.equal(Nt[e:, :], torch.from_numpy(N)[e:, :])
+    assert torch.equal(Nt[:, e:], torch.from_numpy(N)[:, e:])
+
+
 def test_ops_use_kernel_on_cpu_raises():
     A = torch.zeros(256, 4)
     p = torch.zeros(3, dtype=torch.long)
@@ -164,6 +230,9 @@ def test_ops_use_kernel_on_cpu_raises():
         ops.gram_accumulate(A, A, p, p, use_kernel=True)
     with pytest.raises(ValueError):
         ops.ihb_update(torch.eye(4), torch.zeros(4), 1.0, 1, use_kernel=True)
+    with pytest.raises(ValueError):
+        ops.ihb_degree(torch.zeros(4, 8), torch.eye(4), torch.eye(8), 1, PSI, 4,
+                       use_kernel=True)
 
 
 def test_cpu_ops_launch_no_kernel():
@@ -171,6 +240,7 @@ def test_cpu_ops_launch_no_kernel():
     A, X, p, v = _gram_inputs(0, 300, 8, 3, 5)
     ops.gram_accumulate(*_t(A, X, p, v))
     ops.ihb_update(torch.eye(8), torch.zeros(8), 1.0, 1)
+    ops.ihb_degree(torch.zeros(4, 8), torch.eye(4), torch.eye(8), 1, PSI, 4)
     assert ops.launch_counts() == before
 
 

@@ -226,5 +226,6 @@ def test_fit_stats(datasets):
     assert s["border_sizes"] and len(s["degrees"]) == len(s["degree_times"])
     assert s["termination"] in ("empty_border", "max_degree=10")
     assert s["kernel_launches"] == {"gram_update_acc": 0, "gram_update": 0,
-                                    "ihb_update": 0, "flash_attention": 0}
+                                    "ihb_update": 0, "ihb_degree": 0,
+                                    "flash_attention": 0}
     assert s["time_total"] > 0 and s["api"]["device"] == "cpu"

@@ -35,6 +35,15 @@ Phases, each reported on its own lines:
    layer.  The same model's prefill logits and one teacher-forced decode step
    are then held against the model run with the plain attention and against
    an fp32 copy of it.
+7. The paper's oracle variants: ``api.fit_classes`` of each of the seven
+   variants of Section 6.1 (CGAVI-IHB, AGDAVI-IHB, BPCGAVI-WIHB, BPCGAVI,
+   PCGAVI, CGAVI, AGDAVI) on the card at paper scale (the phase-3 split),
+   each held against the same fits on the CPU; the single in-place
+   ``ihb_update`` kernel must be launched once per candidate by the IHB-warm
+   variants.  Then Algorithm 2 with CGAVI-IHB (accuracy >= 0.8), saved and
+   loaded into a fresh classifier on the card (identical labels); and a wide
+   CGAVI-IHB fit on the phase-4 data, timed, against the phase-4 fast fit's
+   structure.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -571,6 +580,25 @@ def _coeff_err(models, witnesses):
                 for g, w in zip(m.generators, ws)), default=0.0)
 
 
+def judge_structure(card_models, cpu_models, card_log, cpu_log):
+    """Why the card's verdicts or structure differ from the CPU's (None if
+    they agree), and whether a candidate's MSE lay in the band.
+
+    Verdicts must be equal up to the first candidate whose MSE lies within
+    BAND * psi of psi; with none in the band the structure must be equal."""
+    banded = [i for i, (_, mse, _) in enumerate(cpu_log) if abs(mse - PSI) <= BAND * PSI]
+    stop = banded[0] if banded else len(cpu_log)
+    if [(t, a) for t, _, a in card_log[:stop]] != [(t, a) for t, _, a in cpu_log[:stop]]:
+        return "verdicts differ", bool(banded)
+    if banded:
+        log(f"  candidate {cpu_log[stop]} lies within {BAND}*psi of psi; "
+            f"verdicts compared up to it ({stop} candidates) and equal")
+        return None, True
+    if _structure(card_models) != _structure(cpu_models):
+        return "structure differs", False
+    return None, False
+
+
 def judge_fits(card_models, cpu_models, card_log, cpu_log, witnesses, direct):
     """Why the card fits fail the check against the CPU fits (None if they
     pass), and the distances behind the verdict.
@@ -580,16 +608,9 @@ def judge_fits(card_models, cpu_models, card_log, cpu_log, witnesses, direct):
     further from numpy's float64 least-squares solution than FIT_ERR_FACTOR
     times the CPU fp32 fit's (or FIT_ERR_FLOOR); and, where ``direct`` gives
     an ``(rtol, atol)``, allclose to the CPU fit's coefficients."""
-    banded = [i for i, (_, mse, _) in enumerate(cpu_log) if abs(mse - PSI) <= BAND * PSI]
-    stop = banded[0] if banded else len(cpu_log)
-    if [(t, a) for t, _, a in card_log[:stop]] != [(t, a) for t, _, a in cpu_log[:stop]]:
-        return "card and CPU verdicts differ", {}
-    if banded:
-        log(f"  candidate {cpu_log[stop]} lies within {BAND}*psi of psi; "
-            f"verdicts compared up to it ({stop} candidates) and equal")
-        return None, {}
-    if _structure(card_models) != _structure(cpu_models):
-        return "card and CPU structure differ", {}
+    why, banded = judge_structure(card_models, cpu_models, card_log, cpu_log)
+    if why is not None or banded:
+        return why, {}
     cpu_coeffs = [[g.coeffs for g in m.generators] for m in cpu_models]
     dist = dict(err_card=_coeff_err(card_models, witnesses),
                 err_cpu=_coeff_err(cpu_models, witnesses),
@@ -687,7 +708,7 @@ def main_path_paper_scale():
     check = compare_fits("paper scale", clf.models, cpu_models, card_log, cpu_log,
                          classes, control, direct=FIT_DIRECT_TOL)
     return launches, dict(fit_s=fit_s, transform_s=transform_s, accuracy=acc,
-                          ihb_appends=appends, **check)
+                          ihb_appends=appends, **check), (Xtr, ytr, Xte, yte)
 
 
 def main_path_wide():
@@ -734,7 +755,7 @@ def main_path_wide():
     check = compare_fits("wide", [card], [cpu], card_log, cpu_log, [X0],
                          ([ctl], ctl_log))
     return launches, dict(fit_s=fit_s, degree_times=st["degree_times"],
-                          ihb_appends=appends, profile=prof, **check)
+                          ihb_appends=appends, profile=prof, **check), (X0, card, card_log)
 
 
 # ---------------------------------------------------------------------------
@@ -897,9 +918,172 @@ def main_path_serve(dev):
                           profile=prof)
 
 
-def profile_device(tag, fn):
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's oracle variants
+# ---------------------------------------------------------------------------
+
+ORACLE_VARIANTS = ("cgavi-ihb", "agdavi-ihb", "bpcgavi-wihb", "bpcgavi", "pcgavi",
+                   "cgavi", "agdavi")
+IHB_WARM = ("cgavi-ihb", "agdavi-ihb", "bpcgavi-wihb")  # keep N: one update a candidate
+# PCG and BPCG choose their away and local vertices by argmax over scores that
+# tie to ~1e-6 relative; fp32 sums in another order (card vs CPU) round such
+# a near-tie either way and the runs then take different, equally valid
+# paths (tests/test_torch_oracles.py), each stopping at the first iterate
+# whose MSE is at most psi.  Their coefficients are held by that promise:
+# every generator's MSE on its data at most psi * (1 + VANISH_SLACK), the
+# rule tests/test_oavi.py holds the reference's generators to.
+SPLITTING = ("bpcgavi-wihb", "bpcgavi", "pcgavi")
+VANISH_SLACK = 1e-3
+
+
+def judge_oracle_fits(variant, card_models, cpu_models, card_log, cpu_log, data):
+    """Hold one variant's card fits against its CPU fits: the verdicts and
+    structure as ``judge_fits`` holds them; coefficients by the float64
+    witness rule (CG, AGD and the IHB-warm CG/AGD variants) or by the
+    vanishing rule (PCG and BPCG).  Returns the distances logged."""
+    if variant not in SPLITTING:
+        witnesses = [lstsq_coeffs(m, X) for m, X in zip(cpu_models, data)]
+        why, dist = judge_fits(card_models, cpu_models, card_log, cpu_log,
+                               witnesses, None)
+        if why is not None:
+            raise AssertionError(f"{variant}: {why}")
+        return dist
+    why, banded = judge_structure(card_models, cpu_models, card_log, cpu_log)
+    if why is not None:
+        raise AssertionError(f"{variant}: {why}")
+    mse = max(float(m.mse(X).max()) for m, X in zip(card_models, data))
+    if mse > PSI * (1 + VANISH_SLACK):
+        raise AssertionError(f"{variant}: a card generator's MSE {mse!r} exceeds psi")
+    if banded:
+        return dict(max_card_mse=mse)
+    cpu_coeffs = [[g.coeffs for g in m.generators] for m in cpu_models]
+    return dict(max_card_mse=mse, card_vs_cpu=_coeff_err(card_models, cpu_coeffs))
+
+
+def main_path_oracles(paper_data, wide_fast):
+    import shutil
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.kernels import ops
+
+    log("phase 7: the paper's oracle variants on appendix_c(m=2_000_000), 60/40 split, "
+        "psi=0.005")
+    Xtr, ytr, Xte, yte = paper_data
+    Xs = MinMaxScaler(dtype="float32").fit_transform(Xtr)
+    labels = np.unique(ytr)
+    classes = [Xs[ytr == c] for c in labels]
+    out, launches_all = {}, {}
+    for v in ORACLE_VARIANTS:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card, card_log = recording_fit(lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        t1 = time.perf_counter()
+        cpu, cpu_log = recording_fit(
+            lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI, device="cpu"))
+        cpu_s = time.perf_counter() - t1
+        dist = judge_oracle_fits(v, card, cpu, card_log, cpu_log, classes)
+        degrees = sum(len(m.stats["degrees"]) for m in card)
+        want_single = len(card_log) if v in IHB_WARM else 0
+        if launches["gram_update_acc"] != degrees or launches["ihb_degree"] != 0:
+            raise AssertionError(f"{v}: launches {launches}, expected one Gram launch "
+                                 f"per degree ({degrees}) and no ihb_degree")
+        if launches["ihb_update"] != want_single:
+            raise AssertionError(f"{v}: {launches['ihb_update']} ihb_update launches, "
+                                 f"expected {want_single} (one per candidate)")
+        iters = [m.stats["solver_iters"] for m in card]
+        reads = [m.stats["host_reads"] for m in card]
+        log(f"  {v}: card fit {fit_s:.3f} s (CPU {cpu_s:.3f} s); solver_iters card "
+            f"{iters}, CPU {[m.stats['solver_iters'] for m in cpu]}; host reads {reads}; "
+            f"{len(card_log)} candidates, {sum(not a for _, _, a in card_log)} appended; "
+            f"launches {launches}; |O| {[m.num_O for m in card]} |G| "
+            f"{[m.num_G for m in card]} equal on card and CPU; {dist}")
+        launches_all[v] = launches
+        out[v] = dict(fit_s=fit_s, cpu_fit_s=cpu_s, solver_iters=iters, host_reads=reads,
+                      candidates=len(card_log), launches=launches, **dist)
+
+    # the device's view of one CGAVI-IHB per-class fit
+    out["cgavi-ihb"]["profile_class0"] = profile_device(
+        "cgavi-ihb fit of class 0", lambda: api.fit(classes[0], "oavi:cgavi-ihb", psi=PSI),
+        watch=("ihb_update_kernel",))
+
+    # Algorithm 2 with the paper's method, saved and loaded on the card
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    clf = VanishingIdealClassifier(PipelineConfig(method="cgavi-ihb", psi=PSI)).fit(Xtr, ytr)
+    torch.cuda.synchronize()
+    clf_s = time.perf_counter() - t0
+    clf_launches = ops.launch_counts()
+    pred = clf.predict(Xte)
+    acc = float(np.mean(pred == yte))
+    s = clf.stats
+    log(f"  classifier (cgavi-ihb): fit {clf_s:.3f} s (generators {s['time_generators']:.3f} s, "
+        f"transform {s['time_transform']:.3f} s, svm {s['time_svm']:.3f} s); accuracy "
+        f"{acc:.4f}; launches {clf_launches}")
+    if acc < 0.8:
+        raise AssertionError(f"cgavi-ihb classifier accuracy {acc} below 0.8")
+    if clf_launches["ihb_update"] <= 0:
+        raise AssertionError("the cgavi-ihb classifier launched no ihb_update")
+    ckpt = os.path.join(HERE, "build", "chip_smoke_classifier")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t1 = time.perf_counter()
+        clf.save(ckpt)
+        save_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        again = VanishingIdealClassifier.load(ckpt)
+        load_s = time.perf_counter() - t2
+        pred2 = again.predict(Xte)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if again.device.type != "cuda":
+        raise AssertionError(f"the classifier was loaded onto {again.device}, not the card")
+    if not np.array_equal(pred2, pred):
+        raise AssertionError("the loaded classifier's labels differ from the saved one's")
+    log(f"  saved in {save_s:.3f} s, loaded into a fresh classifier on {again.device} in "
+        f"{load_s:.3f} s: {len(pred2)} labels identical")
+
+    # wide: CGAVI-IHB on the phase-4 data, against the phase-4 fast fit
+    X0, fast, fast_log = wide_fast
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    wide, wide_log = recording_fit(lambda: api.fit(X0, "oavi:cgavi-ihb", psi=PSI))
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = ops.launch_counts()
+    st = wide.stats
+    log(f"  wide cgavi-ihb: m={X0.shape[0]} fit {wide_s:.3f} s; borders {st['border_sizes']}; "
+        f"Lcap {st['Lcap_final']}; degree_times {st['degree_times']}; solver_iters "
+        f"{st['solver_iters']}; host reads {st['host_reads']}; launches {wide_launches}")
+    if wide_launches["ihb_update"] <= 0:
+        raise AssertionError("the wide cgavi-ihb fit launched no ihb_update")
+    why, _ = judge_structure([wide], [fast], wide_log, fast_log)
+    if why is not None:
+        raise AssertionError(f"wide cgavi-ihb against the fast engine's fit: {why}")
+    if not np.all(np.isfinite(wide.transform(X0))):
+        raise AssertionError("wide cgavi-ihb features are not finite")
+    log(f"  wide cgavi-ihb: |O| {wide.num_O} |G| {wide.num_G}, verdicts equal to the fast "
+        f"engine's")
+    out["classifier"] = dict(fit_s=clf_s, accuracy=acc, launches=clf_launches,
+                             save_s=save_s, load_s=load_s, svm=s["svm"],
+                             time_generators=s["time_generators"])
+    out["wide_cgavi_ihb"] = dict(fit_s=wide_s, solver_iters=st["solver_iters"],
+                                 host_reads=st["host_reads"], launches=wide_launches,
+                                 degree_times=st["degree_times"])
+    return launches_all["cgavi-ihb"], out
+
+
+def profile_device(tag, fn, watch=()):
     """Device time by kernel over one call of ``fn`` (after a warm-up call),
-    and the device's busy share of its wall time, from ``torch.profiler``."""
+    and the device's busy share of its wall time, from ``torch.profiler``.
+    Kernels whose name contains a string of ``watch`` are logged and
+    returned whether or not they are among the top rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -920,10 +1104,11 @@ def profile_device(tag, fn):
     log(f"  profiled {tag}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle share {100 * (1 - busy_ms / wall_ms):.1f}%, "
         f"{sum(r[1] for r in rows)} kernel launches")
-    for ms, count, key in rows[:8]:
+    shown = rows[:8] + [r for r in rows[8:] if any(w in r[2] for w in watch)]
+    for ms, count, key in shown:
         log(f"    {ms:9.3f} ms {100 * ms / max(busy_ms, 1e-9):5.1f}% x{count:<5d} {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=sum(r[1] for r in rows),
-                top=[dict(ms=ms, count=count, name=key[:120]) for ms, count, key in rows[:8]])
+                top=[dict(ms=ms, count=count, name=key[:120]) for ms, count, key in shown])
 
 
 def main() -> int:
@@ -964,8 +1149,8 @@ def main() -> int:
                                   ((2048, 58, 1653, 2048), 5),
                                   ((2048, 1024, 512, 512), 5))}
 
-    launches, paper = main_path_paper_scale()
-    wide_launches, wide = main_path_wide()
+    launches, paper, paper_data = main_path_paper_scale()
+    wide_launches, wide, wide_fast = main_path_wide()
 
     log("phase 5: flash_attention against its plain version on the card (bf16)")
     flash = {
@@ -980,6 +1165,7 @@ def main() -> int:
         raise AssertionError(f"the serve shape took the {flash['serve']['variant']} variant, "
                              "not wgmma")
     serve_launches, lm = main_path_serve(dev)
+    oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -989,12 +1175,14 @@ def main() -> int:
         dict(name="gram_update", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:77",
              launches=launches["gram_update"], **gupd),
-        # the main path launches the update as the degree loop's kernel
+        # the paper's oracle path launches the single in-place update (L = 64
+        # at paper scale), the fast engine's path the degree loop's kernel
         dict(name="ihb_update", route="cuda", source=src + "ihb_update.cu",
              replaces="src/repro/kernels/ihb_update.py:52",
-             launches=launches["ihb_degree"], entry="ihb_degree",
-             **degree[(2048, 58, 1653, 2048)],
-             single_update=dict(launches=launches["ihb_update"], **ihb[64])),
+             launches=oracle_launches["ihb_update"], entry="ihb_update (oracle path)",
+             **ihb[64],
+             ihb_degree=dict(launches=launches["ihb_degree"],
+                             **degree[(2048, 58, 1653, 2048)])),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"], **flash["serve"]),
@@ -1008,6 +1196,7 @@ def main() -> int:
         "paper_scale": paper,
         "flash_attention": {k: v for k, v in flash.items() if k != "serve"},
         "serve_qwen3_8b": lm,
+        "oracle_variants": oracle,
     }))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

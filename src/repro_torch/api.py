@@ -1,12 +1,17 @@
 """Estimator API of the port, OAVI only (counterpart of ``src/repro/api.py``).
 
-* :func:`resolve` maps a spec string (``"oavi"``, ``"oavi:fast"``, or a bare
-  variant name such as ``"fast"``) to a method and variant, as the reference
-  does; methods and variants that are not ported yet raise
+* :func:`resolve` maps a spec string (``"oavi"``, ``"oavi:cgavi-ihb"``, or a
+  bare variant name such as ``"fast"``) to a method and variant, as the
+  reference does; methods that are not ported yet (``abm``, ``vca``) raise
   :class:`NotImplementedError` naming the ROADMAP item that ports them.
 * :func:`fit` runs the local backend on ``device`` (``None`` = the CUDA
-  card; it raises without one unless the caller passes ``device="cpu"``).
-  A list of per-class arrays fits one model per class, sequentially.
+  card; it raises without one unless the caller passes ``device="cpu"``),
+  for every OAVI variant of Section 6.1 and the ``fast`` engine.  A list of
+  per-class arrays fits one model per class, sequentially.
+* :func:`save` / :func:`load` persist a model through
+  :mod:`repro_torch.checkpoint.store` in the JAX package's format, so each
+  package loads the other's saves (:func:`save_state_dict`,
+  :func:`load_state_dict` are the shared protocol, also of the classifier).
 * :func:`feature_transform` is the fused (FT): every per-class term book and
   generator matrix concatenated into one wavefront evaluation plus one
   product (:func:`_fuse`, :func:`plan_constants`, :func:`eval_with_constants`).
@@ -15,14 +20,21 @@
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _device
+from .checkpoint import store as ckpt_store
 from .core import oavi as oavi_mod
 from .core.oavi import OAVIModel, apply_wavefronts, wavefront_schedule
+from .core.oracles import OracleConfig
+from .resilience.integrity import IntegrityError
+
+_log = logging.getLogger("repro_torch.api")
 
 # Canonical OAVI variant table (Section 6.1).
 # name: (engine, solver, ihb, wihb)
@@ -37,7 +49,7 @@ OAVI_VARIANTS: Dict[str, Tuple[str, str, bool, bool]] = {
     "fast": ("fast", "bpcg", True, False),  # beyond-paper closed-form engine
 }
 
-# method name -> (variants, default variant); only OAVI's fast engine runs
+# method name -> (variants, default variant); only OAVI runs
 METHODS: Dict[str, Tuple[Tuple[str, ...], Optional[str]]] = {
     "oavi": (tuple(OAVI_VARIANTS), "fast"),
     "abm": ((), None),
@@ -47,7 +59,6 @@ METHODS: Dict[str, Tuple[Tuple[str, ...], Optional[str]]] = {
 _TODO = {
     "abm": "method 'abm' is not ported yet: ROADMAP.md queue 1 item 9",
     "vca": "method 'vca' is not ported yet: ROADMAP.md queue 1 item 9",
-    "oracle": oavi_mod._ORACLE_TODO,
     "sharded": "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12",
     "chunk_rows": "chunk_rows (out-of-core fits) is not ported yet: "
                   "ROADMAP.md queue 1 item 11",
@@ -93,11 +104,13 @@ def resolve(spec: str) -> Tuple[str, Optional[str]]:
 
 
 def oavi_config_for(variant: str, psi: float, **kw) -> oavi_mod.OAVIConfig:
-    """Build an :class:`OAVIConfig` from a named paper variant."""
-    engine = OAVI_VARIANTS[variant][0]
-    if engine != "fast":
-        raise NotImplementedError(_TODO["oracle"])
-    return oavi_mod.OAVIConfig(psi=psi, engine=engine, **kw)
+    """Build an :class:`OAVIConfig` from a named paper variant;
+    ``solver_kw`` (a dict) goes to its :class:`OracleConfig`."""
+    engine, solver, ihb, wihb = OAVI_VARIANTS[variant]
+    solver_cfg = OracleConfig(name=solver, **kw.pop("solver_kw", {}))
+    return oavi_mod.OAVIConfig(
+        psi=psi, engine=engine, solver=solver_cfg, ihb=ihb, wihb=wihb, **kw
+    )
 
 
 def fit(
@@ -117,7 +130,8 @@ def fit(
     ``X`` is an (m, n) array in ``[0, 1]^n``, or a list of per-class arrays
     (one model per class, see :func:`fit_classes`).  ``backend`` is ``"auto"``
     or ``"local"`` (both run the local fit).  ``device=None`` means the CUDA
-    card.  ``**method_kw`` goes to :class:`OAVIConfig` (e.g. ``cap_terms=64``).
+    card.  ``**method_kw`` goes to :class:`OAVIConfig` (e.g. ``cap_terms=64``,
+    or ``solver_kw={"tau": 50.0}`` for the variant's oracle).
     """
     if chunk_rows is not None:
         raise NotImplementedError(_TODO["chunk_rows"])
@@ -178,6 +192,103 @@ def aggregate_fit_stats(models: Sequence) -> Dict:
         for k, v in stats.get("kernel_launches", {}).items():
             launches[k] = launches.get(k, 0) + int(v)
     return {"regrowths": regrowths, "kernel_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Serialization: save / load through the checkpoint manifest machinery
+# ---------------------------------------------------------------------------
+
+_MODEL_KINDS: Dict[str, type] = {"oavi": OAVIModel}
+_FORMAT = "repro.vanishing_ideal_model.v1"
+
+
+def _json_safe(obj):
+    """Recursively convert numpy scalars/arrays so metadata JSON-serializes."""
+    if isinstance(obj, dict):
+        return {str(k): _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, np.integer):
+        return int(obj)
+    if isinstance(obj, np.floating):
+        return float(obj)
+    if isinstance(obj, np.bool_):
+        return bool(obj)
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    return obj
+
+
+def _model_class(kind):
+    if kind in ("vca", "abm"):
+        raise NotImplementedError(f"{kind!r} models are not ported yet: "
+                                  "ROADMAP.md queue 1 item 9")
+    if kind not in _MODEL_KINDS:
+        raise ValueError(f"unknown model kind {kind!r}")
+    return _MODEL_KINDS[kind]
+
+
+def save_state_dict(path: str, arrays: Dict, meta: Dict, fmt: str, step: int = 0) -> str:
+    """Write one ``(arrays, meta)`` state dict as a committed, format-tagged
+    checkpoint: the save protocol shared by :func:`save` and
+    ``VanishingIdealClassifier.save``.  ``step`` versions the save inside
+    ``path``, so :func:`load_state_dict` has older steps to fall back to.
+    Returns the committed directory."""
+    metadata = {
+        "format": fmt,
+        "kind": meta.get("kind"),
+        "meta": _json_safe(meta),
+        "array_keys": sorted(arrays),
+    }
+    return ckpt_store.save(path, step=step, tree=dict(arrays), metadata=metadata)
+
+
+def load_state_dict(path: str, fmt: str) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Load the newest *verifiable* committed state dict at ``path`` and
+    check its format tag.  Every leaf is checksum-verified first; a corrupt
+    head step falls back to the newest older step that verifies.  When every
+    step is damaged the head's :class:`IntegrityError` (naming the bad file)
+    propagates."""
+    steps = ckpt_store.committed_steps(path)
+    if not steps:
+        raise FileNotFoundError(f"no committed checkpoint under {path!r}")
+    head_err: Optional[IntegrityError] = None
+    for step in reversed(steps):
+        try:
+            metadata, _ = ckpt_store.read_metadata(path, step)
+            if metadata.get("format") != fmt:
+                raise ValueError(
+                    f"{path!r} is not a {fmt} checkpoint "
+                    f"(format={metadata.get('format')!r})"
+                )
+            like = {k: np.zeros(()) for k in metadata["array_keys"]}
+            arrays, metadata = ckpt_store.restore(path, step, like)
+        except (IntegrityError, json.JSONDecodeError) as e:
+            _log.warning("checkpoint step %d at %r failed verification: %s", step, path, e)
+            if head_err is None:
+                head_err = e if isinstance(e, IntegrityError) else IntegrityError(str(e))
+            continue
+        if step != steps[-1]:
+            _log.warning("loaded step %d from %r (newest committed step %d is corrupt)",
+                         step, path, steps[-1])
+        return arrays, metadata
+    raise head_err
+
+
+def save(model, path: str) -> str:
+    """Persist a fitted model to ``path`` (a directory) atomically."""
+    arrays, meta = model.to_state_dict()
+    _model_class(meta.get("kind"))
+    return save_state_dict(path, arrays, meta, _FORMAT)
+
+
+def load(path: str, *, device=None):
+    """Load a model written by :func:`save` (by either package) onto
+    ``device`` (``None`` = the CUDA card); the port's own round trip is
+    bit-identical."""
+    arrays, metadata = load_state_dict(path, _FORMAT)
+    cls = _model_class(metadata["kind"])
+    return cls.from_state_dict(arrays, metadata["meta"], device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +464,11 @@ __all__ = [
     "feature_transform",
     "fit",
     "fit_classes",
+    "load",
+    "load_state_dict",
     "oavi_config_for",
     "plan_constants",
     "resolve",
+    "save",
+    "save_state_dict",
 ]

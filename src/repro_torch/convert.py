@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from .core.oavi import OAVIModel
-from .core.pipeline import PipelineConfig, VanishingIdealClassifier
-from .core.svm import LinearSVMConfig
+from .core.pipeline import VanishingIdealClassifier
 
 
 def oavi_model_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
@@ -33,32 +32,7 @@ def classifier_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
     """Port :class:`VanishingIdealClassifier` from ``repro``'s
     ``VanishingIdealClassifier.to_state_dict()``: the scaler, the per-class
     models and the SVM head."""
-    if meta.get("kind") != "classifier":
-        raise ValueError(f"expected a classifier, got kind {meta.get('kind')!r}")
-    cfg = meta["config"]
-    clf = VanishingIdealClassifier(
-        PipelineConfig(
-            method=cfg["method"],
-            psi=cfg["psi"],
-            svm=LinearSVMConfig(**cfg["svm"]),
-            oavi_kw=cfg["oavi_kw"],
-            batch_size=cfg["batch_size"],
-        ),
-        device=device,
-    )
-    clf.scaler.lo = np.asarray(arrays["scaler_lo"])
-    clf.scaler.scale = np.asarray(arrays["scaler_scale"])
-    clf.models = []
-    for i, model_meta in enumerate(meta["models"]):
-        prefix = f"model_{i:03d}."
-        sub = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
-        clf.models.append(oavi_model_from_reference(sub, model_meta, device=clf.device))
-    clf.classes_ = np.asarray(arrays["classes"])
-    clf.svm.W = np.asarray(arrays["svm_W"])
-    clf.svm.b = np.asarray(arrays["svm_b"])
-    clf.svm.classes_ = clf.classes_
-    clf.stats = dict(meta.get("stats") or {})
-    return clf
+    return VanishingIdealClassifier.from_state_dict(arrays, meta, device=device)
 
 
 def lm_params_from_reference(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:

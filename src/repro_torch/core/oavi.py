@@ -1,7 +1,8 @@
 """OAVI — the Oracle Approximate Vanishing Ideal algorithm (Algorithm 1).
 
-Counterpart of ``src/repro/core/oavi.py``, ``engine='fast'`` (closed-form
-IHB decisions, both ``inverse_engine`` choices).
+Counterpart of ``src/repro/core/oavi.py``: both engines (``'fast'``, the
+closed-form IHB decisions, and ``'oracle'``, the paper's convex-oracle
+variants), both ``inverse_engine`` choices, IHB warm starts and WIHB.
 
 Host-side Python owns the *combinatorics* (term book, DegLex borders, Theorem
 4.3); PyTorch owns the linear algebra.  Per degree ``d`` the whole border is
@@ -16,11 +17,15 @@ processed by one degree step:
     Algorithm 1 from the Gram blocks alone: the ``A^T b`` vector of candidate
     ``a`` is ``QL[:, a]`` plus ``C[j, a]`` scattered into the slots of the
     candidates ``j < a`` appended this degree, and a rejected candidate is
-    appended by the Theorem 4.9 update.  On the inverse engine the whole loop
-    is :func:`repro_torch.kernels.ops.ihb_degree`: one launch of the CUDA
-    kernel per degree on the card, the plain eager loop on the CPU.  Every
-    decision stays on the device, so the loop syncs with the host once per
-    degree, not once per candidate.
+    appended by the Theorem 4.9 update.  On the fast engine with
+    ``inverse_engine='inverse'`` the whole loop is
+    :func:`repro_torch.kernels.ops.ihb_degree`: one launch of the CUDA kernel
+    per degree on the card, the plain eager loop on the CPU, and one host
+    sync per degree.  Every other configuration runs the eager loop of
+    :func:`_candidate_loop` (closed form, convex oracle of
+    :mod:`repro_torch.core.oracles`, (INF) guard, WIHB re-solve, and the
+    append through :func:`repro_torch.core.ihb.append_column`, which launches
+    the single in-place ``ihb_update`` kernel when ``N`` is kept).
 3.  The appended candidate columns are written into ``A``.
 
 ``|O|`` capacity (``Lcap``) and border capacity (``Kcap``) are power-of-two
@@ -41,22 +46,22 @@ import torch
 from .. import _device
 from ..kernels import ops as kernel_ops
 from . import ihb as ihb_mod
+from . import oracles
 from . import terms as terms_mod
 from .ordering import pearson_order
-
-_ORACLE_TODO = (
-    "engine='oracle' (the convex-oracle variants) is not ported yet: "
-    "ROADMAP.md queue 1 item 5"
-)
 
 
 @dataclasses.dataclass(frozen=True)
 class OAVIConfig:
-    """The reference's ``OAVIConfig`` less the oracle engine's fields
-    (``solver``, ``ihb``, ``wihb``), which come with ROADMAP queue 1 item 5."""
+    """The reference's ``OAVIConfig`` less its Gram-kernel dispatch knob
+    (``kernel``) and Schur guard (``tol_dependent``), which the port does
+    not use: ``kernels.ops`` dispatches on the tensors' device."""
 
     psi: float = 0.005
-    engine: str = "fast"  # 'fast' ('oracle' is not ported yet)
+    engine: str = "fast"  # 'fast' | 'oracle'
+    solver: oracles.OracleConfig = dataclasses.field(default_factory=oracles.OracleConfig)
+    ihb: bool = True  # warm-start the oracle with the closed-form optimum
+    wihb: bool = False  # re-solve accepted generators sparsely (BPCGAVI-WIHB)
     inverse_engine: str = "inverse"  # 'inverse' (Thm 4.9) | 'chol' (beyond-paper)
     max_degree: int = 10
     cap_terms: int = 64  # initial |O| capacity bucket; grows on demand
@@ -68,7 +73,8 @@ class OAVIConfig:
         return getattr(torch, self.dtype)
 
     def ihb_factors(self) -> Tuple[str, ...]:
-        return ihb_mod.factors_for(self.engine, self.inverse_engine)
+        return ihb_mod.factors_for(self.engine, self.inverse_engine, self.ihb,
+                                   self.wihb)
 
 
 class Generator(NamedTuple):
@@ -244,10 +250,10 @@ class OAVIModel:
         )
 
     def save(self, path: str) -> str:
-        raise NotImplementedError(
-            "saving models (checkpoint/store.py) is not ported yet: ROADMAP.md "
-            "queue 1 item 15"
-        )
+        """Persist via :func:`repro_torch.api.save`."""
+        from .. import api
+
+        return api.save(self, path)
 
 
 # ---------------------------------------------------------------------------
@@ -330,20 +336,21 @@ class DegreeResult(NamedTuple):
     mses: np.ndarray  # (K,)
     coeffs: np.ndarray  # (K, Lcap)
     slots: np.ndarray  # (K,) slot of each appended candidate, Lcap otherwise
+    iters: np.ndarray  # (K,) solver iterations (0 for the closed form)
 
 
 def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
                ell0: int, K: int, m_total: int):
     """Every accept/reject decision of one degree from the raw Gram
-    statistics alone (the reference's ``_make_stats_degree_step``, fast
-    engine).  Returns ``(DegreeResult, new IHB state)``.
+    statistics alone (the reference's ``_make_stats_degree_step``, its
+    ``while_loop`` solvers).  Returns ``(DegreeResult, new IHB state)``.
 
     The K valid candidates run in order; padded lanes ``K..Kcap`` are never
-    visited (the reference masks them to no-ops).  With ``inverse_engine=
-    'inverse'`` the loop is ``ops.ihb_degree``: one launch of the
-    hand-written kernel on the card (the state's ``N`` updated in place), its
-    plain eager version on the CPU.  The ``chol`` engine runs the eager loop
-    here.  Either way the host reads the results once per degree.
+    visited (the reference masks them to no-ops).  The fast engine with
+    ``inverse_engine='inverse'`` and no WIHB runs ``ops.ihb_degree``: one
+    launch of the hand-written kernel on the card (the state's ``N`` updated
+    in place), its plain eager version on the CPU, one host read per degree.
+    Every other configuration runs :func:`_candidate_loop`.
     """
     dtype = cfg.torch_dtype()
     np_dtype = np.dtype(cfg.dtype)
@@ -354,37 +361,63 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
                          device=dev)
     QL = (QL_raw * inv_m).to(dtype)
     C = (C_raw * inv_m).to(dtype)
-    if cfg.inverse_engine == "chol":
-        out = _chol_degree_loop(cfg, QL, C, state, ell0, K)
-        state = out[-1]
-    else:
+    if cfg.engine == "fast" and cfg.inverse_engine != "chol" and not cfg.wihb:
         out = kernel_ops.ihb_degree(QL.T.contiguous(), C, state.N, ell0, cfg.psi, K)
+        iters = np.zeros((K,), np.int32)
+    else:
+        *out, iters, state = _candidate_loop(cfg, QL, C, state, ell0, K)
+        iters = iters.cpu().numpy()
     accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
-    return DegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots), state
+    return DegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots,
+                        iters=iters), state
 
 
-def _chol_degree_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
-                      ell0: int, K: int):
-    """The candidate loop of :func:`stats_step` on the Cholesky engine, in
-    eager ops: :func:`repro_torch.kernels.ref.ihb_degree_ref`'s loop with two
-    triangular solves for the closed form and the append of
-    :func:`repro_torch.core.ihb.append_column`.  Every decision stays on the
-    device (the append is gated by a device flag), so the loop never syncs
-    with the host.  Returns ``(accepted, mses, coeffs, slots, state)``."""
+def _candidate_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
+                    ell0: int, K: int):
+    """The candidate loop of :func:`stats_step` in eager ops, the reference's
+    ``body`` candidate by candidate:
+
+    * the closed form ``y0`` from ``N`` (or, on the Cholesky engine, two
+      triangular solves on ``R``) wherever the engine needs it;
+    * ``engine='fast'``: the verdict from ``y0`` itself;
+    * ``engine='oracle'``: the configured solver on ``AtA`` (the Gram is
+      normalized, so ``m = 1``), warm-started from ``y0`` with IHB while the
+      (INF) guard allows (paper section 4.4.3: once a warm start leaves the
+      l1 ball, IHB stays off for the rest of the degree), cold otherwise;
+    * WIHB: an accepted candidate is re-solved by a cold BPCG and keeps the
+      sparse solution where that one vanishes too;
+    * a rejected candidate is appended (:func:`ihb.append_column`, gated on
+      the device).
+
+    The solvers read their stopping test on the host (once per
+    :data:`oracles.WHILE_CHUNK`-step chunk), and WIHB reads the verdict, so
+    the oracle engine syncs at least once per candidate; the fast engine's
+    loop never syncs.  Returns ``(accepted, mses, coeffs, slots, iters,
+    state)``.
+    """
     dtype = cfg.torch_dtype()
     dev = QL.device
     Lcap, Kcap = QL.shape
+    engine_oracle = cfg.engine == "oracle"
+    need_closed_form = (not engine_oracle) or cfg.ihb
+    use_chol = cfg.inverse_engine == "chol"
+    solver = oracles.SOLVERS[cfg.solver.name]
     psi = torch.tensor(cfg.psi, dtype=dtype, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)  # m: the Gram is normalized
+    radius = cfg.solver.tau - 1.0
     # one trash row at index Lcap absorbs the scatter of candidates that were
     # not appended, so the scatter below needs no host-side mask
     QLx = torch.cat([QL, QL.new_zeros((1, Kcap))], dim=0)
     ar = torch.arange(Lcap, device=dev)
     ell = torch.tensor(ell0, dtype=torch.int32, device=dev)
+    ihb_live = torch.ones((), dtype=torch.bool, device=dev)
     slots = torch.full((K,), Lcap, dtype=torch.long, device=dev)
     accepted = torch.zeros((K,), dtype=torch.bool, device=dev)
     coeffs = torch.zeros((K, Lcap), dtype=dtype, device=dev)
     mses = torch.zeros((K,), dtype=dtype, device=dev)
+    iters = torch.zeros((K,), dtype=torch.int32, device=dev)
     no_slot = torch.tensor(Lcap, dtype=torch.long, device=dev)
+    no_iters = torch.zeros((), dtype=torch.int32, device=dev)
 
     for a in range(K):
         q = QLx[:, a].clone()
@@ -395,20 +428,46 @@ def _chol_degree_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
             q.index_put_((before,), q[before] + C[:a, a])
         q = q[:Lcap]
         btb = C[a, a]
-        y0 = ihb_mod.closed_form_cholesky(state, q)
-        y0 = torch.where(ar < ell, y0, 0.0)
-        # sum(q * y0), the reduction the reference uses
-        mse0 = btb + torch.sum(q * y0)
-        accept = mse0 <= psi
-        # on reject: append the column to O (slot = ell) and update the factor
+        mask = ar < ell
+        if need_closed_form:
+            if use_chol:
+                y0 = ihb_mod.closed_form_cholesky(state, q)
+            else:
+                y0 = ihb_mod.closed_form_inverse(state, q)
+            y0 = torch.where(mask, y0, 0.0)
+        if not engine_oracle:
+            # sum(q * y0), the reduction the reference uses
+            y, mse, it = y0, btb + torch.sum(q * y0), no_iters
+        else:
+            if cfg.ihb:
+                # (INF) guard; only valid candidates are visited here
+                feasible = torch.sum(torch.abs(y0)) <= radius
+                warm = torch.where(ihb_live & feasible, y0, 0.0)
+                ihb_live = ihb_live & feasible
+            else:
+                warm = None
+            res = solver(state.AtA, q, btb, one, mask, psi, cfg.solver, warm)
+            y, mse, it = res.y, res.f, res.iters
+        accept = mse <= psi
+        if cfg.wihb:
+            oracles.host_reads += 1
+            if bool(accept):
+                # re-solve the accepted generator sparsely from a cold start
+                res = oracles.solve_bpcg(state.AtA, q, btb, one, mask, psi, cfg.solver)
+                ok = res.f <= psi
+                y = torch.where(ok, res.y, y)
+                mse = torch.where(ok, res.f, mse)
+                it = it + res.iters
+        # on reject: append the column to O (slot = ell) and update the factors
         do_append = ~accept
         state = ihb_mod.append_column(state, q, btb, ell, active=do_append)
         slots[a] = torch.where(do_append, ell.long(), no_slot)
         ell = ell + do_append.to(torch.int32)
         accepted[a] = accept
-        coeffs[a] = torch.where(accept, y0, 0.0)
-        mses[a] = mse0
-    return accepted, mses, coeffs, slots, state
+        coeffs[a] = torch.where(accept, y, 0.0)
+        mses[a] = mse
+        iters[a] = it
+    return accepted, mses, coeffs, slots, iters, state
 
 
 def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,
@@ -474,16 +533,19 @@ def collect_degree(book, border, accepted, mses, coeffs, generators) -> int:
 def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
     """Run OAVI on ``X`` (m, n) in [0,1]^n.  ``device=None`` means the CUDA
     card (and raises without one); pass ``device="cpu"`` for the CPU."""
-    if config.engine != "fast":
-        raise NotImplementedError(_ORACLE_TODO)
+    if config.engine not in ("fast", "oracle"):
+        raise ValueError(f"unknown engine {config.engine!r}; expected 'fast' or 'oracle'")
+    if config.solver.name not in oracles.SOLVERS:
+        raise ValueError(f"unknown solver {config.solver.name!r}")
     dev = _device.resolve(device)
     dtype = config.torch_dtype()
     t_start = time.perf_counter()
     launches0 = kernel_ops.launch_counts()
+    reads0 = oracles.host_reads
     X = np.asarray(X)
     m, n = X.shape
     stats: Dict = {"border_sizes": [], "degrees": [], "degree_times": [],
-                   "regrowths": 0, "m": m, "n": n}
+                   "solver_iters": [], "regrowths": 0, "m": m, "n": n}
 
     perm = None
     if config.ordering in ("pearson", "reverse_pearson"):
@@ -535,11 +597,15 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
         t0 = time.perf_counter()
         res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m)
         stats["degree_times"].append(time.perf_counter() - t0)
+        stats["solver_iters"].append(int(res.iters.sum()))
         ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
                              generators)
 
     launches1 = kernel_ops.launch_counts()
     stats["kernel_launches"] = {k: launches1[k] - launches0[k] for k in launches1}
+    # host reads inside the candidate loops (the result copies of each
+    # degree not counted)
+    stats["host_reads"] = oracles.host_reads - reads0
     stats["Lcap_final"] = Lcap
     stats["time_total"] = time.perf_counter() - t_start
     return OAVIModel(

@@ -4,24 +4,31 @@ Counterpart of ``src/repro/core/pipeline.py``.  The per-class OAVI fits run
 sequentially through :func:`repro_torch.api.fit_classes`, the features come
 from the fused :func:`repro_torch.api.feature_transform`, and the l1
 squared-hinge :class:`~repro_torch.core.svm.LinearSVM` classifies them.
-Everything runs on ``device`` (``None`` = the CUDA card).
+Everything runs on ``device`` (``None`` = the CUDA card).  ``method`` is
+any OAVI spec of :mod:`repro_torch.api` (``"fast"``, ``"cgavi-ihb"``, ...).
+
+A fitted pipeline serializes whole (scaler, per-class models, SVM head) in
+the JAX package's layout and format (``to_state_dict`` / ``save`` /
+``load``), so either package loads the other's classifiers.
 
 Not ported yet: class-batched fits (ROADMAP.md queue 1 item 10), streaming
-fits and ``capture_fit_state`` (item 11); ``attach_engine`` (item 13) and
-``save`` / ``load`` (item 15) raise :class:`NotImplementedError`.
+fits and ``capture_fit_state`` (item 11); ``attach_engine`` (item 13) raises
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import _device
 from .svm import LinearSVM, LinearSVMConfig
 from .transform import MinMaxScaler
+
+CLASSIFIER_FORMAT = "repro.vanishing_ideal_classifier.v1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,14 +120,110 @@ class VanishingIdealClassifier:
     def score(self, X, y) -> float:
         return float(np.mean(self.predict(X) == np.asarray(y)))
 
+    # -- serialization ----------------------------------------------------
+
+    def to_state_dict(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """Flat array tree + JSON-safe metadata for the whole pipeline, in
+        the JAX package's layout: ``model_###.`` prefixed per-class model
+        arrays, ``scaler_lo``, ``scaler_scale``, ``svm_W``, ``svm_b`` and
+        ``classes``.  The reference's config keys of paths the port lacks
+        are written with the values the port behaves as."""
+        from .. import api
+
+        if self.svm.W is None or self.classes_ is None:
+            raise ValueError("cannot serialize an unfitted classifier")
+        arrays: Dict[str, np.ndarray] = {}
+        model_metas = []
+        for i, model in enumerate(self.models):
+            a, meta = model.to_state_dict()
+            api._model_class(meta.get("kind"))
+            for k, v in a.items():
+                arrays[f"model_{i:03d}.{k}"] = v
+            model_metas.append(meta)
+        arrays["scaler_lo"] = np.asarray(self.scaler.lo)
+        arrays["scaler_scale"] = np.asarray(self.scaler.scale)
+        arrays["svm_W"] = np.asarray(self.svm.W)
+        arrays["svm_b"] = np.asarray(self.svm.b)
+        arrays["classes"] = np.asarray(self.classes_)
+        cfg = self.config
+        meta = {
+            "kind": "classifier",
+            "num_models": len(self.models),
+            "models": model_metas,
+            "dtype": self.dtype,
+            "config": {
+                "method": cfg.method,
+                "psi": cfg.psi,
+                "svm": dataclasses.asdict(cfg.svm),
+                "oavi_kw": cfg.oavi_kw,
+                "backend": cfg.backend,
+                "batch_size": cfg.batch_size,
+                "class_batch": "off",
+                "chunk_rows": None,
+                "capture_fit_state": False,
+            },
+            "svm_stats": self.svm.stats,
+            "stats": self.stats,
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_state_dict(cls, arrays: Dict[str, np.ndarray], meta: Dict,
+                        device=None) -> "VanishingIdealClassifier":
+        """Rebuild a classifier from :meth:`to_state_dict` output (also the
+        JAX package's) on ``device`` (``None`` = the CUDA card)."""
+        from .. import api
+
+        if meta.get("kind") != "classifier":
+            raise ValueError(f"expected a classifier, got kind {meta.get('kind')!r}")
+        cfg = meta["config"]
+        clf = cls(
+            PipelineConfig(
+                method=cfg["method"],
+                psi=cfg["psi"],
+                svm=LinearSVMConfig(**cfg["svm"]),
+                oavi_kw=cfg["oavi_kw"],
+                backend=cfg.get("backend", "auto"),
+                batch_size=cfg["batch_size"],
+            ),
+            device=device,
+        )
+        clf.scaler.lo = np.asarray(arrays["scaler_lo"])
+        clf.scaler.scale = np.asarray(arrays["scaler_scale"])
+        clf.models = []
+        for i, model_meta in enumerate(meta["models"]):
+            prefix = f"model_{i:03d}."
+            sub = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+            model_cls = api._model_class(model_meta.get("kind"))
+            clf.models.append(model_cls.from_state_dict(sub, model_meta, device=clf.device))
+        clf.svm.W = np.asarray(arrays["svm_W"])
+        clf.svm.b = np.asarray(arrays["svm_b"])
+        clf.svm.classes_ = np.asarray(arrays["classes"])
+        clf.svm.stats = dict(meta.get("svm_stats") or {})
+        clf.classes_ = np.asarray(arrays["classes"])
+        clf.stats = dict(meta.get("stats") or {})
+        return clf
+
+    def save(self, path: str) -> str:
+        """Persist the fitted pipeline to ``path`` (a directory) atomically,
+        in the layout of :func:`repro_torch.api.save` with format
+        :data:`CLASSIFIER_FORMAT`."""
+        from .. import api
+
+        arrays, meta = self.to_state_dict()
+        return api.save_state_dict(path, arrays, meta, CLASSIFIER_FORMAT)
+
+    @classmethod
+    def load(cls, path: str, *, device=None) -> "VanishingIdealClassifier":
+        """Load a pipeline written by :meth:`save` (by either package) onto
+        ``device`` (``None`` = the CUDA card); the port's own round trip
+        predicts bit-identically."""
+        from .. import api
+
+        arrays, metadata = api.load_state_dict(path, CLASSIFIER_FORMAT)
+        return cls.from_state_dict(arrays, metadata["meta"], device=device)
+
     # -- not ported yet ----------------------------------------------------
 
     def attach_engine(self, *args, **kwargs):
         raise _not_ported("the serving engine (attach_engine)", "queue 1 item 13")
-
-    def save(self, path: str) -> str:
-        raise _not_ported("classifier save", "queue 1 item 15")
-
-    @classmethod
-    def load(cls, path: str):
-        raise _not_ported("classifier load", "queue 1 item 15")

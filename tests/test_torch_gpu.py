@@ -377,3 +377,158 @@ def test_classifier_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card.transform(Xte), cpu.transform(Xte),
                                rtol=5e-3, atol=2e-3)
     assert abs(card.score(Xte, yte) - cpu.score(Xte, yte)) <= 0.01
+
+
+# ---------------------------------------------------------------------------
+# The convex oracles and the oracle engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _oracle_problem(seed, device, m=200, ell=6, Lcap=8):
+    """``tests/test_torch_oracles.py``'s instances, on ``device``."""
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(0, 1, (m, ell)).astype(np.float32)
+    b = rng.uniform(0, 1, m).astype(np.float32)
+    Q = np.zeros((Lcap, Lcap), np.float32)
+    q = np.zeros((Lcap,), np.float32)
+    Q[:ell, :ell] = A.T @ A / m
+    q[:ell] = A.T @ b / m
+    btb = np.float32(b @ b / m)
+    mask = np.arange(Lcap) < ell
+    return tuple(torch.from_numpy(np.asarray(x)).to(device) for x in (Q, q, btb, mask))
+
+
+@pytest.mark.parametrize("name", ["agd", "cg", "pcg", "bpcg"])
+def test_oracle_runners_bit_identical_on_card(cuda, name):
+    """On CUDA tensors the chunked while runner equals the scheduled runner
+    at full budget and the one-step-at-a-time loop, bit for bit."""
+    from repro_torch.core import oracles
+
+    Q, q, btb, mask = _oracle_problem(3, cuda)
+    psi = torch.tensor(1e-6, device=cuda)
+    cfg = oracles.OracleConfig(name=name, max_iter=512, eps_frac=1e-3, tau=1000.0)
+    ref = oracles.SOLVERS[name](Q, q, btb, 1.0, mask, psi, cfg)
+    sch = oracles.SCHEDULED_SOLVERS[name](Q, q, btb, 1.0, mask, psi, cfg,
+                                          schedule=oracles.max_schedule(cfg))
+    one = oracles._run_while(*oracles._PARTS[name](Q, q, btb, 1.0, mask, psi, cfg, None),
+                             chunk=1)
+    assert ref.y.device.type == "cuda" and bool(sch.converged)
+    for got in (sch, one):
+        assert torch.equal(ref.y, got.y) and torch.equal(ref.f, got.f)
+        assert torch.equal(ref.gap, got.gap) and int(ref.iters) == int(got.iters)
+    assert int(ref.iters) > oracles.WHILE_CHUNK
+
+
+@pytest.mark.parametrize("n", [8, 61, 2048, 100_003])
+def test_argmax_ties_first_index_on_card(cuda, n):
+    """``torch.argmax`` / ``argmin`` on the card return the first of equal
+    extremes, as ``jnp.argmax`` does and the FW vertex choices rely on."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(-1, 1, n).astype(np.float32)
+    where = np.sort(rng.choice(n, size=min(n, 5), replace=False))
+    x[where] = 2.0
+    t = torch.from_numpy(x).to(cuda)
+    assert int(torch.argmax(t)) == int(where[0])
+    assert int(torch.argmin(-t)) == int(where[0])
+    masked = torch.where(torch.arange(n, device=cuda) > int(where[1]), t, float("-inf"))
+    assert int(torch.argmax(masked)) == int(where[2])
+    assert int(torch.argmax(torch.full((n,), float("-inf"), device=cuda))) == 0
+
+
+def test_fw_vertex_on_card_equals_cpu(cuda):
+    from repro_torch.core import oracles
+
+    cases = [([0.5, -0.5, 0.5, 0.1], [1, 1, 1, 1]), ([0.0, 0.0, 0.0, 0.0], [1, 1, 1, 0]),
+             ([0.9, 0.2, -0.2, 0.0], [0, 1, 1, 1])]
+    for grad, mask in cases:
+        g = torch.tensor(grad, dtype=torch.float32)
+        msk = torch.tensor(mask, dtype=torch.bool)
+        i_cpu, v_cpu = oracles._fw_vertex(g, msk, 3.0)
+        i_gpu, v_gpu = oracles._fw_vertex(g.to(cuda), msk.to(cuda), 3.0)
+        assert int(i_gpu) == int(i_cpu) and float(v_gpu) == float(v_cpu)
+
+
+def _appc_class0(m=3000):
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+
+    X, y = synthetic.appendix_c(m=m, seed=0)
+    Xtr, ytr, _, _ = synthetic.train_test_split(X, y, test_frac=0.4, seed=0)
+    return MinMaxScaler(dtype="float32").fit_transform(Xtr)[ytr == 0]
+
+
+# PCG / BPCG paths split at near-ties (tests/test_torch_oracles.py): held by
+# the vanishing contract instead of their coefficients
+_SPLITTING = ("bpcgavi-wihb", "bpcgavi", "pcgavi")
+
+
+@pytest.mark.parametrize("variant,ie", [
+    ("cgavi-ihb", "inverse"), ("cgavi-ihb", "chol"), ("agdavi-ihb", "inverse"),
+    ("bpcgavi-wihb", "inverse"), ("bpcgavi", "inverse"), ("pcgavi", "inverse"),
+    ("cgavi", "inverse"), ("agdavi", "inverse"),
+])
+def test_oracle_fit_on_card_matches_cpu(cuda, variant, ie):
+    """Each variant on the card against the same fit on the CPU: equal
+    structure; coefficients at the fast engine's tolerances (warm variants,
+    whose certificates fire at the closed form) or the same-steps tolerance
+    rtol 1e-4, atol 1e-5 of ``tests/test_torch_oavi.py`` (cold CG and AGD);
+    PCG and BPCG generators must vanish (MSE at most psi (1 + 1e-3))."""
+    from repro_torch import api
+
+    X = _appc_class0()
+    card = api.fit(X, f"oavi:{variant}", psi=PSI, inverse_engine=ie)
+    cpu = api.fit(X, f"oavi:{variant}", psi=PSI, inverse_engine=ie, device="cpu")
+    assert card.device.type == "cuda"
+    assert card.book.terms == cpu.book.terms
+    assert [g.term for g in card.generators] == [g.term for g in cpu.generators]
+    assert card.num_G > 0
+    if variant in _SPLITTING:
+        assert float(card.mse(X).max()) <= PSI * (1 + 1e-3)
+        return
+    if variant.endswith("-ihb"):
+        # a warm start near the certificate may take a few steps on one side
+        # only (the inverse engine's fp32 spread; tests/test_torch_pipeline.py)
+        tol = dict(rtol=5e-3, atol=2e-3) if ie == "inverse" else dict(rtol=1e-4, atol=1e-5)
+        assert ([i == 0 for i in card.stats["solver_iters"]]
+                == [i == 0 for i in cpu.stats["solver_iters"]])
+    else:
+        tol = dict(rtol=1e-4, atol=1e-5)
+        assert card.stats["solver_iters"] == cpu.stats["solver_iters"]
+    for a, b in zip(card.generators, cpu.generators):
+        np.testing.assert_allclose(a.coeffs, b.coeffs, **tol)
+
+
+@pytest.mark.parametrize("variant", ["cgavi-ihb", "agdavi-ihb", "bpcgavi-wihb", "cgavi"])
+def test_oracle_fit_launches_single_ihb_update(cuda, variant):
+    """An IHB-warm oracle fit keeps N and appends through the single
+    in-place ``ihb_update`` kernel: one launch per candidate (gated on the
+    device), one Gram launch per degree, no ``ihb_degree``.  A cold variant
+    keeps no N and launches no IHB kernel."""
+    from repro_torch import api
+
+    X = _appc_class0()
+    model = api.fit(X, f"oavi:{variant}", psi=PSI)
+    launches = model.stats["kernel_launches"]
+    candidates = sum(model.stats["border_sizes"])
+    assert launches["gram_update_acc"] == len(model.stats["degrees"])
+    assert launches["ihb_degree"] == 0
+    assert launches["ihb_update"] == (candidates if variant != "cgavi" else 0)
+    assert model.stats["host_reads"] >= candidates
+
+
+def test_classifier_save_load_on_card(cuda, tmp_path):
+    """A CGAVI-IHB classifier fitted and saved on the card, loaded into a
+    fresh object on the card, predicts the same labels bit for bit."""
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.data import synthetic
+
+    X, y = synthetic.appendix_c(m=6000, seed=0)
+    Xtr, ytr, Xte, yte = synthetic.train_test_split(X, y, seed=0)
+    clf = VanishingIdealClassifier(PipelineConfig(method="cgavi-ihb")).fit(Xtr, ytr)
+    clf.save(str(tmp_path / "clf"))
+    again = VanishingIdealClassifier.load(str(tmp_path / "clf"))
+    assert again.device.type == "cuda"
+    assert all(m.device.type == "cuda" for m in again.models)
+    assert np.array_equal(again.transform(Xte), clf.transform(Xte))
+    assert np.array_equal(again.predict(Xte), clf.predict(Xte))
+    assert clf.score(Xte, yte) > 0.8

@@ -205,7 +205,9 @@ def test_ihb_degree_plain_vs_reference(Lcap, ell0, K, pattern):
                 "mixed": rng.uniform(size=K) < 0.5}[pattern]
     QLt, C, N = degree_inputs(Lcap * K + ell0, Lcap, ell0, K, appended)
     st = _j_degree(QLt, C, N, ell0, K)
-    Nt = torch.from_numpy(N)
+    # a copy: the JAX step may still be reading N (its CPU arrays can alias
+    # numpy memory and it runs asynchronously) while the port updates Nt
+    Nt = torch.from_numpy(N.copy())
     acc, mses, coeffs, slots, ell = ops.ihb_degree(torch.from_numpy(QLt),
                                                    torch.from_numpy(C), Nt, ell0, PSI, K)
     j_mses = np.asarray(st.mses)

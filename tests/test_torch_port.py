@@ -31,7 +31,10 @@ SLICE_MODULES = [
     "repro_torch",
     "repro_torch._device",
     "repro_torch.api",
+    "repro_torch.checkpoint",
+    "repro_torch.checkpoint.store",
     "repro_torch.configs",
+    "repro_torch.configs.oavi_paper",
     "repro_torch.configs.phi4_mini_3_8b",
     "repro_torch.configs.qwen1_5_4b",
     "repro_torch.configs.qwen2_1_5b",
@@ -41,6 +44,7 @@ SLICE_MODULES = [
     "repro_torch.core",
     "repro_torch.core.ihb",
     "repro_torch.core.oavi",
+    "repro_torch.core.oracles",
     "repro_torch.core.ordering",
     "repro_torch.core.pipeline",
     "repro_torch.core.svm",
@@ -61,6 +65,8 @@ SLICE_MODULES = [
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.model",
+    "repro_torch.resilience",
+    "repro_torch.resilience.integrity",
 ]
 
 
@@ -103,8 +109,6 @@ def test_fit_without_device_raises_without_card(no_card):
 @pytest.mark.parametrize("spec,todo", [
     ("abm", "item 9"),
     ("vca", "item 9"),
-    ("oavi:cgavi-ihb", "item 5"),
-    ("bpcgavi-wihb", "item 5"),
 ])
 def test_unported_methods_raise(spec, todo):
     X = np.random.default_rng(0).uniform(0, 1, (64, 3))

@@ -44,6 +44,16 @@ Phases, each reported on its own lines:
    loaded into a fresh classifier on the card (identical labels); and a wide
    CGAVI-IHB fit on the phase-4 data, timed, against the phase-4 fast fit's
    structure.
+8. The paper's baselines (Table 3): (a) ``api.fit_classes`` with ABM
+   (``cap_terms=64``; its Gram is hand-written kernel 3, ``gram_update``,
+   which must launch once per degree) and with VCA at paper scale (the
+   phase-3 split), each held against the same fits on the CPU, kernel 3
+   checked at the shape ABM gave it, and one ABM class fit profiled; (b)
+   Table 3 on ``uci_like("skin")`` at full size: Algorithm 2 with ABM and
+   with VCA, held against the CPU's labels, the VCA classifier saved and
+   loaded (identical labels), and the polynomial-kernel SVM, held against
+   the CPU on its first iterations; (c) VCA on the phase-4 data, where
+   degree 2 has 3,136 candidates, against its CPU fit.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -54,6 +64,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -507,24 +518,26 @@ def check_ihb_degree(dev, Lcap, ell0, K, Kcap, reps):
 # ---------------------------------------------------------------------------
 
 
-def recording_fit(fit_fn):
-    """Run ``fit_fn`` with the port's ``collect_degree`` wrapped so every
-    candidate's (term, mse, accepted) is logged."""
+def recording_fit(fit_fn, module=None):
+    """Run ``fit_fn`` with ``collect_degree`` of ``module`` (the port's OAVI,
+    or ABM's) wrapped so every candidate's (term, mse, accepted) is logged;
+    ABM's "mse" is the candidate's least eigenvalue."""
     from repro_torch.core import oavi
 
+    module = module or oavi
     log_ = []
-    inner = oavi.collect_degree
+    inner = module.collect_degree
 
     def collect(book, border, accepted, mses, coeffs, generators):
         for i, (term, _, _) in enumerate(border):
             log_.append((term, float(mses[i]), bool(accepted[i])))
         return inner(book, border, accepted, mses, coeffs, generators)
 
-    oavi.collect_degree = collect
+    module.collect_degree = collect
     try:
         out = fit_fn()
     finally:
-        oavi.collect_degree = inner
+        module.collect_degree = inner
     return out, log_
 
 
@@ -545,11 +558,8 @@ def plain_tf32():
         ops._kernel_path = inner
 
 
-def lstsq_coeffs(model, X):
-    """Every generator's coefficients as numpy's float64 least-squares
-    solution over the O columns it was fitted on (the fast engine solves
-    ``min_c |O c + lead|`` through the normal equations).  Only the structure
-    comes from ``model``."""
+def _o_columns(model, X):
+    """The data in the model's term order and its O columns, in float64."""
     Z = np.asarray(X, np.float64)
     if model.feature_perm is not None:
         Z = Z[:, model.feature_perm]
@@ -557,6 +567,15 @@ def lstsq_coeffs(model, X):
     O = np.ones((Z.shape[0], len(parents)))
     for i in range(1, len(parents)):
         O[:, i] = O[:, parents[i]] * Z[:, vars_[i]]
+    return Z, O
+
+
+def lstsq_coeffs(model, X):
+    """Every generator's coefficients as numpy's float64 least-squares
+    solution over the O columns it was fitted on (the fast engine solves
+    ``min_c |O c + lead|`` through the normal equations).  Only the structure
+    comes from ``model``."""
+    Z, O = _o_columns(model, X)
     by_len = {}
     for j, g in enumerate(model.generators):
         by_len.setdefault(len(g.coeffs), []).append(j)
@@ -567,6 +586,21 @@ def lstsq_coeffs(model, X):
         sol = np.linalg.lstsq(O[:, :ell], -lead, rcond=None)[0]
         for k, j in enumerate(js):
             out[j] = sol[:, k]
+    return out
+
+
+def abm_witness(model, X):
+    """Every ABM generator's monic coefficients in float64: the least
+    eigenvector of the float64 extended Gram ``[O_ell, lead]^T [O_ell, lead]
+    / m`` over the O columns it was fitted on, divided by its leading entry.
+    Only the structure comes from ``model``."""
+    Z, O = _o_columns(model, X)
+    out = []
+    for g in model.generators:
+        ell = len(g.coeffs)
+        M = np.concatenate([O[:, :ell], (O[:, g.parent_idx] * Z[:, g.var])[:, None]], axis=1)
+        v = np.linalg.eigh(M.T @ M / Z.shape[0])[1][:, 0]
+        out.append(v[:ell] / v[ell])
     return out
 
 
@@ -1079,6 +1113,271 @@ def main_path_oracles(paper_data, wide_fast):
     return launches_all["cgavi-ihb"], out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's baselines (Table 3)
+# ---------------------------------------------------------------------------
+
+# VCA on the card against the CPU: both fit in float64 (cuSOLVER's SVD against
+# LAPACK's) and evaluate in fp32, so |G(Z)| agrees to fp32 rounding; the CPU
+# parity tests hold the port to the JAX package at the same tolerance
+VCA_TOL = (1e-4, 1e-6)
+# classifier labels are compared on the rows whose CPU decision margin (top
+# score less the runner-up) exceeds this: the card's and the CPU's SVM heads
+# are fitted on features that differ by fp32 rounding
+LABEL_MARGIN = 1e-3
+# the polynomial-kernel SVM's CPU check runs its first iterations only (each
+# iteration streams the 2.4 GB kernel matrix twice: ~0.3 s on the host, and
+# the row may take up to 10,000); decision values within POLY_TOL (rtol, atol
+# times the largest |value|) of the CPU's.  The same fp32 products summed in
+# another order over 4,096 anchors move a value by ~1e-7 relative per step;
+# TF32 products (inputs rounded to 10 bits) moved them by 3.2e-4 on values
+# up to 1.7 on an H100, and a control run with TF32 must fail this tolerance.
+POLY_CUT_ITERS = 64
+POLY_TOL = (1e-5, 1e-5)
+
+
+def vca_counts(model):
+    return [model.deg1_num_vanishing] + [(b.num_vanishing, b.num_nonvanishing)
+                                         for b in model.blocks]
+
+
+def judge_vca(tag, card_models, cpu_models, Zs):
+    """Equal counts per degree, and |G(Z)| allclose at VCA_TOL on each
+    model's ``Z``; returns the largest difference."""
+    if [vca_counts(m) for m in card_models] != [vca_counts(m) for m in cpu_models]:
+        raise AssertionError(f"{tag}: VCA counts per degree differ: card "
+                             f"{[vca_counts(m) for m in card_models]}, CPU "
+                             f"{[vca_counts(m) for m in cpu_models]}")
+    worst = 0.0
+    for a, b, Z in zip(card_models, cpu_models, Zs):
+        ga, gb = a.transform(Z), b.transform(Z)
+        if not np.allclose(ga, gb, rtol=VCA_TOL[0], atol=VCA_TOL[1]):
+            raise AssertionError(f"{tag}: |G(Z)| of card and CPU differ by "
+                                 f"{float(np.abs(ga - gb).max())!r}")
+        worst = max(worst, float(np.abs(ga - gb).max()) if ga.size else 0.0)
+    return worst
+
+
+def clear_labels_agree(tag, card_labels, cpu_scores, classes):
+    """The card's labels equal the CPU's on every row whose CPU decision
+    margin exceeds LABEL_MARGIN; returns (rows outside it, disagreements)."""
+    top2 = np.sort(cpu_scores, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > LABEL_MARGIN
+    cpu_labels = classes[np.argmax(cpu_scores, axis=1)]
+    if not np.array_equal(card_labels[clear], cpu_labels[clear]):
+        bad = int(np.sum(card_labels[clear] != cpu_labels[clear]))
+        raise AssertionError(f"{tag}: {bad} labels differ from the CPU's on clear rows")
+    return int((~clear).sum()), int(np.sum(card_labels != cpu_labels))
+
+
+def main_path_baselines(dev, paper_data, wide_X0):
+    import shutil
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import abm
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.core.svm import PolySVM, PolySVMConfig
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products are on; the baselines run in full fp32")
+    out = {}
+    log("phase 8a: ABM and VCA on appendix_c(m=2_000_000), 60/40 split, psi=0.005")
+    Xtr, ytr, Xte, _ = paper_data
+    scaler = MinMaxScaler(dtype="float32").fit(Xtr)
+    Xs = scaler.transform(Xtr)
+    labels = np.unique(ytr)
+    classes = [Xs[ytr == c] for c in labels]
+    Zte = scaler.transform(Xte[:10_000])
+
+    # ABM: kernel 3 on the card, one launch per degree
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, card_log = recording_fit(
+        lambda: api.fit_classes(classes, "abm", psi=PSI, cap_terms=64), module=abm)
+    torch.cuda.synchronize()
+    abm_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t1 = time.perf_counter()
+    cpu, cpu_log = recording_fit(
+        lambda: api.fit_classes(classes, "abm", psi=PSI, cap_terms=64, device="cpu"),
+        module=abm)
+    abm_cpu_s = time.perf_counter() - t1
+    degrees = sum(len(m.stats["degrees"]) for m in card)
+    eighs = sum(m.stats["eigh_calls"] for m in card)
+    if launches["gram_update"] != degrees or sum(launches.values()) != degrees:
+        raise AssertionError(f"ABM launches {launches}, expected gram_update once per "
+                             f"degree ({degrees}) and nothing else")
+    witnesses = [abm_witness(m, X) for m, X in zip(cpu, classes)]
+    why, dist = judge_fits(card, cpu, card_log, cpu_log, witnesses, None)
+    if why is not None:
+        raise AssertionError(f"ABM at paper scale: {why}")
+    margin = min(abs(mse - PSI) for _, mse, _ in cpu_log) / PSI
+    log(f"  ABM: card {abm_s:.3f} s (CPU {abm_cpu_s:.3f} s); borders "
+        f"{[m.stats['border_sizes'] for m in card]}; |O| {[m.num_O for m in card]} |G| "
+        f"{[m.num_G for m in card]} equal on card and CPU; gram_update launches "
+        f"{launches['gram_update']}, eigh calls {eighs}; nearest eigenvalue {margin:.4f} "
+        f"psi from psi; coefficients' distance from the float64 eigenvector witness: card "
+        f"{dist.get('err_card')!r}, CPU {dist.get('err_cpu')!r}, card vs CPU "
+        f"{dist.get('card_vs_cpu')!r}")
+    gram3 = check_gram_update(dev, classes[0].shape[0], 64, 3, 64, reps=10)
+    prof = profile_device("ABM fit of class 0",
+                          lambda: api.fit(classes[0], "abm", psi=PSI, cap_terms=64),
+                          watch=("gram",))
+    out["abm"] = dict(fit_s=abm_s, cpu_fit_s=abm_cpu_s, launches=launches,
+                      eigh_calls=eighs, degrees=degrees, margin_psi=margin,
+                      profile_class0=prof, **dist)
+
+    # VCA: one SVD a degree on the card
+    t0 = time.perf_counter()
+    vcard = api.fit_classes(classes, "vca", psi=PSI)
+    torch.cuda.synchronize()
+    vca_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    vcpu = api.fit_classes(classes, "vca", psi=PSI, device="cpu")
+    vca_cpu_s = time.perf_counter() - t1
+    worst = judge_vca("VCA at paper scale", vcard, vcpu, [Zte] * len(vcard))
+    svd = [m.stats["svd_times"] for m in vcard]
+    log(f"  VCA: card {vca_s:.3f} s (CPU {vca_cpu_s:.3f} s); counts per degree "
+        f"{[vca_counts(m) for m in vcard]} equal on card and CPU; SVD seconds {svd} "
+        f"(CPU {[m.stats['svd_times'] for m in vcpu]}); |G| of {Zte.shape[0]} test rows "
+        f"within {worst:.3g} of the CPU's")
+    out["vca"] = dict(fit_s=vca_s, cpu_fit_s=vca_cpu_s, svd_s=svd,
+                      counts=[vca_counts(m) for m in vcard], max_abs_err=worst)
+
+    log("phase 8b: Table 3 on uci_like('skin') (245,057 x 3), 60/40 split, psi=0.005")
+    X, y = synthetic.uci_like("skin", seed=0)
+    Str, sytr, Ste, syte = synthetic.train_test_split(X, y, test_frac=0.4, seed=0)
+    rows = {}
+    for method, kw in (("abm", {"cap_terms": 64}), ("vca", {})):
+        cfg = PipelineConfig(method=method, psi=PSI, oavi_kw=kw)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        clf = VanishingIdealClassifier(cfg).fit(Str, sytr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        row_launches = ops.launch_counts()
+        t1 = time.perf_counter()
+        pred = clf.predict(Ste)
+        test_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        ref = VanishingIdealClassifier(cfg, device="cpu").fit(Str, sytr)
+        cpu_s = time.perf_counter() - t2
+        unclear, differ = clear_labels_agree(
+            f"skin {method}", pred, ref.svm.decision_function(ref.transform(Ste)),
+            ref.classes_)
+        s = clf.stats
+        row = dict(err_test_pct=100.0 * float(np.mean(pred != syte)), fit_s=fit_s,
+                   time_generators=s["time_generators"], time_transform=s["time_transform"],
+                   time_svm=s["time_svm"], svm_iters=s["svm"]["iters"], test_s=test_s,
+                   G_plus_O=s["G_plus_O"], avg_degree=clf.average_degree(),
+                   spar=clf.sparsity(), cpu_fit_s=cpu_s, unclear_rows=unclear,
+                   labels_differing=differ, launches=row_launches)
+        if method == "abm" and row_launches["gram_update"] <= 0:
+            raise AssertionError("the skin ABM classifier launched no gram_update")
+        log(f"  {method}: test error {row['err_test_pct']:.3f}%; fit {fit_s:.3f} s "
+            f"(generators {s['time_generators']:.3f}, transform {s['time_transform']:.3f}, "
+            f"svm {s['time_svm']:.3f} s, {s['svm']['iters']} iterations); test {test_s:.3f} s; "
+            f"G+O {s['G_plus_O']}; average degree {row['avg_degree']:.3f}; SPAR "
+            f"{row['spar']:.3f}; launches {row_launches}; CPU fit {cpu_s:.3f} s, labels equal "
+            f"on clear rows ({unclear} within {LABEL_MARGIN} of a tie, {differ} differ)")
+        if method == "vca":
+            ckpt = os.path.join(HERE, "build", "chip_smoke_vca_classifier")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            try:
+                t3 = time.perf_counter()
+                clf.save(ckpt)
+                row["save_s"] = time.perf_counter() - t3
+                t4 = time.perf_counter()
+                again = VanishingIdealClassifier.load(ckpt)
+                row["load_s"] = time.perf_counter() - t4
+                pred2 = again.predict(Ste)
+            finally:
+                shutil.rmtree(ckpt, ignore_errors=True)
+            if any(m.device.type != "cuda" for m in again.models):
+                raise AssertionError("the VCA classifier was not loaded onto the card")
+            if not np.array_equal(pred2, pred):
+                raise AssertionError("the loaded VCA classifier's labels differ")
+            log(f"  vca: saved in {row['save_s']:.3f} s, loaded on the card in "
+                f"{row['load_s']:.3f} s: {len(pred2)} labels identical")
+        rows[method] = row
+
+    pcfg = PolySVMConfig(degree=3, lam=1e-4)
+    t0 = time.perf_counter()
+    poly = PolySVM(pcfg).fit(Str, sytr)
+    torch.cuda.synchronize()
+    poly_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ppred = poly.predict(Ste)
+    ptest_s = time.perf_counter() - t1
+    K_bytes = 4 * Str.shape[0] * poly.anchors.shape[0]
+    log(f"  poly-svm: test error {100.0 * float(np.mean(ppred != syte)):.3f}%; fit {poly_s:.3f} s "
+        f"({poly.stats['iters']} iterations, cross-kernel {Str.shape[0]} x "
+        f"{poly.anchors.shape[0]} fp32 = {K_bytes / 1e9:.2f} GB); test {ptest_s:.3f} s; "
+        f"G+O 0; average degree 3; SPAR 0")
+    cut = dataclasses.replace(pcfg, max_iter=POLY_CUT_ITERS)
+    card_cut = PolySVM(cut).fit(Str, sytr)
+    t2 = time.perf_counter()
+    cpu_cut = PolySVM(cut, device="cpu").fit(Str, sytr)
+    cut_cpu_s = time.perf_counter() - t2
+    d_card = card_cut.decision_function(Ste)
+    d_cpu = cpu_cut.decision_function(Ste)
+    scale = float(np.abs(d_cpu).max())
+    if not (np.array_equal(card_cut.anchors, cpu_cut.anchors)
+            and card_cut.stats == cpu_cut.stats):
+        raise AssertionError(f"poly-svm: anchors or stats differ from the CPU's "
+                             f"({card_cut.stats} vs {cpu_cut.stats})")
+    if not np.allclose(d_card, d_cpu, rtol=POLY_TOL[0], atol=POLY_TOL[1] * scale):
+        raise AssertionError(f"poly-svm: decision values differ from the CPU's by "
+                             f"{float(np.abs(d_card - d_cpu).max())!r}")
+    unclear, differ = clear_labels_agree("skin poly-svm", card_cut.classes_[
+        np.argmax(d_card, axis=1)], d_cpu, cpu_cut.classes_)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d_tf32 = PolySVM(cut).fit(Str, sytr).decision_function(Ste)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_ok = bool(np.allclose(d_tf32, d_cpu, rtol=POLY_TOL[0], atol=POLY_TOL[1] * scale))
+    if tf32_ok:
+        raise AssertionError("poly-svm: the tolerance does not tell TF32 from fp32")
+    log(f"  poly-svm, first {POLY_CUT_ITERS} iterations on card and CPU ({cut_cpu_s:.3f} s): "
+        f"same anchors, decision values within {float(np.abs(d_card - d_cpu).max()):.3g} "
+        f"(largest |value| {scale:.3g}); labels equal on clear rows ({unclear} within "
+        f"{LABEL_MARGIN} of a tie, {differ} differ); control with TF32 products: "
+        f"{float(np.abs(d_tf32 - d_cpu).max()):.3g} from the CPU's, within tolerance: "
+        f"{tf32_ok}")
+    rows["poly-svm"] = dict(err_test_pct=100.0 * float(np.mean(ppred != syte)), fit_s=poly_s,
+                            iters=poly.stats["iters"], test_s=ptest_s, kernel_gb=K_bytes / 1e9,
+                            cut_max_abs_err=float(np.abs(d_card - d_cpu).max()),
+                            cut_cpu_s=cut_cpu_s, tf32_control_within_tolerance=tf32_ok,
+                            G_plus_O=0, avg_degree=3.0, spar=0.0)
+    out["skin_table3"] = rows
+
+    log("phase 8c: VCA on class 0 of uci_like('spam') (n=57), psi=0.005")
+    t0 = time.perf_counter()
+    wide = api.fit(wide_X0, "vca", psi=PSI)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    wide_cpu = api.fit(wide_X0, "vca", psi=PSI, device="cpu")
+    wide_cpu_s = time.perf_counter() - t1
+    worst = judge_vca("wide VCA", [wide], [wide_cpu], [wide_X0])
+    log(f"  m={wide_X0.shape[0]}: card {wide_s:.3f} s (CPU {wide_cpu_s:.3f} s); borders "
+        f"{wide.stats['border_sizes']}; counts per degree {vca_counts(wide)} equal on card "
+        f"and CPU; |G| = {wide.num_G}; SVD seconds {wide.stats['svd_times']} (CPU "
+        f"{wide_cpu.stats['svd_times']}); |G| of the training rows within {worst:.3g}")
+    out["wide_vca"] = dict(fit_s=wide_s, cpu_fit_s=wide_cpu_s, svd_s=wide.stats["svd_times"],
+                           cpu_svd_s=wide_cpu.stats["svd_times"], num_G=wide.num_G,
+                           max_abs_err=worst)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products were left on")
+    return launches, gram3, out
+
+
 def profile_device(tag, fn, watch=()):
     """Device time by kernel over one call of ``fn`` (after a warm-up call),
     and the device's busy share of its wall time, from ``torch.profiler``.
@@ -1166,15 +1465,17 @@ def main() -> int:
                              "not wgmma")
     serve_launches, lm = main_path_serve(dev)
     oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
+    abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(name="gram_update_acc", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:118",
              launches=launches["gram_update_acc"], **gacc),
+        # ABM's degree step (phase 8a), checked at the shape it gave the kernel
         dict(name="gram_update", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:77",
-             launches=launches["gram_update"], **gupd),
+             launches=abm_launches["gram_update"], **gram3),
         # the paper's oracle path launches the single in-place update (L = 64
         # at paper scale), the fast engine's path the degree loop's kernel
         dict(name="ihb_update", route="cuda", source=src + "ihb_update.cu",
@@ -1189,6 +1490,7 @@ def main() -> int:
     ]
     log("wide shapes: " + json.dumps({
         "gram_update_acc": gacc_wide,
+        "gram_update_m2M": gupd,
         "ihb_update": {L: ihb[L] for L in (512, 2048)},
         "ihb_degree": {"x".join(map(str, k)): v for k, v in degree.items()},
         "launches_wide_fit": wide_launches,
@@ -1197,6 +1499,7 @@ def main() -> int:
         "flash_attention": {k: v for k, v in flash.items() if k != "serve"},
         "serve_qwen3_8b": lm,
         "oracle_variants": oracle,
+        "baselines": baselines,
     }))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,20 +1,25 @@
-"""Estimator API of the port, OAVI only (counterpart of ``src/repro/api.py``).
+"""Estimator API of the port (counterpart of ``src/repro/api.py``).
 
-* :func:`resolve` maps a spec string (``"oavi"``, ``"oavi:cgavi-ihb"``, or a
-  bare variant name such as ``"fast"``) to a method and variant, as the
-  reference does; methods that are not ported yet (``abm``, ``vca``) raise
-  :class:`NotImplementedError` naming the ROADMAP item that ports them.
+* **Method registry**: :func:`register` adds a fit function under a name;
+  :func:`resolve` maps a spec string (``"oavi"``, ``"oavi:cgavi-ihb"``,
+  ``"abm"``, ``"vca"``, or a bare OAVI variant name such as ``"fast"``) to
+  its :class:`MethodEntry` and variant, as the reference does.
 * :func:`fit` runs the local backend on ``device`` (``None`` = the CUDA
-  card; it raises without one unless the caller passes ``device="cpu"``),
-  for every OAVI variant of Section 6.1 and the ``fast`` engine.  A list of
-  per-class arrays fits one model per class, sequentially.
-* :func:`save` / :func:`load` persist a model through
-  :mod:`repro_torch.checkpoint.store` in the JAX package's format, so each
-  package loads the other's saves (:func:`save_state_dict`,
-  :func:`load_state_dict` are the shared protocol, also of the classifier).
-* :func:`feature_transform` is the fused (FT): every per-class term book and
-  generator matrix concatenated into one wavefront evaluation plus one
-  product (:func:`_fuse`, :func:`plan_constants`, :func:`eval_with_constants`).
+  card; it raises without one unless the caller passes ``device="cpu"``):
+  OAVI with every variant of Section 6.1 and the ``fast`` engine, and the
+  paper's baselines ABM and VCA.  A list of per-class arrays fits one model
+  per class, sequentially.
+* :func:`save` / :func:`load` persist a model (every kind of
+  :class:`VanishingIdealModel`) through :mod:`repro_torch.checkpoint.store`
+  in the JAX package's format, so each package loads the other's saves
+  (:func:`save_state_dict`, :func:`load_state_dict` are the shared
+  protocol, also of the classifier).
+* :func:`feature_transform` is the fused (FT) for OAVI models: every
+  per-class term book and generator matrix concatenated into one wavefront
+  evaluation plus one product (:func:`_fuse`, :func:`plan_constants`,
+  :func:`eval_with_constants`).  Model sets that cannot share one plan (VCA
+  models, mixed widths or dtypes, no models) go through the per-model loop
+  :func:`repro_torch.core.transform.feature_transform`.
 """
 
 from __future__ import annotations
@@ -22,16 +27,30 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Protocol,
+    Sequence,
+    Tuple,
+    runtime_checkable,
+)
 
 import numpy as np
 import torch
 
 from . import _device
 from .checkpoint import store as ckpt_store
+from .core import abm as abm_mod
 from .core import oavi as oavi_mod
+from .core import transform as transform_mod
+from .core import vca as vca_mod
 from .core.oavi import OAVIModel, apply_wavefronts, wavefront_schedule
 from .core.oracles import OracleConfig
+from .core.vca import VCAModel
 from .resilience.integrity import IntegrityError
 
 _log = logging.getLogger("repro_torch.api")
@@ -49,16 +68,7 @@ OAVI_VARIANTS: Dict[str, Tuple[str, str, bool, bool]] = {
     "fast": ("fast", "bpcg", True, False),  # beyond-paper closed-form engine
 }
 
-# method name -> (variants, default variant); only OAVI runs
-METHODS: Dict[str, Tuple[Tuple[str, ...], Optional[str]]] = {
-    "oavi": (tuple(OAVI_VARIANTS), "fast"),
-    "abm": ((), None),
-    "vca": ((), None),
-}
-
 _TODO = {
-    "abm": "method 'abm' is not ported yet: ROADMAP.md queue 1 item 9",
-    "vca": "method 'vca' is not ported yet: ROADMAP.md queue 1 item 9",
     "sharded": "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12",
     "chunk_rows": "chunk_rows (out-of-core fits) is not ported yet: "
                   "ROADMAP.md queue 1 item 11",
@@ -67,40 +77,115 @@ _TODO = {
 }
 
 
+# ---------------------------------------------------------------------------
+# VanishingIdealModel protocol
+# ---------------------------------------------------------------------------
+
+
+@runtime_checkable
+class VanishingIdealModel(Protocol):
+    """What every fitted generator model exposes (OAVIModel, VCAModel)."""
+
+    n: int
+    psi: float
+    stats: Dict
+
+    def evaluate_G(self, Z) -> Any:
+        """Evaluation matrix of all generators over Z: (q, |G|)."""
+        ...
+
+    def transform(self, Z) -> np.ndarray:
+        """(FT) features for this model alone: ``|G(Z)|``."""
+        ...
+
+    def to_state_dict(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """(flat array tree, JSON-safe metadata): see :func:`save`."""
+        ...
+
+    def save(self, path: str) -> str:
+        """Persist via :func:`repro_torch.api.save`."""
+        ...
+
+
+# ---------------------------------------------------------------------------
+# Method registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MethodEntry:
+    """A registered generator-construction algorithm."""
+
+    name: str
+    fit: Callable[..., VanishingIdealModel]
+    variants: Tuple[str, ...] = ()
+    default_variant: Optional[str] = None
+    description: str = ""
+
+    def spec(self, variant: Optional[str]) -> str:
+        return f"{self.name}:{variant}" if variant else self.name
+
+
+_REGISTRY: Dict[str, MethodEntry] = {}
+
+
+def register(name: str, *, variants: Sequence[str] = (),
+             default_variant: Optional[str] = None, description: str = ""):
+    """Decorator: register ``fn(X, *, variant, psi, config, device, **kw) ->
+    VanishingIdealModel`` under ``name``."""
+
+    def deco(fn):
+        if name in _REGISTRY:
+            raise ValueError(f"method {name!r} is already registered")
+        _REGISTRY[name] = MethodEntry(name=name, fit=fn, variants=tuple(variants),
+                                      default_variant=default_variant,
+                                      description=description)
+        return fn
+
+    return deco
+
+
 def available_methods() -> Tuple[str, ...]:
     """Every valid ``method=`` spec, e.g. ``('abm', 'oavi', 'oavi:cgavi', ...)``."""
     specs: List[str] = []
-    for name in sorted(METHODS):
+    for name in sorted(_REGISTRY):
         specs.append(name)
-        specs.extend(f"{name}:{v}" for v in METHODS[name][0])
+        specs.extend(f"{name}:{v}" for v in _REGISTRY[name].variants)
     return tuple(specs)
 
 
-def resolve(spec: str) -> Tuple[str, Optional[str]]:
-    """``'oavi:cgavi-ihb'`` -> ``('oavi', 'cgavi-ihb')``.  Also accepts bare
-    method names (default variant) and bare OAVI variant names."""
+def resolve(spec: str) -> Tuple[MethodEntry, Optional[str]]:
+    """``'oavi:cgavi-ihb'`` -> (oavi entry, ``'cgavi-ihb'``).  Also accepts
+    bare method names (default variant) and bare OAVI variant names."""
     if not isinstance(spec, str):
         raise TypeError(f"method spec must be a string, got {type(spec).__name__}")
     if ":" in spec:
         name, variant = spec.split(":", 1)
-        if name not in METHODS:
+        entry = _REGISTRY.get(name)
+        if entry is None:
             raise ValueError(
                 f"unknown method {name!r}; available: {', '.join(available_methods())}"
             )
-        if variant not in METHODS[name][0]:
+        if variant not in entry.variants:
             raise ValueError(
                 f"unknown variant {variant!r} for method {name!r}; "
-                f"available: {', '.join(METHODS[name][0]) or '(none)'}"
+                f"available: {', '.join(entry.variants) or '(none)'}"
             )
-        return name, variant
-    if spec in METHODS:
-        return spec, METHODS[spec][1]
-    for name, (variants, _) in METHODS.items():
-        if spec in variants:
-            return name, spec
+        return entry, variant
+    if spec in _REGISTRY:
+        entry = _REGISTRY[spec]
+        return entry, entry.default_variant
+    for entry in _REGISTRY.values():
+        if spec in entry.variants:
+            return entry, spec
     raise ValueError(
         f"unknown method {spec!r}; available: {', '.join(available_methods())}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Registered methods
+# ---------------------------------------------------------------------------
 
 
 def oavi_config_for(variant: str, psi: float, **kw) -> oavi_mod.OAVIConfig:
@@ -113,13 +198,32 @@ def oavi_config_for(variant: str, psi: float, **kw) -> oavi_mod.OAVIConfig:
     )
 
 
+@register("oavi", variants=tuple(OAVI_VARIANTS), default_variant="fast",
+          description="Oracle AVI (Algorithm 1); variants per Section 6.1")
+def _fit_oavi(X, *, variant, psi, config=None, device, **kw):
+    cfg = config if config is not None else oavi_config_for(variant or "fast", psi, **kw)
+    return oavi_mod.fit(X, cfg, device=device)
+
+
+@register("abm", description="Approximate Buchberger-Möller (Limbeck 2013)")
+def _fit_abm(X, *, variant, psi, config=None, device, **kw):
+    cfg = config if config is not None else abm_mod.ABMConfig(psi=psi, **kw)
+    return abm_mod.fit(X, cfg, device=device)
+
+
+@register("vca", description="Vanishing Component Analysis (Livni et al. 2013)")
+def _fit_vca(X, *, variant, psi, config=None, device, **kw):
+    cfg = config if config is not None else vca_mod.VCAConfig(psi=psi, **kw)
+    return vca_mod.fit(X, cfg, device=device)
+
+
 def fit(
     X,
     method: str = "oavi",
     *,
     psi: float = 0.005,
     backend: str = "auto",
-    config: Optional[oavi_mod.OAVIConfig] = None,
+    config=None,
     class_batch: str = "off",
     chunk_rows: Optional[int] = None,
     device=None,
@@ -128,31 +232,32 @@ def fit(
     """Fit a vanishing-ideal model with the selected ``method``.
 
     ``X`` is an (m, n) array in ``[0, 1]^n``, or a list of per-class arrays
-    (one model per class, see :func:`fit_classes`).  ``backend`` is ``"auto"``
-    or ``"local"`` (both run the local fit).  ``device=None`` means the CUDA
-    card.  ``**method_kw`` goes to :class:`OAVIConfig` (e.g. ``cap_terms=64``,
-    or ``solver_kw={"tau": 50.0}`` for the variant's oracle).
+    (one model per class, see :func:`fit_classes`).  ``method`` is a spec of
+    :func:`available_methods`.  ``backend`` is ``"auto"`` or ``"local"``
+    (both run the local fit).  ``config`` is a pre-built ``OAVIConfig`` /
+    ``ABMConfig`` / ``VCAConfig`` and overrides ``psi`` and ``method_kw``.
+    ``device=None`` means the CUDA card.  ``**method_kw`` goes to the
+    method's config (e.g. ``cap_terms=64``, or ``solver_kw={"tau": 50.0}``
+    for an OAVI variant's oracle).
     """
     if chunk_rows is not None:
         raise NotImplementedError(_TODO["chunk_rows"])
     if isinstance(X, (list, tuple)):
         return fit_classes(X, method, psi=psi, backend=backend, config=config,
                            class_batch=class_batch, device=device, **method_kw)
-    name, variant = resolve(method)
-    if name != "oavi":
-        raise NotImplementedError(_TODO[name])
+    entry, variant = resolve(method)
     if backend == "sharded":
+        if entry.name != "oavi":
+            raise ValueError(f"method {entry.name!r} does not support backend='sharded'")
         raise NotImplementedError(_TODO["sharded"])
     if backend not in ("auto", "local"):
         raise ValueError(
             f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
         )
     dev = _device.resolve(device)
-    cfg = config if config is not None else oavi_config_for(
-        variant or "fast", psi, **method_kw
-    )
-    model = oavi_mod.fit(np.asarray(X), cfg, device=dev)
-    model.stats["api"] = {"method": f"oavi:{variant}", "backend": "local",
+    model = entry.fit(np.asarray(X), variant=variant, psi=psi, config=config,
+                      device=dev, **method_kw)
+    model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
                           "device": str(dev)}
     return model
 
@@ -163,16 +268,19 @@ def fit_classes(
     *,
     psi: float = 0.005,
     backend: str = "auto",
-    config: Optional[oavi_mod.OAVIConfig] = None,
+    config=None,
     class_batch: str = "off",
     device=None,
     **method_kw,
-) -> List[OAVIModel]:
-    """Fit one model per class, sequentially (Algorithm 2's generator phase)."""
-    if class_batch == "auto":
-        raise NotImplementedError(_TODO["class_batch"])
-    if class_batch != "off":
+) -> List[VanishingIdealModel]:
+    """Fit one model per class, sequentially (Algorithm 2's generator phase).
+
+    ``class_batch="auto"`` batches OAVI classes in the reference and is not
+    ported; ABM and VCA run sequentially under either setting, as there."""
+    if class_batch not in ("auto", "off"):
         raise ValueError(f"unknown class_batch {class_batch!r}; expected 'auto' or 'off'")
+    if class_batch == "auto" and resolve(method)[0].name == "oavi":
+        raise NotImplementedError(_TODO["class_batch"])
     dev = _device.resolve(device)
     return [
         fit(X, method, psi=psi, backend=backend, config=config, device=dev,
@@ -198,7 +306,8 @@ def aggregate_fit_stats(models: Sequence) -> Dict:
 # Serialization: save / load through the checkpoint manifest machinery
 # ---------------------------------------------------------------------------
 
-_MODEL_KINDS: Dict[str, type] = {"oavi": OAVIModel}
+# ABM fits are OAVIModels, saved and loaded as kind "oavi"
+_MODEL_KINDS: Dict[str, type] = {"oavi": OAVIModel, "vca": VCAModel}
 _FORMAT = "repro.vanishing_ideal_model.v1"
 
 
@@ -220,9 +329,6 @@ def _json_safe(obj):
 
 
 def _model_class(kind):
-    if kind in ("vca", "abm"):
-        raise NotImplementedError(f"{kind!r} models are not ported yet: "
-                                  "ROADMAP.md queue 1 item 9")
     if kind not in _MODEL_KINDS:
         raise ValueError(f"unknown model kind {kind!r}")
     return _MODEL_KINDS[kind]
@@ -413,11 +519,31 @@ def plan_constants(plan: _FusedPlan, device) -> PlanConstants:
     )
 
 
+def _row_stable_product(cols: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """``cols @ C`` with each output summed over its own row in one fixed
+    order, whatever the number of rows.
+
+    cuBLAS chooses its kernel, and with it the summation order, by the number
+    of rows (on an H100, one-row chunks, even padded to two rows, gave other
+    last bits than one 300-row call), so on the card the product is summed
+    term by term, one multiply-add pass over the (q, k) output per row of
+    ``C``.  The CPU keeps the BLAS product, whose rows are independent there
+    (the CPU tests hold direct, chunked and single-row transforms equal).
+    """
+    if cols.device.type != "cuda":
+        return cols @ C
+    acc = cols[:, :1] * C[0]
+    for j in range(1, C.shape[0]):
+        acc = torch.addcmul(acc, cols[:, j : j + 1], C[j])
+    return acc
+
+
 def eval_with_constants(consts: PlanConstants, Z: torch.Tensor) -> torch.Tensor:
-    """Fused (FT) body: a degree-wavefront term sweep plus one product."""
+    """Fused (FT) body: a degree-wavefront term sweep plus one product, row
+    for row the same bits whatever the batch (:func:`_row_stable_product`)."""
     cols = apply_wavefronts(Z, consts.waves)  # (q, L) in wavefront order
     lead = cols[:, consts.gp_w] * Z[:, consts.gv]
-    return torch.abs(cols @ consts.C_w + lead)
+    return torch.abs(_row_stable_product(cols, consts.C_w) + lead)
 
 
 def feature_transform(
@@ -428,18 +554,22 @@ def feature_transform(
     dtype: Optional[str] = None,
     device=None,
 ) -> np.ndarray:
-    """(FT) over all per-class models as ONE fused evaluation.
+    """(FT) over all per-class models as ONE fused evaluation, or through
+    the per-model loop where the models cannot share one plan.
 
-    ``device=None`` evaluates where the first model lives.  ``batch_size``
-    streams ``Z`` through the device in row chunks.  Returns host numpy.
+    ``device=None`` evaluates the fused plan where the first model lives.
+    ``batch_size`` streams ``Z`` through the device in row chunks.  Returns
+    host numpy.
     """
     if batch_size is not None and batch_size < 1:
         raise ValueError(f"batch_size must be a positive integer, got {batch_size}")
     models = list(models)
-    Z = np.asarray(Z)
     plan = _fuse(models)
     if plan is None:
-        raise ValueError("feature_transform needs OAVI models of one width and dtype")
+        # VCA models, mixed widths or dtypes, or no models: each model on its
+        # own device in its own dtype, as the reference falls back
+        return transform_mod.feature_transform(models, Z, dtype=dtype)
+    Z = np.asarray(Z)
     out_dtype = np.dtype(dtype) if dtype is not None else plan.dtype
     q = Z.shape[0]
     if plan.num_features == 0:
@@ -449,13 +579,14 @@ def feature_transform(
     tdtype = getattr(torch, plan.dtype.name)
     step = q if batch_size is None else batch_size
     out = np.empty((q, plan.num_features), out_dtype)
-    for start in range(0, q, max(step, 1)):
+    for start in range(0, q, step):
         res = eval_with_constants(consts, _device.tensor(Z[start : start + step], tdtype, dev))
         out[start : start + step] = res.cpu().numpy().astype(out_dtype, copy=False)
     return out
 
 
 __all__ = [
+    "MethodEntry",
     "OAVI_VARIANTS",
     "PlanConstants",
     "aggregate_fit_stats",
@@ -468,7 +599,9 @@ __all__ = [
     "load_state_dict",
     "oavi_config_for",
     "plan_constants",
+    "register",
     "resolve",
     "save",
     "save_state_dict",
+    "VanishingIdealModel",
 ]

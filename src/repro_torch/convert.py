@@ -1,8 +1,9 @@
 """Carry fitted parameters from the JAX package into the port.
 
 The JAX package's models serialize to a flat dict of numpy arrays plus JSON
-metadata (``OAVIModel.to_state_dict`` and
-``VanishingIdealClassifier.to_state_dict`` in ``repro``), and its LM keeps
+metadata (``OAVIModel.to_state_dict`` -- also ABM's models --,
+``VCAModel.to_state_dict`` and ``VanishingIdealClassifier.to_state_dict`` in
+``repro``), and its LM keeps
 its parameters in a pytree of arrays.  The functions here build the port's
 objects from that output, so both packages compute the same thing from the
 same parameters.  They read plain numpy and dicts only.
@@ -17,21 +18,31 @@ import torch
 
 from .core.oavi import OAVIModel
 from .core.pipeline import VanishingIdealClassifier
+from .core.vca import VCAModel
 
 
 def oavi_model_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
                               device=None) -> OAVIModel:
-    """Port :class:`OAVIModel` from ``repro``'s ``OAVIModel.to_state_dict()``."""
+    """Port :class:`OAVIModel` from ``repro``'s ``OAVIModel.to_state_dict()``
+    (an OAVI or an ABM fit)."""
     if meta.get("kind") != "oavi":
         raise ValueError(f"expected an OAVI model, got kind {meta.get('kind')!r}")
     return OAVIModel.from_state_dict(arrays, meta, device=device)
+
+
+def vca_model_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
+                             device=None) -> VCAModel:
+    """Port :class:`VCAModel` from ``repro``'s ``VCAModel.to_state_dict()``."""
+    if meta.get("kind") != "vca":
+        raise ValueError(f"expected a VCA model, got kind {meta.get('kind')!r}")
+    return VCAModel.from_state_dict(arrays, meta, device=device)
 
 
 def classifier_from_reference(arrays: Dict[str, np.ndarray], meta: Dict,
                               device=None) -> VanishingIdealClassifier:
     """Port :class:`VanishingIdealClassifier` from ``repro``'s
     ``VanishingIdealClassifier.to_state_dict()``: the scaler, the per-class
-    models and the SVM head."""
+    models (OAVI, ABM or VCA) and the SVM head."""
     return VanishingIdealClassifier.from_state_dict(arrays, meta, device=device)
 
 

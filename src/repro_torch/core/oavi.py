@@ -608,6 +608,9 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
     stats["host_reads"] = oracles.host_reads - reads0
     stats["Lcap_final"] = Lcap
     stats["time_total"] = time.perf_counter() - t_start
+    stats["num_G"] = len(generators)
+    stats["num_O"] = len(book)
+    stats["G_plus_O"] = len(generators) + len(book)
     return OAVIModel(
         n=n,
         psi=config.psi,

@@ -1,19 +1,23 @@
 """Algorithm 2: per-class generator construction -> (FT) -> linear SVM.
 
-Counterpart of ``src/repro/core/pipeline.py``.  The per-class OAVI fits run
-sequentially through :func:`repro_torch.api.fit_classes`, the features come
-from the fused :func:`repro_torch.api.feature_transform`, and the l1
-squared-hinge :class:`~repro_torch.core.svm.LinearSVM` classifies them.
-Everything runs on ``device`` (``None`` = the CUDA card).  ``method`` is
-any OAVI spec of :mod:`repro_torch.api` (``"fast"``, ``"cgavi-ihb"``, ...).
+Counterpart of ``src/repro/core/pipeline.py``.  ``method`` is any spec of
+:mod:`repro_torch.api`: an OAVI variant (``"fast"``, ``"oavi:cgavi-ihb"``,
+...) or one of the paper's baselines ``"abm"`` and ``"vca"``.  The per-class
+fits run sequentially through :func:`repro_torch.api.fit_classes`, the
+features come from :func:`repro_torch.api.feature_transform` (fused for OAVI
+and ABM models, the per-model loop for VCA), and the l1 squared-hinge
+:class:`~repro_torch.core.svm.LinearSVM` classifies them.  Everything runs
+on ``device`` (``None`` = the CUDA card).  :meth:`~VanishingIdealClassifier.
+average_degree` and :meth:`~VanishingIdealClassifier.sparsity` are Table 3's
+columns.
 
 A fitted pipeline serializes whole (scaler, per-class models, SVM head) in
 the JAX package's layout and format (``to_state_dict`` / ``save`` /
 ``load``), so either package loads the other's classifiers.
 
-Not ported yet: class-batched fits (ROADMAP.md queue 1 item 10), streaming
-fits and ``capture_fit_state`` (item 11); ``attach_engine`` (item 13) raises
-:class:`NotImplementedError`.
+Not ported yet: class-batched OAVI fits (ROADMAP.md queue 1 item 10),
+streaming fits and ``capture_fit_state`` (item 11); ``attach_engine`` (item
+13) raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -103,7 +107,7 @@ class VanishingIdealClassifier:
             "time_svm": t_svm,
             "time_total": time.perf_counter() - t0,
             "num_features": Xt.shape[1],
-            "G_plus_O": sum(m.num_G + m.num_O for m in self.models),
+            "G_plus_O": sum(m.stats.get("G_plus_O", 0) for m in self.models),
             "regrowths": agg["regrowths"],
             "kernel_launches": agg["kernel_launches"],
             "per_class": [m.stats for m in self.models],
@@ -119,6 +123,30 @@ class VanishingIdealClassifier:
 
     def score(self, X, y) -> float:
         return float(np.mean(self.predict(X) == np.asarray(y)))
+
+    # -- reporting helpers (Table 3 quantities) ---------------------------
+
+    def average_degree(self) -> float:
+        """Mean degree of the generators' leading terms (models with a term
+        book: OAVI and ABM)."""
+        degs = []
+        for model in self.models:
+            gens = getattr(model, "generators", None)
+            if gens is not None:
+                degs += [sum(g.term) for g in gens]
+        return float(np.mean(degs)) if degs else 0.0
+
+    def sparsity(self) -> float:
+        """(SPAR): fraction of zero non-leading coefficients over all G."""
+        z = e = 0
+        for model in self.models:
+            gens = getattr(model, "generators", None)
+            if gens is None:
+                continue
+            for g in gens:
+                e += len(g.coeffs)
+                z += int(np.sum(g.coeffs == 0.0))
+        return z / e if e else 0.0
 
     # -- serialization ----------------------------------------------------
 

@@ -1,13 +1,14 @@
-"""Min-max scaling into [0, 1]^n (Section 3.2), as the paper applies it.
+"""Feature transformation (FT) and min-max scaling (Section 3.2).
 
-A copy of ``MinMaxScaler`` from the JAX package's ``repro.core.transform``
-(numpy only); the port's tests hold the two equal.
+Copies of ``MinMaxScaler`` and the per-model ``feature_transform`` loop from
+the JAX package's ``repro.core.transform``; the port's tests hold each pair
+equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -39,3 +40,27 @@ class MinMaxScaler:
 
     def fit_transform(self, X) -> np.ndarray:
         return self.fit(X).transform(X)
+
+
+def feature_transform(models: Sequence, Z, dtype: Optional[str] = None) -> np.ndarray:
+    """(FT): stack ``|g(Z)|`` over the generators of every per-class model.
+
+    ``models`` -- one fitted generator model per class (``OAVIModel`` or
+    ``VCAModel``), each evaluated on its own device in its own dtype.  Returns host numpy (q, sum_i |G^i|) in
+    ``dtype`` (default: the first model's dtype), and (q, 0) float64 for no
+    models.
+
+    This is the per-model loop; :func:`repro_torch.api.feature_transform`
+    fuses OAVI models into one evaluation and falls back to this loop for
+    the rest.
+    """
+    out_dtype = np.dtype(dtype) if dtype is not None else None
+    cols: List[np.ndarray] = []
+    for model in models:
+        G = model.evaluate_G(Z).cpu().numpy()
+        if out_dtype is None:
+            out_dtype = G.dtype
+        cols.append(np.abs(G).astype(out_dtype, copy=False))
+    if not cols:
+        return np.zeros((np.asarray(Z).shape[0], 0), out_dtype or np.float64)
+    return np.concatenate(cols, axis=1)

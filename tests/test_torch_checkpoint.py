@@ -267,10 +267,16 @@ def test_load_checks_format_and_kind(tmp_path, data):
         api.load(path, device="cpu")
     with pytest.raises(FileNotFoundError):
         api.load(str(tmp_path / "nothing"), device="cpu")
+    vca_model = api.fit(X, "vca", psi=PSI, device="cpu")
     vca = str(tmp_path / "vca")
-    api.save_state_dict(vca, arrays, dict(meta, kind="vca"), api._FORMAT)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.load(vca, device="cpu")
+    vca_model.save(vca)
+    back = api.load(vca, device="cpu")
+    assert type(back) is type(vca_model) and back.num_G == vca_model.num_G
+    assert np.array_equal(back.transform(X), vca_model.transform(X))
+    bad = str(tmp_path / "bad")
+    api.save_state_dict(bad, arrays, dict(meta, kind="nope"), api._FORMAT)
+    with pytest.raises(ValueError, match="unknown model kind"):
+        api.load(bad, device="cpu")
 
 
 @pytest.fixture(scope="module")

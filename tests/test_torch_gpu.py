@@ -532,3 +532,126 @@ def test_classifier_save_load_on_card(cuda, tmp_path):
     assert np.array_equal(again.transform(Xte), clf.transform(Xte))
     assert np.array_equal(again.predict(Xte), clf.predict(Xte))
     assert clf.score(Xte, yte) > 0.8
+
+
+# ---------------------------------------------------------------------------
+# The fused transform's row stability (F2) and the baselines on the card
+# ---------------------------------------------------------------------------
+
+
+def test_feature_transform_row_stable_on_card(cuda):
+    """Direct, chunked (batch sizes 1, 2, 7, 256) and single-row calls of
+    ``api.feature_transform`` give the same bits on the card: a row's
+    features never depend on the rows that share its call (cuBLAS changes
+    the last bits with the row count, so the card sums the final product
+    term by term: ``api._row_stable_product``).  The fused features agree
+    with the per-model transform to fp32 rounding (rtol 1e-5, atol 1e-6)."""
+    from repro_torch import api
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+
+    X, y = synthetic.appendix_c(m=3000, seed=0)
+    Xs = MinMaxScaler(dtype="float32").fit_transform(X)
+    models = api.fit_classes([Xs[y == c] for c in np.unique(y)], psi=PSI)
+    Z = Xs[:300]
+    direct = api.feature_transform(models, Z)
+    assert direct.shape == (300, sum(m.num_G for m in models))
+    for bs in (1, 2, 7, 256):
+        assert np.array_equal(api.feature_transform(models, Z, batch_size=bs), direct), bs
+    single = np.concatenate([api.feature_transform(models, Z[i:i + 1]) for i in range(40)])
+    assert np.array_equal(single, direct[:40])
+    np.testing.assert_allclose(direct, np.concatenate([m.transform(Z) for m in models], axis=1),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _plain_gram(monkeypatch):
+    """Send every op of ``kernels.ops`` to its plain version, on the card."""
+    monkeypatch.setattr(ops, "_kernel_path", lambda t, use_kernel: False)
+
+
+def test_abm_fit_on_card_launches_gram_update(cuda, monkeypatch):
+    """ABM's degree step runs hand-written kernel 3 (``gram_update``, no
+    carry): one launch a degree, nothing else.  Against the same fit with
+    the plain Gram on the card and against the CPU fit: equal structure, and
+    coefficients within the CPU parity tolerance of
+    tests/test_torch_abm_vca.py (rtol 1e-3, atol 2e-4)."""
+    from repro_torch import api
+
+    X = _appc_class0()
+    card = api.fit(X, "abm", psi=PSI, cap_terms=64)
+    launches = card.stats["kernel_launches"]
+    assert card.device.type == "cuda"
+    assert launches["gram_update"] == len(card.stats["degrees"]) > 0
+    assert sum(launches.values()) == launches["gram_update"]
+    assert card.stats["eigh_calls"] == sum(card.stats["border_sizes"])
+    cpu = api.fit(X, "abm", psi=PSI, cap_terms=64, device="cpu")
+    _plain_gram(monkeypatch)
+    plain = api.fit(X, "abm", psi=PSI, cap_terms=64)
+    assert plain.stats["kernel_launches"]["gram_update"] == 0
+    for other in (plain, cpu):
+        assert card.book.terms == other.book.terms
+        assert [g.term for g in card.generators] == [g.term for g in other.generators]
+        for a, b in zip(card.generators, other.generators):
+            np.testing.assert_allclose(a.coeffs, b.coeffs, rtol=1e-3, atol=2e-4)
+
+
+def test_abm_float64_on_card_raises(cuda):
+    """The Gram kernel takes float32 only; a float64 ABM fit on the card
+    raises there, as the port's OAVI fit does, rather than leaving the card."""
+    from repro_torch import api
+
+    with pytest.raises(TypeError, match="float32"):
+        api.fit(_appc_class0(), "abm", cap_terms=64, dtype="float64")
+
+
+def test_vca_fit_on_card_matches_cpu(cuda, tmp_path):
+    """cuSOLVER's SVD against LAPACK's: equal counts per degree and |G(Z)|
+    within rtol 1e-4, atol 1e-6 (the CPU parity tolerance); the card
+    model's save -> load round trip gives the same bits."""
+    from repro_torch import api
+
+    X = _appc_class0()
+    card = api.fit(X, "vca", psi=PSI)
+    cpu = api.fit(X, "vca", psi=PSI, device="cpu")
+    assert card.device.type == "cuda"
+    assert [(b.num_vanishing, b.num_nonvanishing) for b in card.blocks] == \
+        [(b.num_vanishing, b.num_nonvanishing) for b in cpu.blocks]
+    assert card.deg1_num_vanishing == cpu.deg1_num_vanishing
+    np.testing.assert_allclose(card.transform(X), cpu.transform(X), rtol=1e-4, atol=1e-6)
+    card.save(str(tmp_path / "v"))
+    again = api.load(str(tmp_path / "v"))
+    assert again.device.type == "cuda"
+    assert np.array_equal(again.transform(X), card.transform(X))
+
+
+def test_polysvm_on_card_matches_cpu(cuda):
+    """The same anchors and iterations as the CPU fit, and decision values
+    within rtol 1e-3, atol 1e-4 (tests/test_torch_polysvm.py's tolerance)."""
+    from repro_torch.core.svm import PolySVM, PolySVMConfig
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+
+    X, y = synthetic.appendix_c(m=3000, seed=0)
+    Xs = MinMaxScaler(dtype="float32").fit_transform(X)
+    cfg = PolySVMConfig(lam=0.1, tol=1e-2, max_kernel_samples=500)
+    card = PolySVM(cfg).fit(Xs[:1800], y[:1800])
+    cpu = PolySVM(cfg, device="cpu").fit(Xs[:1800], y[:1800])
+    assert np.array_equal(card.anchors, cpu.anchors)
+    assert card.stats == cpu.stats
+    np.testing.assert_allclose(card.decision_function(Xs[1800:]),
+                               cpu.decision_function(Xs[1800:]), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["abm", "vca"])
+def test_baseline_classifier_save_load_on_card(cuda, tmp_path, method):
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.data import synthetic
+
+    X, y = synthetic.appendix_c(m=6000, seed=0)
+    Xtr, ytr, Xte, yte = synthetic.train_test_split(X, y, seed=0)
+    kw = {"cap_terms": 64} if method == "abm" else {}
+    clf = VanishingIdealClassifier(PipelineConfig(method=method, oavi_kw=kw)).fit(Xtr, ytr)
+    clf.save(str(tmp_path / "clf"))
+    again = VanishingIdealClassifier.load(str(tmp_path / "clf"))
+    assert all(m.device.type == "cuda" for m in again.models)
+    assert np.array_equal(again.predict(Xte), clf.predict(Xte))

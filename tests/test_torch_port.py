@@ -42,6 +42,7 @@ SLICE_MODULES = [
     "repro_torch.configs.shapes",
     "repro_torch.convert",
     "repro_torch.core",
+    "repro_torch.core.abm",
     "repro_torch.core.ihb",
     "repro_torch.core.oavi",
     "repro_torch.core.oracles",
@@ -50,6 +51,7 @@ SLICE_MODULES = [
     "repro_torch.core.svm",
     "repro_torch.core.terms",
     "repro_torch.core.transform",
+    "repro_torch.core.vca",
     "repro_torch.data",
     "repro_torch.data.synthetic",
     "repro_torch.kernels",
@@ -106,14 +108,20 @@ def test_fit_without_device_raises_without_card(no_card):
     assert api.fit(X, device="cpu").num_O >= 1
 
 
-@pytest.mark.parametrize("spec,todo", [
-    ("abm", "item 9"),
-    ("vca", "item 9"),
-])
-def test_unported_methods_raise(spec, todo):
+@pytest.mark.parametrize("spec", ["abm", "vca"], ids=["abm-item 9", "vca-item 9"])
+def test_unported_methods_raise(spec):
+    """The baselines (ROADMAP item 9) fit through ``api.fit`` and give the
+    reference's structure and ``|G(Z)|`` (rtol 1e-4, atol 1e-5: fp32 from
+    two LAPACK builds; tests/test_torch_abm_vca.py holds more)."""
+    from repro import api as japi
+
     X = np.random.default_rng(0).uniform(0, 1, (64, 3))
-    with pytest.raises(NotImplementedError, match=todo):
-        api.fit(X, spec, device="cpu")
+    model = api.fit(X, spec, device="cpu")
+    ref = japi.fit(X, spec)
+    assert model.stats["api"]["method"] == ref.stats["api"]["method"] == spec
+    assert model.num_G == ref.num_G and model.stats["degrees"] == ref.stats["degrees"]
+    np.testing.assert_allclose(model.transform(X), np.asarray(ref.transform(X)),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_unported_options_raise():
@@ -131,7 +139,9 @@ def test_resolve_matches_reference():
 
     for spec in ("oavi", "fast", "oavi:fast", "oavi:cgavi", "abm", "vca"):
         entry, variant = japi.resolve(spec)
-        assert api.resolve(spec) == (entry.name, variant)
+        got, got_variant = api.resolve(spec)
+        assert (got.name, got_variant) == (entry.name, variant)
+        assert got.variants == entry.variants and got.spec(variant) == entry.spec(variant)
     assert api.available_methods() == japi.available_methods()
     with pytest.raises(ValueError):
         api.resolve("oavi:nope")

@@ -14,10 +14,18 @@ Phases, each reported on its own lines:
    timed groups) beside its plain version, its bound and one library call as
    a yardstick.  Each Gram shape logs the reduction path and border source
    it took.  The IHB update is checked as an in-place chain and as the
-   degree's whole candidate loop in one launch (``ihb_degree``).
+   degree's whole candidate loop in one launch (``ihb_degree``).  The class
+   axis of all three (``gram_update_acc``, ``ihb_update``, ``ihb_degree``
+   for k classes in one launch) is checked against the per-class plain
+   versions and, lane by lane, bit for bit against the one-class calls, at
+   the class-batched main paths' shapes (k = 2 classes of 1,048,576 rows at
+   L = K = 64; k = 2 spam-wide classes at Lcap = 2048), each timed beside k
+   one-class launches, its bound and the batched gather + ``baddbmm``.
 3. Main path, paper scale: Algorithm 2 (``VanishingIdealClassifier``, OAVI
-   fast engine, psi = 0.005) on the 2,000,000-sample Appendix C set, 60/40
-   split; the per-class fits are then run again on the CPU and compared.
+   fast engine, psi = 0.005, its default ``class_batch="auto"``: the two
+   classes fitted as one batched group) on the 2,000,000-sample Appendix C
+   set, 60/40 split; the per-class fits are then run again on the CPU and
+   compared, and the generators alone are timed batched beside sequential.
 4. Main path, wide: one OAVI fit on class 0 of the spam-shaped set (n = 57),
    which grows to Lcap = Kcap = 2048; compared with the same fit on the CPU;
    one more wide fit under ``torch.profiler`` (device busy share, kernel time
@@ -35,9 +43,10 @@ Phases, each reported on its own lines:
    layer.  The same model's prefill logits and one teacher-forced decode step
    are then held against the model run with the plain attention and against
    an fp32 copy of it.
-7. The paper's oracle variants: ``api.fit_classes`` of each of the seven
-   variants of Section 6.1 (CGAVI-IHB, AGDAVI-IHB, BPCGAVI-WIHB, BPCGAVI,
-   PCGAVI, CGAVI, AGDAVI) on the card at paper scale (the phase-3 split),
+7. The paper's oracle variants: ``api.fit_classes(class_batch="off")`` of
+   each of the seven variants of Section 6.1 (CGAVI-IHB, AGDAVI-IHB,
+   BPCGAVI-WIHB, BPCGAVI, PCGAVI, CGAVI, AGDAVI) on the card at paper scale
+   (the phase-3 split),
    each held against the same fits on the CPU; the single in-place
    ``ihb_update`` kernel must be launched once per candidate by the IHB-warm
    variants.  Then Algorithm 2 with CGAVI-IHB (accuracy >= 0.8), saved and
@@ -54,6 +63,17 @@ Phases, each reported on its own lines:
    loaded (identical labels), and the polynomial-kernel SVM, held against
    the CPU on its first iterations; (c) VCA on the phase-4 data, where
    degree 2 has 3,136 candidates, against its CPU fit.
+9. Class-batched OAVI (``api.fit_classes`` with its default
+   ``class_batch="auto"``), each fit held bit for bit against the same
+   classes fitted one after another on the card, and against the CPU: (a)
+   the phase-3 classes (one group at m_cap = 1,048,576; A is 2 x 1,048,576
+   x 64 fp32) with ``fast`` and ``cgavi-ihb``, one Gram launch a degree for
+   the group, the batched and the sequential ``cgavi-ihb`` fits profiled;
+   (b) 16 lognormal-skewed classes (``multiclass_planted(lognormal_sizes(16,
+   4096, seed=16), n=4, seed=116)``, the reference's multi-class benchmark
+   regime) with ``fast`` and BPCG + IHB, its groups, padding and schedule
+   escalations printed; (c) both classes of the spam-shaped set with
+   ``fast`` (Lcap = 2048: the batched ``ihb_degree`` at full width).
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -513,6 +533,202 @@ def check_ihb_degree(dev, Lcap, ell0, K, Kcap, reps):
                 shape=dict(Lcap=Lcap, ell0=ell0, K=K, Kcap=Kcap))
 
 
+def check_gram_batched(dev, k, m_cap, L, n, K, reps):
+    """``gram_update_acc`` with a class axis: k classes of m_cap rows in one
+    launch, against the per-class plain version and, lane by lane, bit for
+    bit against the one-class kernel call; timed beside k one-class launches,
+    the plain version and the batched gather + ``baddbmm``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gram_update import (borders, gram_update_acc,
+                                                 gram_update_acc_batched, path)
+
+    rng = np.random.default_rng(m_cap + L + k)
+    A, X, p, v = (torch.stack(t) for t in zip(*(gram_inputs(rng, m_cap, L, n, K, dev)
+                                                for _ in range(k))))
+    ql0 = torch.from_numpy(rng.uniform(0, 1, (k, L, K)).astype(np.float32)).to(dev)
+    c0 = torch.from_numpy(rng.uniform(0, 1, (k, K, K)).astype(np.float32)).to(dev)
+    bm = ops.GRAM_BLOCK
+    got = ops.gram_accumulate_batched(A, X, p, v, (ql0, c0))
+    want = ops.gram_accumulate_batched(A, X, p, v, (ql0, c0), use_kernel=False)
+    singles = [ops.gram_accumulate(A[c], X[c], p[c], v[c], (ql0[c], c0[c])) for c in range(k)]
+    torch.cuda.synchronize()
+    tag = f"gram_update_acc_batched k={k} m_cap={m_cap} L={L} n={n} K={K}"
+    kind = f"{path(L, K, dev)} path, borders {borders(L, n)} (each lane's, as alone)"
+    log(f"  {tag}: {kind}")
+    err = max(check_close(f"{tag} {nm}", g, w, GRAM_RTOL, 0.0)
+              for nm, g, w in zip(("QL", "C"), got, want))
+    for c, one in enumerate(singles):
+        if not (torch.equal(got[0][c], one[0]) and torch.equal(got[1][c], one[1])):
+            raise AssertionError(f"{tag}: lane {c} differs from its one-class call")
+    log(f"  {tag}: every lane bit-identical to its one-class kernel call")
+
+    def library():
+        idx = (k, A.shape[1], K)
+        B = (torch.gather(A, 2, p[:, None, :].expand(idx))
+             * torch.gather(X, 2, v[:, None, :].expand(idx)))
+        return torch.baddbmm(ql0, A.transpose(1, 2), B), torch.baddbmm(c0, B.transpose(1, 2), B)
+
+    ms = time_ms(lambda: gram_update_acc_batched(A, X, p, v, ql0, c0, bm=bm), reps)
+    singles_ms = time_ms(lambda: [gram_update_acc(A[c], X[c], p[c], v[c], ql0[c], c0[c], bm=bm)
+                                  for c in range(k)], reps)
+    plain_ms = time_ms(lambda: ops.gram_accumulate_batched(A, X, p, v, (ql0, c0),
+                                                           use_kernel=False), max(1, reps // 4))
+    lib_ms = time_ms(library, reps)
+    flops, nbytes = gram_work(A[0], X[0], p[0], carry=True)
+    b_ms, b_by = bound(k * flops, k * nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms ({rate_note(k * flops, ms, b_ms)}), {k} one-class "
+        f"launches {singles_ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, one_class_launches_ms=singles_ms, variant=kind,
+                shape=dict(k=k, m_cap=m_cap, L=L, n=n, K=K))
+
+
+def check_ihb_degree_batched(dev, Lcap, Kcap, shapes, reps):
+    """``ihb_degree`` with a class axis: one cooperative launch for the
+    classes ``shapes = [(ell0, K), ...]``, against the per-class plain loop
+    and, lane by lane, bit for bit against the one-class kernel call (which
+    takes another grid, and perhaps another band layout)."""
+    import torch
+
+    from repro_torch.kernels import ihb_update as ihb_kernels
+    from repro_torch.kernels import ops
+
+    k = len(shapes)
+    ell0s, Ks = [e for e, _ in shapes], [K for _, K in shapes]
+    rows_max = max(e + K for e, K in shapes)
+    rng = np.random.default_rng(Lcap + k)
+    apps = [rng.uniform(size=K) < 0.5 for K in Ks]
+    QLt, C, N0 = (torch.from_numpy(np.stack(x)).to(dev) for x in zip(*(
+        degree_inputs(K + e + c, Lcap, e, K, a, Kcap)
+        for c, ((e, K), a) in enumerate(zip(shapes, apps)))))
+    Nk, Np = N0.clone(), N0.clone()
+    got = ops.ihb_degree_batched(QLt, C, Nk, ell0s, PSI, Ks)
+    want = ops.ihb_degree_batched(QLt, C, Np, ell0s, PSI, Ks, use_kernel=False)
+    torch.cuda.synchronize()
+    G = ihb_kernels.lane_blocks(rows_max, k)
+    lanes_note = [f"(ell0={e}, K={K}: {G} blocks, one-class call "
+                  f"{ihb_kernels.lane_blocks(e + K, 1)}; band "
+                  f"{'staged' if ihb_kernels.degree_staged(e, K, rows_max, k) else 'in L2'})"
+                  for e, K in shapes]
+    tag = f"ihb_degree_batched Lcap={Lcap} k={k}"
+    log(f"  {tag}: lanes {', '.join(lanes_note)}")
+    err = 0.0
+    for c, (e, K) in enumerate(shapes):
+        Nc = N0[c].clone()
+        one = ops.ihb_degree(QLt[c], C[c], Nc, e, PSI, K)
+        if not (all(torch.equal(g[c, :K], o) for g, o in zip(got[:4], one[:4]))
+                and int(got[4][c]) == int(one[4]) and torch.equal(Nk[c], Nc)):
+            raise AssertionError(f"{tag}: lane {c} differs from its one-class call")
+        p_acc, p_mses = want[0][c, :K].cpu().numpy(), want[1][c, :K].cpu().numpy()
+        banded = np.nonzero(np.abs(p_mses - PSI) <= BAND * PSI)[0]
+        stop = int(banded[0]) if banded.size else K
+        if not (np.array_equal(got[0][c, :stop].cpu().numpy(), p_acc[:stop])
+                and torch.equal(got[3][c, :stop], want[3][c, :stop])):
+            raise AssertionError(f"{tag}: lane {c}: kernel and plain verdicts differ")
+        if stop == K:
+            err = max(err, *(check_close(f"{tag} lane {c} {nm}", g, w, IHB_DEGREE_RTOL,
+                                         IHB_DEGREE_ATOL)
+                             for nm, g, w in (("mses", got[1][c], want[1][c]),
+                                              ("coeffs", got[2][c], want[2][c]),
+                                              ("N", Nk[c], Np[c]))))
+    log(f"  {tag}: every lane bit-identical to its one-class kernel call")
+
+    Nw = N0.clone()
+
+    def reset():
+        Nw.copy_(N0)
+
+    ms = time_ms(lambda: (reset(), ops.ihb_degree_batched(QLt, C, Nw, ell0s, PSI, Ks)), reps)
+    ms -= time_ms(reset, reps)
+    singles_ms = time_ms(lambda: (reset(), [ops.ihb_degree(QLt[c], C[c], Nw[c], e, PSI, K)
+                                            for c, (e, K) in enumerate(shapes)]), reps)
+    singles_ms -= time_ms(reset, reps)
+    plain_ms = time_ms(lambda: (reset(), ops.ihb_degree_batched(QLt, C, Nw, ell0s, PSI, Ks,
+                                                                 use_kernel=False)),
+                       1, warmup=1, groups=1)
+    flops = nbytes = 0.0
+    for c, (e, K) in enumerate(shapes):
+        f_c, b_c = degree_work(want[0][c, :K].cpu().numpy(), e, K, Lcap)
+        flops, nbytes = flops + f_c, nbytes + b_c
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms, {k} one-class launches {singles_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, one_class_launches_ms=singles_ms, lanes=lanes_note,
+                shape=dict(Lcap=Lcap, Kcap=Kcap, lanes=shapes))
+
+
+def check_ihb_update_batched(dev, L, k, reps):
+    """``ihb_update`` with a class axis: k in-place updates at slots ell_c in
+    one launch, against the per-class plain update and, lane by lane, bit for
+    bit against the one-class kernel call; a gated-off lane moves no byte."""
+    import torch
+
+    from repro_torch.kernels import ihb_update as ihb_kernels
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(L + k)
+    N0, q, btb, ells = [], [], [], []
+    for c in range(k):
+        ell = L // 2 + 7 * c
+        cols = rng.standard_normal((4 * L, ell + 1))
+        G = cols.T @ cols / (4 * L)
+        N = np.eye(L)
+        N[:ell, :ell] = np.linalg.inv(G[:ell, :ell])
+        qc = np.zeros(L)
+        qc[:ell] = G[:ell, ell]
+        N0.append(N), q.append(qc), btb.append(G[ell, ell]), ells.append(ell)
+    N0 = torch.tensor(np.stack(N0), dtype=torch.float32, device=dev)
+    q = torch.tensor(np.stack(q), dtype=torch.float32, device=dev)
+    btb = torch.tensor(btb, dtype=torch.float32, device=dev)
+    ell = torch.tensor(ells, dtype=torch.int32, device=dev)
+    Nk = N0.clone()
+    ops.ihb_update_batched_(Nk, q, btb, ell)
+    want = ops.ihb_update_batched_(N0.clone(), q, btb, ell, use_kernel=False)
+    tag = f"ihb_update_batched L={L} k={k}"
+    err = check_close(tag, Nk, want, IHB_RTOL, IHB_ATOL)
+    for c in range(k):
+        if not torch.equal(Nk[c], ops.ihb_update(N0[c], q[c], btb[c], ell[c])):
+            raise AssertionError(f"{tag}: lane {c} differs from its one-class call")
+    gate = torch.tensor([c % 2 == 0 for c in range(k)], device=dev)
+    Ng = N0.clone()
+    ops.ihb_update_batched_(Ng, q, btb, ell, active=gate)
+    for c in range(k):
+        if not torch.equal(Ng[c], Nk[c] if c % 2 == 0 else N0[c]):
+            raise AssertionError(f"{tag}: gated lane {c} wrong")
+    log(f"  {tag}: lanes bit-identical to their one-class calls ({ihb_kernels.lane_blocks(L, k)} "
+        f"blocks a lane, {ihb_kernels.lane_blocks(L, 1)} alone); a gated-off lane moves no byte")
+    Nw = N0.clone()
+
+    def reset():
+        Nw.copy_(N0)
+
+    def library():
+        u = torch.bmm(N0, q[:, :, None])
+        return torch.baddbmm(N0, u, u.transpose(1, 2))
+
+    ms = time_ms(lambda: (reset(), ops.ihb_update_batched_(Nw, q, btb, ell)), reps)
+    ms -= time_ms(reset, reps)
+    singles_ms = time_ms(lambda: (reset(), [ops.ihb_update_(Nw[c], q[c], btb[c], ell[c])
+                                            for c in range(k)]), reps)
+    singles_ms -= time_ms(reset, reps)
+    plain_ms = time_ms(lambda: ref.ihb_update_batched_ref(N0, q, btb, ell), reps)
+    lib_ms = time_ms(library, reps)
+    flops = nbytes = 0.0
+    for e in ells:  # the leading block of each lane, as for one update
+        flops += 2.0 * e * e + 2.0 * e + 3.0 * (e + 1) ** 2
+        nbytes += 4.0 * (e * e + (e + 1) ** 2 + e + 2)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {tag}: kernel {ms:.4f} ms, {k} one-class launches {singles_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, one_class_launches_ms=singles_ms,
+                shape=dict(L=L, k=k, ell=ells))
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: main path
 # ---------------------------------------------------------------------------
@@ -716,15 +932,18 @@ def main_path_paper_scale():
             f"borders {m.stats['border_sizes']} degree_times "
             f"{[round(t, 4) for t in m.stats['degree_times']]}")
     appends = sum(not a for _, _, a in card_log)
-    degrees = sum(len(m.stats["degrees"]) for m in clf.models)
-    log(f"  kernel launches on the main path: {launches}; {degrees} degrees, "
-        f"{len(card_log)} candidates, {appends} appended")
-    for name in ("gram_update_acc", "ihb_degree"):
-        if launches[name] <= 0:
-            raise AssertionError(f"main path did not launch {name}")
-    if launches["ihb_degree"] != degrees:
-        raise AssertionError(f"ihb_degree launched {launches['ihb_degree']} times, "
-                             f"expected one per degree ({degrees})")
+    # the classifier's default fits its classes as one batched group: one
+    # launch of each kernel per degree of the group
+    degrees = max(len(m.stats["degrees"]) for m in clf.models)
+    log(f"  kernel launches on the main path: {launches}; one class-batched group of "
+        f"{len(clf.models)} classes, {degrees} degrees, {len(card_log)} candidates, "
+        f"{appends} appended")
+    if s["class_batched"] != len(clf.models):
+        raise AssertionError(f"{s['class_batched']} of {len(clf.models)} classes batched")
+    for name in ("gram_update_acc_batched", "ihb_degree_batched"):
+        if launches[name] != degrees:
+            raise AssertionError(f"{name} launched {launches[name]} times, expected one "
+                                 f"per degree of the group ({degrees})")
     if not (feats.shape == (Xte.shape[0], sum(m.num_G for m in clf.models))
             and np.all(np.isfinite(feats))):
         raise AssertionError("features are not finite of the expected shape")
@@ -733,6 +952,15 @@ def main_path_paper_scale():
 
     Xs = clf.scaler.transform(Xtr)
     classes = [Xs[ytr == c] for c in clf.classes_]
+    # the generators alone, batched (the default) beside sequential
+    gen_s = {}
+    for mode in ("auto", "off", "auto", "off"):
+        t = time.perf_counter()
+        api.fit_classes(classes, psi=PSI, class_batch=mode)
+        torch.cuda.synchronize()
+        gen_s.setdefault(mode, []).append(time.perf_counter() - t)
+    log(f"  generators alone (api.fit_classes, fast): batched {gen_s['auto']} s, sequential "
+        f"{gen_s['off']} s")
     t2 = time.perf_counter()
     cpu_models, cpu_log = recording_fit(
         lambda: api.fit_classes(classes, psi=PSI, device="cpu"))
@@ -742,7 +970,8 @@ def main_path_paper_scale():
     check = compare_fits("paper scale", clf.models, cpu_models, card_log, cpu_log,
                          classes, control, direct=FIT_DIRECT_TOL)
     return launches, dict(fit_s=fit_s, transform_s=transform_s, accuracy=acc,
-                          ihb_appends=appends, **check), (Xtr, ytr, Xte, yte)
+                          ihb_appends=appends, generators_batched_s=gen_s["auto"],
+                          generators_sequential_s=gen_s["off"], **check), (Xtr, ytr, Xte, yte)
 
 
 def main_path_wide():
@@ -1014,13 +1243,15 @@ def main_path_oracles(paper_data, wide_fast):
     for v in ORACLE_VARIANTS:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        card, card_log = recording_fit(lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI))
+        card, card_log = recording_fit(lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI,
+                                                               class_batch="off"))
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = ops.launch_counts()
         t1 = time.perf_counter()
         cpu, cpu_log = recording_fit(
-            lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI, device="cpu"))
+            lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI, class_batch="off",
+                                    device="cpu"))
         cpu_s = time.perf_counter() - t1
         dist = judge_oracle_fits(v, card, cpu, card_log, cpu_log, classes)
         degrees = sum(len(m.stats["degrees"]) for m in card)
@@ -1062,8 +1293,8 @@ def main_path_oracles(paper_data, wide_fast):
         f"{acc:.4f}; launches {clf_launches}")
     if acc < 0.8:
         raise AssertionError(f"cgavi-ihb classifier accuracy {acc} below 0.8")
-    if clf_launches["ihb_update"] <= 0:
-        raise AssertionError("the cgavi-ihb classifier launched no ihb_update")
+    if clf_launches["ihb_update_batched"] <= 0 or clf.stats["class_batched"] != len(labels):
+        raise AssertionError("the cgavi-ihb classifier did not run class-batched")
     ckpt = os.path.join(HERE, "build", "chip_smoke_classifier")
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
@@ -1378,6 +1609,155 @@ def main_path_baselines(dev, paper_data, wide_X0):
     return launches, gram3, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: class-batched OAVI, the default multi-class fit
+# ---------------------------------------------------------------------------
+
+
+def _bit_equal_models(tag, bat, seq):
+    for c, (b, q) in enumerate(zip(bat, seq)):
+        if not (b.book.terms == q.book.terms
+                and [g.term for g in b.generators] == [g.term for g in q.generators]
+                and all(np.array_equal(gb.coeffs, gq.coeffs) and gb.mse == gq.mse
+                        for gb, gq in zip(b.generators, q.generators))):
+            raise AssertionError(f"{tag}: class {c}: batched fit differs from the sequential fit")
+
+
+def batched_vs_sequential(tag, classes, spec, config=None):
+    """One class-batched ``api.fit_classes`` on the card (the main path:
+    counts reset before, read after) and the same classes fitted one after
+    another on the card: the models must be equal bit for bit.  Returns the
+    batched models, their log, the launches, and both fits' seconds."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    bat, bat_log = recording_fit(lambda: api.fit_classes(classes, spec, psi=PSI,
+                                                         config=config))
+    torch.cuda.synchronize()
+    bat_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t1 = time.perf_counter()
+    seq = api.fit_classes(classes, spec, psi=PSI, config=config, class_batch="off")
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t1
+    _bit_equal_models(tag, bat, seq)
+    agg = api.aggregate_fit_stats(bat)
+    groups = agg["class_batch_groups"]
+    log(f"  {tag}: batched {bat_s:.3f} s, sequential {seq_s:.3f} s, bit-identical; "
+        f"{groups} group(s), escalations {agg['solver_escalations']}, schedule "
+        f"{agg['solver_schedule_len']}, padding {agg.get('class_batch_padding')}; launches "
+        f"{launches}")
+    if agg["class_batched"] != len(classes):
+        raise AssertionError(f"{tag}: {agg['class_batched']} of {len(classes)} classes batched")
+    if launches["gram_update_acc"] or launches["ihb_degree"] or launches["ihb_update"]:
+        raise AssertionError(f"{tag}: a one-class kernel entry ran on the batched path")
+    return bat, bat_log, launches, dict(batched_s=bat_s, sequential_s=seq_s, groups=groups,
+                                        escalations=agg["solver_escalations"],
+                                        schedule=agg["solver_schedule_len"],
+                                        padding=agg.get("class_batch_padding"),
+                                        launches=launches)
+
+
+def main_path_class_batch(paper_data):
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import class_batch
+    from repro_torch.core.oavi import OAVIConfig
+    from repro_torch.core.oracles import OracleConfig
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+
+    out = {}
+    log("phase 9a: class-batched api.fit_classes on appendix_c(m=2_000_000), 60/40 split, "
+        "psi=0.005")
+    Xtr, ytr = paper_data[0], paper_data[1]
+    Xs = MinMaxScaler(dtype="float32").fit_transform(Xtr)
+    classes = [Xs[ytr == c] for c in np.unique(ytr)]
+    launches_by_path = {}
+    for v in ("fast", "cgavi-ihb"):
+        bat, bat_log, launches, rec = batched_vs_sequential(f"9a {v}", classes, f"oavi:{v}")
+        degrees = max(len(m.stats["degrees"]) for m in bat)
+        mc = bat[0].stats["class_batch"]["m_cap"]
+        A_bytes = len(classes) * mc * bat[0].stats["Lcap_final"] * 4
+        if launches["gram_update_acc_batched"] != degrees:
+            raise AssertionError(f"9a {v}: {launches['gram_update_acc_batched']} Gram launches, "
+                                 f"expected one per degree of the group ({degrees})")
+        if v == "fast" and launches["ihb_degree_batched"] != degrees:
+            raise AssertionError(f"9a fast: ihb_degree_batched launched "
+                                 f"{launches['ihb_degree_batched']} times, expected {degrees}")
+        if v == "cgavi-ihb" and launches["ihb_update_batched"] <= 0:
+            raise AssertionError("9a cgavi-ihb: no batched ihb_update launch")
+        t0 = time.perf_counter()
+        cpu, cpu_log = recording_fit(lambda: api.fit_classes(classes, f"oavi:{v}", psi=PSI,
+                                                             device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        dist = judge_oracle_fits(v, bat, cpu, bat_log, cpu_log, classes)
+        log(f"  9a {v}: m_cap {mc}, A {A_bytes / 2**20:.0f} MiB; {degrees} degrees: "
+            f"gram_update_acc_batched x{launches['gram_update_acc_batched']}, "
+            f"ihb_degree_batched x{launches['ihb_degree_batched']}, ihb_update_batched "
+            f"x{launches['ihb_update_batched']}; per fit kernel_launches "
+            f"{bat[0].stats['kernel_launches']}; CPU fit {cpu_s:.3f} s, held by the "
+            f"float64 witness: {dist}")
+        launches_by_path[v] = launches
+        out[f"9a_{v}"] = dict(rec, cpu_s=cpu_s, m_cap=mc, degrees=degrees, **dist)
+    out["9a_cgavi-ihb"]["profile_batched"] = profile_device(
+        "class-batched cgavi-ihb fit of both classes",
+        lambda: api.fit_classes(classes, "oavi:cgavi-ihb", psi=PSI),
+        watch=("ihb_update_kernel",))
+    out["9a_cgavi-ihb"]["profile_sequential"] = profile_device(
+        "sequential cgavi-ihb fit of both classes",
+        lambda: api.fit_classes(classes, "oavi:cgavi-ihb", psi=PSI, class_batch="off"),
+        watch=("ihb_update_kernel",))
+
+    sizes = synthetic.lognormal_sizes(16, 4096, seed=16)
+    log(f"phase 9b: multiclass_planted(lognormal_sizes(16, 4096, seed=16), n=4, seed=116), "
+        f"psi=0.005; sizes {sizes}; groups {class_batch.plan_class_groups(sizes)}")
+    X9, y9 = synthetic.multiclass_planted(sizes, n=4, seed=116)
+    X9 = MinMaxScaler(dtype="float32").fit_transform(X9)
+    classes9 = [X9[y9 == c] for c in range(len(sizes))]
+    bpcg_ihb = OAVIConfig(psi=PSI, engine="oracle", solver=OracleConfig(name="bpcg"), ihb=True,
+                          cap_terms=64)
+    for tag, cfg in (("fast", OAVIConfig(psi=PSI, cap_terms=64)), ("bpcg-ihb", bpcg_ihb)):
+        bat, bat_log, launches, rec = batched_vs_sequential(f"9b {tag}", classes9, "oavi",
+                                                            config=cfg)
+        t0 = time.perf_counter()
+        cpu, cpu_log = recording_fit(lambda: api.fit_classes(classes9, "oavi", psi=PSI,
+                                                             config=cfg, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        why, banded = judge_structure(bat, cpu, bat_log, cpu_log)
+        if why is not None:
+            raise AssertionError(f"9b {tag}: {why}")
+        log(f"  9b {tag}: CPU fit {cpu_s:.3f} s; verdicts and structure equal on card and CPU"
+            + (" (up to a banded candidate)" if banded else ""))
+        out[f"9b_{tag}"] = dict(rec, cpu_s=cpu_s)
+
+    log("phase 9c: class-batched fast fit of both classes of uci_like('spam') (n=57), "
+        "psi=0.005")
+    X, y = synthetic.uci_like("spam", seed=0)
+    Xsp = MinMaxScaler(dtype="float32").fit_transform(X)
+    spam = [Xsp[y == c] for c in np.unique(y)]
+    bat, bat_log, launches, rec = batched_vs_sequential("9c fast", spam, "oavi:fast")
+    if bat[0].stats["Lcap_final"] != 2048 or launches["ihb_degree_batched"] <= 0:
+        raise AssertionError(f"9c: Lcap {bat[0].stats['Lcap_final']}, launches {launches}")
+    t0 = time.perf_counter()
+    cpu, cpu_log = recording_fit(lambda: api.fit_classes(spam, "oavi:fast", psi=PSI,
+                                                         device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    dist = judge_oracle_fits("fast", bat, cpu, bat_log, cpu_log, spam)
+    log(f"  9c: borders {[m.stats['border_sizes'] for m in bat]}; CPU fit {cpu_s:.3f} s, held "
+        f"by the float64 witness: {dist}")
+    out["9c_fast"] = dict(rec, cpu_s=cpu_s, **dist)
+    launches_by_path["9c"] = launches
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 products were left on")
+    return launches_by_path, out
+
+
 def profile_device(tag, fn, watch=()):
     """Device time by kernel over one call of ``fn`` (after a warm-up call),
     and the device's busy share of its wall time, from ``torch.profiler``.
@@ -1447,6 +1827,13 @@ def main() -> int:
               for shape, reps in (((64, 4, 40, 64), 20), ((2048, 1, 57, 64), 20),
                                   ((2048, 58, 1653, 2048), 5),
                                   ((2048, 1024, 512, 512), 5))}
+    # the class axis, at the shapes of the class-batched main paths
+    gacc_b = check_gram_batched(dev, 2, 1 << 20, 64, 3, 64, reps=10)
+    gacc_b_wide = check_gram_batched(dev, 2, 4096, 2048, 57, 2048, reps=3)
+    ihb_b = {L: check_ihb_update_batched(dev, L, 2, reps=50) for L in (64, 2048)}
+    degree_b = {"paper": check_ihb_degree_batched(dev, 64, 64, [(4, 6), (4, 6)], reps=20),
+                "spam": check_ihb_degree_batched(dev, 2048, 2048, [(58, 1653), (58, 1653)],
+                                                 reps=5)}
 
     launches, paper, paper_data = main_path_paper_scale()
     wide_launches, wide, wide_fast = main_path_wide()
@@ -1466,12 +1853,18 @@ def main() -> int:
     serve_launches, lm = main_path_serve(dev)
     oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
     abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
+    batch_launches, class_batched = main_path_class_batch(paper_data)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
+        # one-class fits (api.fit; phase 4's wide fit) launch the one-class
+        # entries; the multi-class main paths (phases 3, 9) the batched ones
         dict(name="gram_update_acc", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:118",
-             launches=launches["gram_update_acc"], **gacc),
+             launches=wide_launches["gram_update_acc"], **gacc_wide),
+        dict(name="gram_update_acc (class-batched)", route="cuda",
+             source=src + "gram_update.cu", replaces="src/repro/kernels/gram_update.py:118",
+             launches=launches["gram_update_acc_batched"], **gacc_b),
         # ABM's degree step (phase 8a), checked at the shape it gave the kernel
         dict(name="gram_update", route="cuda", source=src + "gram_update.cu",
              replaces="src/repro/kernels/gram_update.py:77",
@@ -1482,14 +1875,23 @@ def main() -> int:
              replaces="src/repro/kernels/ihb_update.py:52",
              launches=oracle_launches["ihb_update"], entry="ihb_update (oracle path)",
              **ihb[64],
-             ihb_degree=dict(launches=launches["ihb_degree"],
+             ihb_degree=dict(launches=wide_launches["ihb_degree"],
                              **degree[(2048, 58, 1653, 2048)])),
+        dict(name="ihb_update (class-batched)", route="cuda", source=src + "ihb_update.cu",
+             replaces="src/repro/kernels/ihb_update.py:52",
+             launches=batch_launches["cgavi-ihb"]["ihb_update_batched"], **ihb_b[64]),
+        dict(name="ihb_degree (class-batched)", route="cuda", source=src + "ihb_update.cu",
+             replaces="src/repro/kernels/ihb_update.py:52",
+             launches=batch_launches["9c"]["ihb_degree_batched"], **degree_b["spam"]),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"], **flash["serve"]),
     ]
+    for entry in kernels:
+        if entry["launches"] <= 0 or entry.get("ihb_degree", {"launches": 1})["launches"] <= 0:
+            raise AssertionError(f"{entry['name']}: no launch on its main path")
     log("wide shapes: " + json.dumps({
-        "gram_update_acc": gacc_wide,
+        "gram_update_acc_m2M": gacc,
         "gram_update_m2M": gupd,
         "ihb_update": {L: ihb[L] for L in (512, 2048)},
         "ihb_degree": {"x".join(map(str, k)): v for k, v in degree.items()},
@@ -1500,6 +1902,10 @@ def main() -> int:
         "serve_qwen3_8b": lm,
         "oracle_variants": oracle,
         "baselines": baselines,
+        "class_batched_kernels": {"gram_update_acc_wide": gacc_b_wide,
+                                  "ihb_update_L2048": ihb_b[2048],
+                                  "ihb_degree_paper": degree_b["paper"]},
+        "class_batched_fits": class_batched,
     }))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

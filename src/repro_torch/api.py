@@ -8,7 +8,10 @@
   card; it raises without one unless the caller passes ``device="cpu"``):
   OAVI with every variant of Section 6.1 and the ``fast`` engine, and the
   paper's baselines ABM and VCA.  A list of per-class arrays fits one model
-  per class, sequentially.
+  per class (:func:`fit_classes`): with ``class_batch="auto"``, the default
+  as in the reference, eligible OAVI configurations are fitted class-batched
+  (:mod:`repro_torch.core.class_batch`), everything else sequentially;
+  :func:`aggregate_fit_stats` rolls their counters up.
 * :func:`save` / :func:`load` persist a model (every kind of
   :class:`VanishingIdealModel`) through :mod:`repro_torch.checkpoint.store`
   in the JAX package's format, so each package loads the other's saves
@@ -45,6 +48,7 @@ import torch
 from . import _device
 from .checkpoint import store as ckpt_store
 from .core import abm as abm_mod
+from .core import class_batch as class_batch_mod
 from .core import oavi as oavi_mod
 from .core import transform as transform_mod
 from .core import vca as vca_mod
@@ -72,8 +76,6 @@ _TODO = {
     "sharded": "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12",
     "chunk_rows": "chunk_rows (out-of-core fits) is not ported yet: "
                   "ROADMAP.md queue 1 item 11",
-    "class_batch": "class_batch='auto' (class-batched fits) is not ported yet: "
-                   "ROADMAP.md queue 1 item 10; use class_batch='off'",
 }
 
 
@@ -224,7 +226,7 @@ def fit(
     psi: float = 0.005,
     backend: str = "auto",
     config=None,
-    class_batch: str = "off",
+    class_batch: str = "auto",
     chunk_rows: Optional[int] = None,
     device=None,
     **method_kw,
@@ -232,19 +234,20 @@ def fit(
     """Fit a vanishing-ideal model with the selected ``method``.
 
     ``X`` is an (m, n) array in ``[0, 1]^n``, or a list of per-class arrays
-    (one model per class, see :func:`fit_classes`).  ``method`` is a spec of
-    :func:`available_methods`.  ``backend`` is ``"auto"`` or ``"local"``
-    (both run the local fit).  ``config`` is a pre-built ``OAVIConfig`` /
-    ``ABMConfig`` / ``VCAConfig`` and overrides ``psi`` and ``method_kw``.
-    ``device=None`` means the CUDA card.  ``**method_kw`` goes to the
-    method's config (e.g. ``cap_terms=64``, or ``solver_kw={"tau": 50.0}``
-    for an OAVI variant's oracle).
+    (one model per class, see :func:`fit_classes`; ``class_batch`` applies
+    there).  ``method`` is a spec of :func:`available_methods`.  ``backend``
+    is ``"auto"`` or ``"local"`` (both run the local fit).  ``config`` is a
+    pre-built ``OAVIConfig`` / ``ABMConfig`` / ``VCAConfig`` and overrides
+    ``psi`` and ``method_kw``.  ``device=None`` means the CUDA card.
+    ``**method_kw`` goes to the method's config (e.g. ``cap_terms=64``, or
+    ``solver_kw={"tau": 50.0}`` for an OAVI variant's oracle).
     """
     if chunk_rows is not None:
         raise NotImplementedError(_TODO["chunk_rows"])
     if isinstance(X, (list, tuple)):
         return fit_classes(X, method, psi=psi, backend=backend, config=config,
                            class_batch=class_batch, device=device, **method_kw)
+    _check_class_batch(class_batch)
     entry, variant = resolve(method)
     if backend == "sharded":
         if entry.name != "oavi":
@@ -262,6 +265,11 @@ def fit(
     return model
 
 
+def _check_class_batch(class_batch: str) -> None:
+    if class_batch not in ("auto", "off"):
+        raise ValueError(f"unknown class_batch {class_batch!r}; expected 'auto' or 'off'")
+
+
 def fit_classes(
     Xs: Sequence,
     method: str = "oavi",
@@ -269,37 +277,132 @@ def fit_classes(
     psi: float = 0.005,
     backend: str = "auto",
     config=None,
-    class_batch: str = "off",
+    class_batch: str = "auto",
+    chunk_rows: Optional[int] = None,
     device=None,
     **method_kw,
 ) -> List[VanishingIdealModel]:
-    """Fit one model per class, sequentially (Algorithm 2's generator phase).
+    """Fit one model per class (Algorithm 2's generator phase).
 
-    ``class_batch="auto"`` batches OAVI classes in the reference and is not
-    ported; ABM and VCA run sequentially under either setting, as there."""
-    if class_batch not in ("auto", "off"):
-        raise ValueError(f"unknown class_batch {class_batch!r}; expected 'auto' or 'off'")
-    if class_batch == "auto" and resolve(method)[0].name == "oavi":
-        raise NotImplementedError(_TODO["class_batch"])
+    With ``class_batch="auto"`` (the default, as in the reference) and an
+    eligible OAVI config (:func:`repro_torch.core.oavi.class_batchable`:
+    every engine with the Theorem 4.9 ``inverse``), the classes are grouped
+    into shared row buckets (:func:`repro_torch.core.class_batch.
+    plan_class_groups`) and each group is fitted class-batched
+    (:func:`repro_torch.core.class_batch.fit_classes`): one launch of each
+    kernel per degree for the group, each model bit for bit the sequential
+    fit's at matched capacity.  ``class_batch="off"``, a single class, ABM,
+    VCA and the Cholesky engine fit one class after another.  Each batched
+    model's ``stats["class_batch_padding"]`` reports the padded rows its
+    group paid.  ``chunk_rows`` and ``backend="sharded"`` are not ported
+    (ROADMAP.md queue 1 items 11 and 12).  Returns the models in class
+    order; count group-shared stats with :func:`aggregate_fit_stats`.
+    """
+    _check_class_batch(class_batch)
+    if chunk_rows is not None:
+        raise NotImplementedError(_TODO["chunk_rows"])
+    entry, variant = resolve(method)
+    Xs = [np.asarray(X) for X in Xs]
     dev = _device.resolve(device)
-    return [
-        fit(X, method, psi=psi, backend=backend, config=config, device=dev,
-            **method_kw)
-        for X in Xs
-    ]
+
+    def seq_fit(X):
+        return fit(X, method, psi=psi, backend=backend, config=config, device=dev,
+                   **method_kw)
+
+    if class_batch == "off" or entry.name != "oavi" or len(Xs) < 2:
+        return [seq_fit(X) for X in Xs]
+    cfg = config if config is not None else oavi_config_for(variant or "fast", psi,
+                                                            **dict(method_kw))
+    if not oavi_mod.class_batchable(cfg):
+        return [seq_fit(X) for X in Xs]  # the Cholesky engine: sequential
+    if backend == "sharded":
+        raise NotImplementedError(_TODO["sharded"])
+    if backend not in ("auto", "local"):
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
+        )
+
+    models: List[Optional[VanishingIdealModel]] = [None] * len(Xs)
+    sizes = [X.shape[0] for X in Xs]
+    for cap, idxs in class_batch_mod.plan_class_groups(sizes):
+        fitted = class_batch_mod.fit_classes([Xs[i] for i in idxs], cfg, m_cap=cap,
+                                             device=dev)
+        mc = int(fitted[0].stats["class_batch"]["m_cap"])
+        group_rows = sum(sizes[i] for i in idxs)
+        group_padded = mc * len(idxs) - group_rows
+        for i, model in zip(idxs, fitted):
+            model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
+                                  "device": str(dev), "class_batch": True}
+            model.stats["class_batch_padding"] = {
+                "m_cap": mc,
+                "rows": int(sizes[i]),
+                "padded_rows": mc - int(sizes[i]),
+                "group_rows": int(group_rows),
+                "group_padded_rows": int(group_padded),
+                # fraction of the group's rows that are padding
+                "waste": group_padded / float(mc * len(idxs)),
+            }
+            models[i] = model
+    return models
+
+
+_GROUP_SHARED = ("regrowths", "solver_escalations")
 
 
 def aggregate_fit_stats(models: Sequence) -> Dict:
-    """Classifier-level fit counters over sequentially fitted per-class
-    models: regrowths and kernel launches summed over the classes."""
-    regrowths = 0
+    """Classifier-level fit counters over per-class models.
+
+    Class-batched models of one group share one degree loop: their
+    ``regrowths``, ``solver_escalations`` and ``kernel_launches`` are the
+    group's, so they are counted once per group (the reference's dedup),
+    and each sequentially fitted model's once.  ``solver_schedule_len`` is
+    the longest schedule any group ran; ``class_batch_padding`` totals the
+    groups' dispatched and padded rows.  The reference's ``recompiles`` (jit
+    traces) and its metric-registry mirror have no counterpart here."""
+    totals = dict.fromkeys(_GROUP_SHARED, 0)
     launches: Dict[str, int] = {}
+    schedule_len: Optional[int] = None
+    batched = 0
+    groups = set()
+    pad_groups = set()
+    dispatched_rows = padded_rows = 0
     for model in models:
         stats = getattr(model, "stats", None) or {}
-        regrowths += int(stats.get("regrowths", 0))
+        sched = stats.get("solver_schedule_len")
+        if sched is not None:
+            schedule_len = max(int(sched), schedule_len or 0)
+        padding = stats.get("class_batch_padding")
+        if padding is not None:
+            # group totals are replicated on every member; count each once
+            pad_key = (padding["m_cap"], padding["group_rows"], padding["group_padded_rows"])
+            if pad_key not in pad_groups:
+                pad_groups.add(pad_key)
+                dispatched_rows += int(padding["group_rows"]) + int(padding["group_padded_rows"])
+                padded_rows += int(padding["group_padded_rows"])
+        group = stats.get("class_batch")
+        if group is not None:
+            batched += 1
+            if group["group"] in groups:
+                continue
+            groups.add(group["group"])
+        for key in _GROUP_SHARED:
+            totals[key] += int(stats.get(key, 0))
         for k, v in stats.get("kernel_launches", {}).items():
             launches[k] = launches.get(k, 0) + int(v)
-    return {"regrowths": regrowths, "kernel_launches": launches}
+    out: Dict = {
+        **totals,
+        "kernel_launches": launches,
+        "class_batched": batched,
+        "class_batch_groups": len(groups),
+        "solver_schedule_len": schedule_len,
+    }
+    if dispatched_rows:
+        out["class_batch_padding"] = {
+            "dispatched_rows": dispatched_rows,
+            "padded_rows": padded_rows,
+            "waste": padded_rows / float(dispatched_rows),
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------

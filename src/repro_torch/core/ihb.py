@@ -19,6 +19,13 @@ Every update takes ``ell``, ``btb`` and an optional ``active`` flag as device
 tensors, so a candidate loop runs without a host sync per candidate.  The fast
 engine's own candidate loop runs through ``ops.ihb_degree`` instead
 (:func:`repro_torch.core.oavi.stats_step`), one launch per degree on the card.
+
+A class axis (the class-batched fit, :mod:`repro_torch.core.class_batch`):
+every factor may carry a leading axis of k classes, ``(k, L, L)``, with
+``q (k, L)`` and ``btb``/``ell``/``active (k,)``.  Each class's slice is
+updated exactly as the one-class state would be (the same elementwise
+operations, and ``ops.ihb_update_batched_``: one launch for every class on
+the card), and an inactive class's slice is left bit for bit as it was.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from ..kernels import ops as kernel_ops
 
 
 class IHBState(NamedTuple):
-    """Per-factor state; a factor the engine does not need is ``None``."""
+    """Per-factor state; a factor the engine does not need is ``None``.
+    Each factor is ``(L, L)``, or ``(k, L, L)`` with a class axis."""
 
     AtA: Optional[torch.Tensor]  # (L, L) Gram of active columns (zeros elsewhere)
     N: Optional[torch.Tensor]  # (L, L) inverse of (AtA_active ⊕ I_inactive)
@@ -64,20 +72,22 @@ def factors_for(
 
 def init_state(Lcap: int, diag0: float, dtype=torch.float32,
                factors: Tuple[str, ...] = FACTORS_ALL,
-               device=None) -> IHBState:
+               device=None, classes: Optional[int] = None) -> IHBState:
     """State after the constant-1 column: ``AtA[0, 0] = ||1||^2`` (= 1 in the
-    normalized Gram convention)."""
+    normalized Gram convention).  ``classes=k`` gives every factor a leading
+    axis of k identical classes."""
     diag0 = float(diag0)
+    lead = () if classes is None else (int(classes),)
     AtA = N = R = None
     if "ata" in factors:
-        AtA = torch.zeros((Lcap, Lcap), dtype=dtype, device=device)
-        AtA[0, 0] = diag0
+        AtA = torch.zeros(lead + (Lcap, Lcap), dtype=dtype, device=device)
+        AtA[..., 0, 0] = diag0
     if "n" in factors:
-        N = torch.eye(Lcap, dtype=dtype, device=device)
-        N[0, 0] = 1.0 / diag0
+        N = torch.eye(Lcap, dtype=dtype, device=device).repeat(lead + (1, 1))
+        N[..., 0, 0] = 1.0 / diag0
     if "r" in factors:
-        R = torch.eye(Lcap, dtype=dtype, device=device)
-        R[0, 0] = diag0 ** 0.5
+        R = torch.eye(Lcap, dtype=dtype, device=device).repeat(lead + (1, 1))
+        R[..., 0, 0] = diag0 ** 0.5
     return IHBState(AtA=AtA, N=N, R=R)
 
 
@@ -89,11 +99,12 @@ def grow_state(state: IHBState, new_L: int) -> IHBState:
         if M is None:
             return None
         L = M.shape[-1]
+        lead = tuple(M.shape[:-2])
         if identity:
-            base = torch.eye(new_L, dtype=M.dtype, device=M.device)
+            base = torch.eye(new_L, dtype=M.dtype, device=M.device).repeat(lead + (1, 1))
         else:
-            base = torch.zeros((new_L, new_L), dtype=M.dtype, device=M.device)
-        base[:L, :L] = M
+            base = torch.zeros(lead + (new_L, new_L), dtype=M.dtype, device=M.device)
+        base[..., :L, :L] = M
         return base
 
     return IHBState(
@@ -104,8 +115,12 @@ def grow_state(state: IHBState, new_L: int) -> IHBState:
 
 
 def closed_form_inverse(state: IHBState, q: torch.Tensor) -> torch.Tensor:
-    """``y* = -N q`` (the paper's IHB optimum).  ``q = A^T b`` padded."""
-    return -(state.N @ q)
+    """``y* = -N q`` (the paper's IHB optimum).  ``q = A^T b`` padded; with a
+    class axis each class's product is its own ``mv`` (a batched product
+    need not give each slice's bits)."""
+    if q.dim() == 1:
+        return -(state.N @ q)
+    return -torch.stack([state.N[c] @ q[c] for c in range(q.shape[0])])
 
 
 def closed_form_cholesky(state: IHBState, q: torch.Tensor) -> torch.Tensor:
@@ -126,32 +141,42 @@ def append_column(
     Only the factors present in ``state`` are updated (``None`` stays
     ``None``).  With ``active`` false every factor comes back unchanged.
     ``N`` is updated in place (the returned state holds the same tensor);
-    ``AtA`` and ``R`` are new tensors.
+    ``AtA`` and ``R`` are new tensors.  With a class axis (``q (k, L)``;
+    ``btb``, ``ell`` and ``active`` of shape ``(k,)``) each class is updated
+    as alone; ``R`` (the Cholesky engine) has none.
     """
-    ell_t = torch.as_tensor(ell, dtype=torch.int32, device=q.device).reshape(())
+    lead = tuple(q.shape[:-1])
+    ell_t = torch.as_tensor(ell, dtype=torch.int32, device=q.device).reshape(lead)
     if state.AtA is not None or state.R is not None:
-        onehot = (torch.arange(q.shape[0], device=q.device) == ell_t).to(q.dtype)
+        onehot = (torch.arange(q.shape[-1], device=q.device)
+                  == ell_t.unsqueeze(-1)).to(q.dtype)
         keep = 1.0 - onehot
 
     def gate(new, old):
-        return new if active is None else torch.where(active, new, old)
+        if active is None:
+            return new
+        return torch.where(active.reshape(active.shape + (1, 1)), new, old)
 
     AtA = N = R = None
 
     if state.AtA is not None:
-        # add row/col ell = (q, btb)
+        # add row/col ell = (q, btb); the outer products are elementwise
+        btb_t = torch.as_tensor(btb, dtype=q.dtype, device=q.device)
         AtA = gate(
             state.AtA
-            + torch.outer(onehot, q)
-            + torch.outer(q, onehot)
-            + btb * torch.outer(onehot, onehot),
+            + onehot.unsqueeze(-1) * q.unsqueeze(-2)
+            + q.unsqueeze(-1) * onehot.unsqueeze(-2)
+            + btb_t.reshape(btb_t.shape + (1, 1)) * (onehot.unsqueeze(-1) * onehot.unsqueeze(-2)),
             state.AtA,
         )
 
     if state.N is not None:
         # inverse update (Thm 4.9), in place: the CUDA kernel on the card,
         # its plain version on the CPU
-        N = kernel_ops.ihb_update_(state.N, q, btb, ell_t, active=active)
+        if lead:
+            N = kernel_ops.ihb_update_batched_(state.N, q, btb, ell_t, active=active)
+        else:
+            N = kernel_ops.ihb_update_(state.N, q, btb, ell_t, active=active)
 
     if state.R is not None:
         # Cholesky append: R^T r = q ; rho = sqrt(btb - r^T r)

@@ -37,6 +37,7 @@ op never copies them to pad.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -365,7 +366,7 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
         out = kernel_ops.ihb_degree(QL.T.contiguous(), C, state.N, ell0, cfg.psi, K)
         iters = np.zeros((K,), np.int32)
     else:
-        *out, iters, state = _candidate_loop(cfg, QL, C, state, ell0, K)
+        *out, iters, state, _ = _candidate_loop(cfg, QL, C, state, ell0, K)
         iters = iters.cpu().numpy()
     accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
     return DegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots,
@@ -373,7 +374,7 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
 
 
 def _candidate_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
-                    ell0: int, K: int):
+                    ell0, K: int, *, valid=None, schedule: Optional[int] = None):
     """The candidate loop of :func:`stats_step` in eager ops, the reference's
     ``body`` candidate by candidate:
 
@@ -393,42 +394,63 @@ def _candidate_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
     :data:`oracles.WHILE_CHUNK`-step chunk), and WIHB reads the verdict, so
     the oracle engine syncs at least once per candidate; the fast engine's
     loop never syncs.  Returns ``(accepted, mses, coeffs, slots, iters,
-    state)``.
+    state, unconverged)``.
+
+    With a class axis (the class-batched fit) ``QL (k, Lcap, Kcap)``, ``C``,
+    the state and ``ell0 (k,)`` carry k classes, ``valid (k, Kcap)`` marks
+    each class's real candidates and ``K`` is the most any class has.  Every
+    class runs exactly the operations it runs alone (elementwise ones on all
+    classes at once, reductions class by class; see
+    :mod:`repro_torch.core.oracles`), an invalid candidate is a bitwise no-op
+    for its class, the (INF) guard trips only on valid ones (the reference's
+    ``ihb_live & (feasible | ~valid[a])``), and the WIHB re-solve is
+    select-based.  ``schedule`` runs the solvers on that fixed budget
+    (:func:`oracles._run_scheduled`); ``unconverged (k,)`` then says which
+    classes had a valid solve cut short by it.
     """
     dtype = cfg.torch_dtype()
     dev = QL.device
-    Lcap, Kcap = QL.shape
+    lead = tuple(QL.shape[:-2])
+    Lcap, Kcap = QL.shape[-2:]
     engine_oracle = cfg.engine == "oracle"
     need_closed_form = (not engine_oracle) or cfg.ihb
     use_chol = cfg.inverse_engine == "chol"
-    solver = oracles.SOLVERS[cfg.solver.name]
+    if schedule is None:
+        solver = oracles.SOLVERS[cfg.solver.name]
+        wihb_solver = oracles.solve_bpcg
+    else:
+        solver = functools.partial(oracles.SCHEDULED_SOLVERS[cfg.solver.name],
+                                   schedule=schedule)
+        wihb_solver = functools.partial(oracles.solve_bpcg_scheduled, schedule=schedule)
     psi = torch.tensor(cfg.psi, dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)  # m: the Gram is normalized
     radius = cfg.solver.tau - 1.0
     # one trash row at index Lcap absorbs the scatter of candidates that were
     # not appended, so the scatter below needs no host-side mask
-    QLx = torch.cat([QL, QL.new_zeros((1, Kcap))], dim=0)
+    QLx = torch.cat([QL, QL.new_zeros(lead + (1, Kcap))], dim=-2)
     ar = torch.arange(Lcap, device=dev)
-    ell = torch.tensor(ell0, dtype=torch.int32, device=dev)
-    ihb_live = torch.ones((), dtype=torch.bool, device=dev)
-    slots = torch.full((K,), Lcap, dtype=torch.long, device=dev)
-    accepted = torch.zeros((K,), dtype=torch.bool, device=dev)
-    coeffs = torch.zeros((K, Lcap), dtype=dtype, device=dev)
-    mses = torch.zeros((K,), dtype=dtype, device=dev)
-    iters = torch.zeros((K,), dtype=torch.int32, device=dev)
+    ell = torch.as_tensor(ell0, dtype=torch.int32, device=dev).reshape(lead)
+    ihb_live = torch.ones(lead, dtype=torch.bool, device=dev)
+    slots = torch.full(lead + (K,), Lcap, dtype=torch.long, device=dev)
+    accepted = torch.zeros(lead + (K,), dtype=torch.bool, device=dev)
+    coeffs = torch.zeros(lead + (K, Lcap), dtype=dtype, device=dev)
+    mses = torch.zeros(lead + (K,), dtype=dtype, device=dev)
+    iters = torch.zeros(lead + (K,), dtype=torch.int32, device=dev)
+    unconverged = torch.zeros(lead, dtype=torch.bool, device=dev)
     no_slot = torch.tensor(Lcap, dtype=torch.long, device=dev)
-    no_iters = torch.zeros((), dtype=torch.int32, device=dev)
+    no_iters = torch.zeros(lead, dtype=torch.int32, device=dev)
 
     for a in range(K):
-        q = QLx[:, a].clone()
+        q = QLx[..., a].clone()
         if a > 0:
             # correction for the columns appended earlier in this degree; the
             # slots are distinct, so the scatter is deterministic
-            before = slots[:a]
-            q.index_put_((before,), q[before] + C[:a, a])
-        q = q[:Lcap]
-        btb = C[a, a]
-        mask = ar < ell
+            before = slots[..., :a]
+            q.scatter_(-1, before, q.gather(-1, before) + C[..., :a, a])
+        q = q[..., :Lcap]
+        btb = C[..., a, a]
+        mask = ar < ell.unsqueeze(-1)
+        live = None if valid is None else valid[..., a]
         if need_closed_form:
             if use_chol:
                 y0 = ihb_mod.closed_form_cholesky(state, q)
@@ -437,37 +459,46 @@ def _candidate_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
             y0 = torch.where(mask, y0, 0.0)
         if not engine_oracle:
             # sum(q * y0), the reduction the reference uses
-            y, mse, it = y0, btb + torch.sum(q * y0), no_iters
+            y, mse, it = y0, btb + oracles.vdot(q, y0), no_iters
         else:
             if cfg.ihb:
-                # (INF) guard; only valid candidates are visited here
-                feasible = torch.sum(torch.abs(y0)) <= radius
-                warm = torch.where(ihb_live & feasible, y0, 0.0)
-                ihb_live = ihb_live & feasible
+                # (INF) guard; only valid candidates may trip it
+                feasible = oracles.sum_last(torch.abs(y0)) <= radius
+                warm = torch.where((ihb_live & feasible).unsqueeze(-1), y0, 0.0)
+                ihb_live = ihb_live & (feasible if live is None else feasible | ~live)
             else:
                 warm = None
-            res = solver(state.AtA, q, btb, one, mask, psi, cfg.solver, warm)
+            res = solver(state.AtA, q, btb, one, mask, psi, cfg.solver, warm, lanes=live)
             y, mse, it = res.y, res.f, res.iters
-        accept = mse <= psi
+            if schedule is not None:
+                unconverged = unconverged | (live & ~res.converged)
+        accept = mse <= psi if live is None else (mse <= psi) & live
         if cfg.wihb:
-            oracles.host_reads += 1
-            if bool(accept):
-                # re-solve the accepted generator sparsely from a cold start
-                res = oracles.solve_bpcg(state.AtA, q, btb, one, mask, psi, cfg.solver)
-                ok = res.f <= psi
-                y = torch.where(ok, res.y, y)
-                mse = torch.where(ok, res.f, mse)
-                it = it + res.iters
+            # re-solve an accepted generator sparsely from a cold start
+            if live is None:
+                oracles.host_reads += 1
+                run = bool(accept)
+            else:
+                run = True  # select-based: every class, solving where accepted
+            if run:
+                res = wihb_solver(state.AtA, q, btb, one, mask, psi, cfg.solver, None,
+                                  lanes=None if live is None else accept)
+                take = res.f <= psi if live is None else accept & (res.f <= psi)
+                y = torch.where(take.unsqueeze(-1), res.y, y)
+                mse = torch.where(take, res.f, mse)
+                it = it + (res.iters if live is None else torch.where(accept, res.iters, 0))
+                if schedule is not None:
+                    unconverged = unconverged | (accept & ~res.converged)
         # on reject: append the column to O (slot = ell) and update the factors
-        do_append = ~accept
+        do_append = ~accept if live is None else ~accept & live
         state = ihb_mod.append_column(state, q, btb, ell, active=do_append)
-        slots[a] = torch.where(do_append, ell.long(), no_slot)
+        slots[..., a] = torch.where(do_append, ell.long(), no_slot)
         ell = ell + do_append.to(torch.int32)
-        accepted[a] = accept
-        coeffs[a] = torch.where(accept, y, 0.0)
-        mses[a] = mse
-        iters[a] = it
-    return accepted, mses, coeffs, slots, iters, state
+        accepted[..., a] = accept
+        coeffs[..., a, :] = torch.where(accept.unsqueeze(-1), y, 0.0)
+        mses[..., a] = mse
+        iters[..., a] = it
+    return accepted, mses, coeffs, slots, iters, state, unconverged
 
 
 def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,
@@ -491,6 +522,72 @@ def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,
         cols = A[:, p_t[sel]] * X[:, v_t[sel]]
         A.index_copy_(1, torch.as_tensor(res.slots[idx], device=dev), cols)
     return res, state
+
+
+class BatchedDegreeResult(NamedTuple):
+    """Host copies of one class-batched degree's decisions: :class:`
+    DegreeResult`'s fields with a leading class axis (``(k, Kmax)``,
+    ``(k, Kmax, Lcap)``), and the classes whose fixed-schedule solve was cut
+    short (all False off the scheduled path)."""
+
+    accepted: np.ndarray
+    mses: np.ndarray
+    coeffs: np.ndarray
+    slots: np.ndarray
+    iters: np.ndarray
+    unconverged: np.ndarray  # (k,) bool
+
+
+def stats_step_batched(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
+                       ells, Ks, m_totals, valid, schedule: Optional[int] = None):
+    """:func:`stats_step` for k classes at once (the reference's vmapped
+    ``_make_stats_degree_step``): ``QL_raw (k, Lcap, Kcap)``, ``C_raw (k,
+    Kcap, Kcap)`` and the state carry a class axis; class ``c`` starts from
+    ``ells[c]`` columns, has ``Ks[c]`` candidates (0 when it is done) and
+    ``m_totals[c]`` rows, and ``valid (k, Kcap)`` marks its candidates on
+    the device.
+
+    The fast engine without WIHB runs ``ops.ihb_degree_batched`` (one launch
+    for every class on the card, the per-class plain loop on the CPU); every
+    other configuration runs :func:`_candidate_loop` with the class axis,
+    its solvers on the fixed ``schedule`` where one is given.  Each class
+    gets the bits of its own :func:`stats_step`.  ``N`` is updated in place;
+    a caller that may re-run the degree (schedule escalation) passes a copy.
+    Returns ``(BatchedDegreeResult, new IHB state)``.
+    """
+    dtype = cfg.torch_dtype()
+    np_dtype = np.dtype(cfg.dtype)
+    dev = QL_raw.device
+    k = QL_raw.shape[0]
+    # 1/m rounded in the working dtype per class, as the one-class step does
+    inv_m = torch.tensor(np.asarray([np_dtype.type(1.0) / np_dtype.type(m) for m in m_totals],
+                                    np_dtype), dtype=dtype, device=dev)[:, None, None]
+    QL = (QL_raw * inv_m).to(dtype)
+    C = (C_raw * inv_m).to(dtype)
+    Kmax = max(int(x) for x in Ks)
+    if cfg.engine == "fast" and not cfg.wihb:
+        out = kernel_ops.ihb_degree_batched(QL.transpose(-1, -2).contiguous(), C, state.N,
+                                            ells, cfg.psi, Ks)
+        iters = np.zeros((k, Kmax), np.int32)
+        unconverged = np.zeros((k,), bool)
+    else:
+        ell0 = torch.tensor([int(e) for e in ells], dtype=torch.int32, device=dev)
+        *out, iters, state, unconverged = _candidate_loop(
+            cfg, QL, C, state, ell0, Kmax, valid=valid, schedule=schedule)
+        iters, unconverged = iters.cpu().numpy(), unconverged.cpu().numpy()
+    accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
+    return BatchedDegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots,
+                               iters=iters, unconverged=unconverged), state
+
+
+def class_batchable(config: OAVIConfig) -> bool:
+    """Whether a config may take the class-batched fit
+    (:mod:`repro_torch.core.class_batch`), as in the reference: every engine
+    with the Theorem 4.9 inverse (``fast``, ``fast`` with WIHB, and the
+    convex oracles on their fixed-schedule solvers).  The Cholesky engine is
+    not: the reference's batched triangular solves are not bit-stable, and
+    the port keeps its rule."""
+    return config.inverse_engine == "inverse"
 
 
 def pow2_bucket(x: int) -> int:
@@ -530,13 +627,29 @@ def collect_degree(book, border, accepted, mses, coeffs, generators) -> int:
     return len(book)
 
 
-def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
-    """Run OAVI on ``X`` (m, n) in [0,1]^n.  ``device=None`` means the CUDA
-    card (and raises without one); pass ``device="cpu"`` for the CPU."""
+def check_config(config: OAVIConfig) -> None:
+    """Raise on an engine, solver or ordering the fit does not know."""
     if config.engine not in ("fast", "oracle"):
         raise ValueError(f"unknown engine {config.engine!r}; expected 'fast' or 'oracle'")
     if config.solver.name not in oracles.SOLVERS:
         raise ValueError(f"unknown solver {config.solver.name!r}")
+    if config.ordering not in ("pearson", "reverse_pearson", "none"):
+        raise ValueError(f"unknown ordering {config.ordering!r}")
+
+
+def order_features(X: np.ndarray, ordering: str):
+    """``(X with its columns in Pearson order, the permutation)``; ``(X,
+    None)`` for ``ordering='none'``."""
+    if ordering == "none":
+        return X, None
+    perm = pearson_order(X, reverse=(ordering == "reverse_pearson"))
+    return X[:, perm], perm
+
+
+def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
+    """Run OAVI on ``X`` (m, n) in [0,1]^n.  ``device=None`` means the CUDA
+    card (and raises without one); pass ``device="cpu"`` for the CPU."""
+    check_config(config)
     dev = _device.resolve(device)
     dtype = config.torch_dtype()
     t_start = time.perf_counter()
@@ -547,12 +660,7 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
     stats: Dict = {"border_sizes": [], "degrees": [], "degree_times": [],
                    "solver_iters": [], "regrowths": 0, "m": m, "n": n}
 
-    perm = None
-    if config.ordering in ("pearson", "reverse_pearson"):
-        perm = pearson_order(X, reverse=(config.ordering == "reverse_pearson"))
-        X = X[:, perm]
-    elif config.ordering != "none":
-        raise ValueError(f"unknown ordering {config.ordering!r}")
+    X, perm = order_features(X, config.ordering)
 
     # rows padded once to the Gram block with zeros (bitwise no-ops)
     m_pad = kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK)

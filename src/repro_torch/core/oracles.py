@@ -32,8 +32,18 @@ Each solver is one ``cond``/``body``/``finish`` triple built by its
 
 Vector reductions use :func:`vdot` (elementwise product + sum), the
 reduction the reference uses.  Indices chosen on the device (``argmax``)
-stay there: values are read with ``index_select`` and written with
-``index_add`` / ``index_copy``, never through a host integer.
+stay there: values are read with ``gather`` and written with
+``scatter_add`` / ``scatter``, never through a host integer.
+
+A class axis (the class-batched fit): every argument may carry a leading
+axis of k classes (``Q (k, L, L)``, ``q``/``mask``/``y0 (k, L)``, ``btb
+(k,)``), and ``lanes (k,)`` bool says which classes solve; the others keep
+their entry state (a class that is done or has no candidate here is a
+bitwise no-op).  Elementwise steps, ``argmax``, gathers and scatters run on
+all classes at once; each reduction (:func:`vdot`, :func:`mv`) runs class by
+class, so every class gets the bits of its own one-class solve whatever k
+is.  The scheduled runner then also reads, once per :data:`WHILE_CHUNK`
+steps, whether any class still runs, and stops there when none does.
 """
 
 from __future__ import annotations
@@ -96,36 +106,61 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor
 
 
+def sum_last(x):
+    """Sum over the last axis.  With a leading class axis each class's row
+    is summed by its own call: a reduction over a batched tensor need not
+    give each row the bits of the row alone (on the card its launch shape
+    depends on the number of rows)."""
+    if x.dim() == 1:
+        return torch.sum(x)
+    return torch.stack([torch.sum(x[c]) for c in range(x.shape[0])])
+
+
 def vdot(a, b):
-    """Vector dot as elementwise product + sum, the reference's reduction."""
-    return torch.sum(a * b)
+    """Vector dot as elementwise product + sum, the reference's reduction
+    (one per class with a class axis)."""
+    return sum_last(a * b)
+
+
+def mv(Q, y):
+    """``Q @ y``; with a class axis (``Q (k, L, L)``, ``y (k, L)``) each
+    class's product is its own ``mv``, for the reason of :func:`_sum`."""
+    if y.dim() == 1:
+        return Q @ y
+    return torch.stack([Q[c] @ y[c] for c in range(y.shape[0])])
+
+
+def _lane(x):
+    """A per-class scalar (shape ``(k,)``, or ``()`` alone) against per-class
+    vectors (``(k, L)``)."""
+    return x.unsqueeze(-1)
 
 
 def quad_f(Q, q, btb, inv_m, y):
-    return (vdot(y, Q @ y) + 2.0 * vdot(q, y) + btb) * inv_m
+    return (vdot(y, mv(Q, y)) + 2.0 * vdot(q, y) + btb) * inv_m
 
 
 def quad_grad(Q, q, inv_m, y):
-    return 2.0 * inv_m * (Q @ y + q)
+    return 2.0 * inv_m * (mv(Q, y) + q)
 
 
 def _line_search_quad(Q, inv_m, grad, d, gamma_max):
     """Exact line search for the quadratic along ``d``, clipped to
     ``[0, gamma_max]``: f(y + g d) - f(y) = g <grad, d> + g^2 d^T Q d / m."""
-    dQd = vdot(d, Q @ d) * inv_m
+    dQd = vdot(d, mv(Q, d)) * inv_m
     num = -vdot(grad, d)
     gamma = torch.where(dQd > 0, num / torch.clamp(2.0 * dQd, min=1e-30), gamma_max)
     return torch.minimum(torch.clamp(gamma, min=0.0), gamma_max)
 
 
 def _at(v, i):
-    """``v[i]`` for a device index ``i``, without a host read."""
-    return v.index_select(0, i.reshape(1)).reshape(())
+    """``v[i]`` for a device index ``i`` (one per class), without a host read."""
+    return v.gather(-1, i.unsqueeze(-1)).squeeze(-1)
 
 
 def _add_at(v, i, x):
     """``v.at[i].add(x)`` out of place, for a device index ``i``."""
-    return v.index_add(0, i.reshape(1), x.reshape(1))
+    return v.scatter_add(-1, i.unsqueeze(-1), x.unsqueeze(-1))
 
 
 def _scalar(x, dtype, device):
@@ -147,26 +182,50 @@ def _inv_m(m, dtype, device):
 
 
 def _select(active, new, old):
-    return type(old)(*(torch.where(active, n, o) for n, o in zip(new, old)))
+    def pick(n, o):
+        return torch.where(active.reshape(active.shape + (1,) * (o.dim() - active.dim())), n, o)
+
+    return type(old)(*(pick(n, o) for n, o in zip(new, old)))
 
 
-def _run_while(state0, cond, body, finish, chunk: int = WHILE_CHUNK) -> SolveResult:
+def _running(cond, state, lanes):
+    c = cond(state)
+    return c if lanes is None else c & lanes
+
+
+def _any(c) -> bool:
     global host_reads
+    host_reads += 1
+    return bool(c.any() if c.dim() else c)
+
+
+def _run_while(state0, cond, body, finish, chunk: int = WHILE_CHUNK,
+               lanes=None) -> SolveResult:
+    """The while runner; with a class axis it runs until no class's ``cond``
+    holds, and ``lanes`` (bool per class) keeps the others' state as it is."""
     state = state0
-    while True:
-        host_reads += 1
-        if not bool(cond(state)):  # one host read per chunk
-            break
+    while _any(_running(cond, state, lanes)):  # one host read per chunk
         for _ in range(chunk):
-            state = _select(cond(state), body(state), state)
+            state = _select(_running(cond, state, lanes), body(state), state)
     return finish(state)
 
 
-def _run_scheduled(state0, cond, body, finish, schedule: int) -> SolveResult:
+def _run_scheduled(state0, cond, body, finish, schedule: int,
+                   lanes=None) -> SolveResult:
+    """At most ``schedule`` masked steps; ``converged`` says, per class,
+    whether ``cond`` was false at the end (a class outside ``lanes`` counts as
+    converged and keeps its state).  With a class axis the steps run in
+    chunks of :data:`WHILE_CHUNK` and stop at the first chunk boundary where
+    no class runs: the steps left would be masked no-ops, so the result is
+    the full budget's bit for bit."""
     state = state0
-    for _ in range(int(schedule)):
-        state = _select(cond(state), body(state), state)
-    return finish(state)._replace(converged=torch.logical_not(cond(state)))
+    batched = state0.k.dim() > 0
+    for s in range(int(schedule)):
+        if batched and s % WHILE_CHUNK == 0 and not _any(_running(cond, state, lanes)):
+            break
+        state = _select(_running(cond, state, lanes), body(state), state)
+    return finish(state)._replace(
+        converged=torch.logical_not(_running(cond, state, lanes)))
 
 
 # --------------------------------------------------------------------------
@@ -177,12 +236,12 @@ def _run_scheduled(state0, cond, body, finish, schedule: int) -> SolveResult:
 def _estimate_lmax(Q, mask, iters: int):
     """Power iteration on the masked Gram matrix."""
     v = torch.where(mask, 1.0, 0.0).to(Q.dtype)
-    v = v / torch.clamp(torch.sqrt(vdot(v, v)), min=1e-30)
+    v = v / _lane(torch.clamp(torch.sqrt(vdot(v, v)), min=1e-30))
     for _ in range(iters):
-        w = Q @ v
+        w = mv(Q, v)
         nrm = torch.sqrt(vdot(w, w))
-        v = torch.where(nrm > 0, w / torch.clamp(nrm, min=1e-30), v)
-    return torch.clamp(vdot(v, Q @ v), min=1e-30)
+        v = torch.where(_lane(nrm > 0), w / _lane(torch.clamp(nrm, min=1e-30)), v)
+    return torch.clamp(vdot(v, mv(Q, v)), min=1e-30)
 
 
 class _AGDState(NamedTuple):
@@ -195,10 +254,11 @@ class _AGDState(NamedTuple):
 
 def _agd_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
     dtype, dev = Q.dtype, Q.device
+    lead = tuple(q.shape[:-1])
     inv_m = _inv_m(m, dtype, dev)
     maskf = mask.to(dtype)
     if y0 is None:
-        y0 = torch.zeros(Q.shape[0], dtype=dtype, device=dev)
+        y0 = torch.zeros(q.shape, dtype=dtype, device=dev)
     y0 = y0 * maskf
     lmax = _estimate_lmax(Q, mask, cfg.power_iters)
     step = 1.0 / (2.0 * lmax * inv_m)  # 1/L_smooth with L = 2 lmax / m
@@ -209,18 +269,19 @@ def _agd_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
 
     def body(s: _AGDState) -> _AGDState:
         g = quad_grad(Q, q, inv_m, s.z) * maskf
-        y_new = s.z - step * g
+        y_new = s.z - _lane(step) * g
         t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * s.t * s.t))
-        z_new = y_new + ((s.t - 1.0) / t_new) * (y_new - s.y)
+        z_new = y_new + _lane((s.t - 1.0) / t_new) * (y_new - s.y)
         return _AGDState(y_new, z_new * maskf, t_new, s.k + 1, vdot(g, g))
 
     def finish(s: _AGDState) -> SolveResult:
         f = quad_f(Q, q, btb, inv_m, s.y)
-        return SolveResult(s.y, f, s.gnorm2, s.k, torch.ones((), dtype=torch.bool, device=dev))
+        return SolveResult(s.y, f, s.gnorm2, s.k,
+                           torch.ones(lead, dtype=torch.bool, device=dev))
 
     g0 = quad_grad(Q, q, inv_m, y0) * maskf
-    state0 = _AGDState(y0, y0, torch.ones((), dtype=dtype, device=dev),
-                       torch.zeros((), dtype=torch.int32, device=dev), vdot(g0, g0))
+    state0 = _AGDState(y0, y0, torch.ones(lead, dtype=dtype, device=dev),
+                       torch.zeros(lead, dtype=torch.int32, device=dev), vdot(g0, g0))
     return state0, cond, body, finish
 
 
@@ -233,7 +294,7 @@ def _fw_vertex(grad, mask, r):
     """Global LMO over the l1 ball: vertex -r*sign(grad_i*) e_{i*}.  Ties go
     to the first index, as ``jnp.argmax``; sign 0 counts as +1."""
     score = torch.where(mask, torch.abs(grad), NEG_INF)
-    i = torch.argmax(score)
+    i = torch.argmax(score, dim=-1)
     s = -torch.sign(_at(grad, i))
     s = torch.where(s == 0, 1.0, s)
     return i, s * r  # index, signed coordinate value
@@ -249,9 +310,9 @@ def _decompose_point(y, r, mask):
     maskf = mask.to(y.dtype)
     wp = torch.clamp(y, min=0.0) / r * maskf
     wm = torch.clamp(-y, min=0.0) / r * maskf
-    leftover = torch.clamp(1.0 - torch.sum(wp + wm), min=0.0)
-    wp[0] += 0.5 * leftover
-    wm[0] += 0.5 * leftover
+    leftover = torch.clamp(1.0 - sum_last(wp + wm), min=0.0)
+    wp[..., 0] += 0.5 * leftover
+    wm[..., 0] += 0.5 * leftover
     return wp, wm
 
 
@@ -276,38 +337,38 @@ def _fw_state0(Q, q, btb, inv_m, y0, wp0, wm0, mask, r):
     """Entry state carrying the true FW gap at ``y0`` (one gradient and one
     LMO), so the Section 6.1 certificates can fire before any step."""
     maskf = mask.to(Q.dtype)
-    Qy = Q @ y0  # shared between f0 and the gradient
+    Qy = mv(Q, y0)  # shared between f0 and the gradient
     f0 = (vdot(y0, Qy) + 2.0 * vdot(q, y0) + btb) * inv_m
     grad = (2.0 * inv_m) * (Qy + q) * maskf
     i, val = _fw_vertex(grad, mask, r)
     # <grad, w - y0> with w = val * e_i, without materializing w
     gap0 = vdot(grad, y0) - _at(grad, i) * val
     return _FWState(y0, wp0, wm0, f0, gap0,
-                    torch.zeros((), dtype=torch.int32, device=Q.device))
+                    torch.zeros(q.shape[:-1], dtype=torch.int32, device=Q.device))
 
 
 def _fw_finish(s: _FWState) -> SolveResult:
     return SolveResult(s.y, s.f, s.gap, s.k,
-                       torch.ones((), dtype=torch.bool, device=s.y.device))
+                       torch.ones(s.k.shape, dtype=torch.bool, device=s.y.device))
 
 
-def _fw_setup(Q, m, mask, cfg: OracleConfig, y0):
+def _fw_setup(Q, q, m, mask, cfg: OracleConfig, y0):
     dtype, dev = Q.dtype, Q.device
     inv_m = _inv_m(m, dtype, dev)
     r = _scalar(cfg.tau - 1.0, dtype, dev)
     maskf = mask.to(dtype)
     if y0 is None:
-        y0 = torch.zeros(Q.shape[0], dtype=dtype, device=dev)
+        y0 = torch.zeros(q.shape, dtype=dtype, device=dev)
     return inv_m, r, maskf, y0 * maskf
 
 
 def _signed_unit(i, sign_plus, r, zero):
-    return zero.index_copy(0, i.reshape(1), torch.where(sign_plus, r, -r).reshape(1))
+    return zero.scatter(-1, i.unsqueeze(-1), torch.where(sign_plus, r, -r).unsqueeze(-1))
 
 
 def _cg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
     """Vanilla Frank-Wolfe (CG) with exact line search."""
-    inv_m, r, maskf, y0 = _fw_setup(Q, m, mask, cfg, y0)
+    inv_m, r, maskf, y0 = _fw_setup(Q, q, m, mask, cfg, y0)
     one = _scalar(1.0, Q.dtype, Q.device)
     zero = torch.zeros_like(y0)
 
@@ -315,11 +376,11 @@ def _cg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
         y = s.y
         grad = quad_grad(Q, q, inv_m, y) * maskf
         i, val = _fw_vertex(grad, mask, r)
-        w = zero.index_copy(0, i.reshape(1), val.reshape(1))
+        w = zero.scatter(-1, i.unsqueeze(-1), val.unsqueeze(-1))
         d = w - y
         gap = -vdot(grad, d)
         gamma = _line_search_quad(Q, inv_m, grad, d, one)
-        y_new = y + gamma * d
+        y_new = y + _lane(gamma) * d
         f = quad_f(Q, q, btb, inv_m, y_new)
         return _FWState(y_new, s.wp, s.wm, f, gap, s.k + 1)
 
@@ -334,18 +395,18 @@ def _active_extrema(grad, wp, wm, r):
     sm = -r * grad
     away_p = torch.where(wp > 0, sp, NEG_INF)
     away_m = torch.where(wm > 0, sm, NEG_INF)
-    ia_p, ia_m = torch.argmax(away_p), torch.argmax(away_m)
+    ia_p, ia_m = torch.argmax(away_p, dim=-1), torch.argmax(away_m, dim=-1)
     away_is_p = _at(away_p, ia_p) >= _at(away_m, ia_m)
     loc_p = torch.where(wp > 0, sp, -NEG_INF)
     loc_m = torch.where(wm > 0, sm, -NEG_INF)
-    il_p, il_m = torch.argmin(loc_p), torch.argmin(loc_m)
+    il_p, il_m = torch.argmin(loc_p, dim=-1), torch.argmin(loc_m, dim=-1)
     local_is_p = _at(loc_p, il_p) <= _at(loc_m, il_m)
     return (away_is_p, ia_p, ia_m), (local_is_p, il_p, il_m)
 
 
 def _pcg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
     """Pairwise Conditional Gradients (Lacoste-Julien & Jaggi 2015)."""
-    inv_m, r, maskf, y0 = _fw_setup(Q, m, mask, cfg, y0)
+    inv_m, r, maskf, y0 = _fw_setup(Q, q, m, mask, cfg, y0)
     zero = torch.zeros_like(y0)
     wp0, wm0 = _decompose_point(y0, r, mask)
 
@@ -365,10 +426,11 @@ def _pcg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
         gap = -vdot(grad, w_vec - y)  # FW gap for stopping
         gamma = _line_search_quad(Q, inv_m, grad, d, a_weight)
         # move weight gamma from the away vertex to the FW vertex
-        wp = torch.where(a_is_p, _add_at(wp, ia, -gamma), wp)
-        wm = torch.where(a_is_p, wm, _add_at(wm, ia, -gamma))
-        wp = torch.where(w_plus, _add_at(wp, iw, gamma), wp)
-        wm = torch.where(w_plus, wm, _add_at(wm, iw, gamma))
+        a_p, w_p = _lane(a_is_p), _lane(w_plus)
+        wp = torch.where(a_p, _add_at(wp, ia, -gamma), wp)
+        wm = torch.where(a_p, wm, _add_at(wm, ia, -gamma))
+        wp = torch.where(w_p, _add_at(wp, iw, gamma), wp)
+        wm = torch.where(w_p, wm, _add_at(wm, iw, gamma))
         wp = torch.clamp(wp, min=0.0)
         wm = torch.clamp(wm, min=0.0)
         y_new = _weights_to_point(wp, wm, r)
@@ -384,7 +446,7 @@ def _bpcg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
 
     The local/global branch is select-based (both computed, one kept), as in
     the reference."""
-    inv_m, r, maskf, y0 = _fw_setup(Q, m, mask, cfg, y0)
+    inv_m, r, maskf, y0 = _fw_setup(Q, q, m, mask, cfg, y0)
     one = _scalar(1.0, Q.dtype, Q.device)
     zero = torch.zeros_like(y0)
     wp0, wm0 = _decompose_point(y0, r, mask)
@@ -404,28 +466,30 @@ def _bpcg_parts(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0):
         gap = -vdot(grad, w_vec - y)
         # Line 7: local pairwise step iff <grad, w - y> >= <grad, s - a>
         local = vdot(grad, w_vec - y) >= vdot(grad, s_vec - a_vec)
+        a_p, s_p, w_p = _lane(a_is_p), _lane(s_is_p), _lane(w_plus)
 
         # local pairwise step
         d_l = s_vec - a_vec
         gamma_l = _line_search_quad(Q, inv_m, grad, d_l, a_weight)
-        wp_l = torch.where(a_is_p, _add_at(wp, ia, -gamma_l), wp)
-        wm_l = torch.where(a_is_p, wm, _add_at(wm, ia, -gamma_l))
-        wp_l = torch.where(s_is_p, _add_at(wp_l, is_, gamma_l), wp_l)
-        wm_l = torch.where(s_is_p, wm_l, _add_at(wm_l, is_, gamma_l))
-        y_l = y + gamma_l * d_l
+        wp_l = torch.where(a_p, _add_at(wp, ia, -gamma_l), wp)
+        wm_l = torch.where(a_p, wm, _add_at(wm, ia, -gamma_l))
+        wp_l = torch.where(s_p, _add_at(wp_l, is_, gamma_l), wp_l)
+        wm_l = torch.where(s_p, wm_l, _add_at(wm_l, is_, gamma_l))
+        y_l = y + _lane(gamma_l) * d_l
 
         # global FW step
         d_g = w_vec - y
         gamma_g = _line_search_quad(Q, inv_m, grad, d_g, one)
-        wp_g = wp * (1.0 - gamma_g)
-        wm_g = wm * (1.0 - gamma_g)
-        wp_g = torch.where(w_plus, _add_at(wp_g, iw, gamma_g), wp_g)
-        wm_g = torch.where(w_plus, wm_g, _add_at(wm_g, iw, gamma_g))
-        y_g = y + gamma_g * d_g
+        wp_g = wp * _lane(1.0 - gamma_g)
+        wm_g = wm * _lane(1.0 - gamma_g)
+        wp_g = torch.where(w_p, _add_at(wp_g, iw, gamma_g), wp_g)
+        wm_g = torch.where(w_p, wm_g, _add_at(wm_g, iw, gamma_g))
+        y_g = y + _lane(gamma_g) * d_g
 
-        y_new = torch.where(local, y_l, y_g)
-        wp_new = torch.clamp(torch.where(local, wp_l, wp_g), min=0.0)
-        wm_new = torch.clamp(torch.where(local, wm_l, wm_g), min=0.0)
+        loc = _lane(local)
+        y_new = torch.where(loc, y_l, y_g)
+        wp_new = torch.clamp(torch.where(loc, wp_l, wp_g), min=0.0)
+        wm_new = torch.clamp(torch.where(loc, wm_l, wm_g), min=0.0)
         f = quad_f(Q, q, btb, inv_m, y_new)
         return _FWState(y_new, wp_new, wm_new, f, gap, s.k + 1)
 
@@ -442,14 +506,16 @@ _PARTS = {
 
 
 def _make_solvers(name: str):
-    def solve_one(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None) -> SolveResult:
-        return _run_while(*_PARTS[name](Q, q, btb, m, mask, psi, cfg, y0))
+    def solve_one(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None,
+                  lanes=None) -> SolveResult:
+        return _run_while(*_PARTS[name](Q, q, btb, m, mask, psi, cfg, y0), lanes=lanes)
 
     def solve_scheduled_one(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None,
-                            schedule: Optional[int] = None) -> SolveResult:
+                            schedule: Optional[int] = None, lanes=None) -> SolveResult:
         if schedule is None:
             schedule = schedule_budget(cfg)
-        return _run_scheduled(*_PARTS[name](Q, q, btb, m, mask, psi, cfg, y0), schedule)
+        return _run_scheduled(*_PARTS[name](Q, q, btb, m, mask, psi, cfg, y0), schedule,
+                              lanes=lanes)
 
     solve_one.__name__ = f"solve_{name}"
     solve_scheduled_one.__name__ = f"solve_{name}_scheduled"
@@ -471,13 +537,15 @@ SCHEDULED_SOLVERS = {
 }
 
 
-def solve(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None) -> SolveResult:
+def solve(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None, lanes=None) -> SolveResult:
     """The configured solver, run by the while runner.  ``Q`` (L, L), ``q``
-    (L,), ``btb`` and ``psi`` tensors on one device, ``mask`` (L,) bool."""
-    return SOLVERS[cfg.name](Q, q, btb, m, mask, psi, cfg, y0)
+    (L,), ``btb`` and ``psi`` tensors on one device, ``mask`` (L,) bool; or
+    each with a leading class axis (``Q (k, L, L)``, ``btb (k,)``), and then
+    ``lanes (k,)`` bool says which classes solve at all."""
+    return SOLVERS[cfg.name](Q, q, btb, m, mask, psi, cfg, y0, lanes=lanes)
 
 
 def solve_scheduled(Q, q, btb, m, mask, psi, cfg: OracleConfig, y0=None,
-                    schedule: Optional[int] = None) -> SolveResult:
+                    schedule: Optional[int] = None, lanes=None) -> SolveResult:
     return SCHEDULED_SOLVERS[cfg.name](Q, q, btb, m, mask, psi, cfg, y0,
-                                       schedule=schedule)
+                                       schedule=schedule, lanes=lanes)

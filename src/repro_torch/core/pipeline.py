@@ -3,8 +3,9 @@
 Counterpart of ``src/repro/core/pipeline.py``.  ``method`` is any spec of
 :mod:`repro_torch.api`: an OAVI variant (``"fast"``, ``"oavi:cgavi-ihb"``,
 ...) or one of the paper's baselines ``"abm"`` and ``"vca"``.  The per-class
-fits run sequentially through :func:`repro_torch.api.fit_classes`, the
-features come from :func:`repro_torch.api.feature_transform` (fused for OAVI
+fits run through :func:`repro_torch.api.fit_classes`: class-batched under
+``class_batch="auto"`` (the default, as in the reference) where the config
+allows, one class after another otherwise; the features come from :func:`repro_torch.api.feature_transform` (fused for OAVI
 and ABM models, the per-model loop for VCA), and the l1 squared-hinge
 :class:`~repro_torch.core.svm.LinearSVM` classifies them.  Everything runs
 on ``device`` (``None`` = the CUDA card).  :meth:`~VanishingIdealClassifier.
@@ -15,9 +16,8 @@ A fitted pipeline serializes whole (scaler, per-class models, SVM head) in
 the JAX package's layout and format (``to_state_dict`` / ``save`` /
 ``load``), so either package loads the other's classifiers.
 
-Not ported yet: class-batched OAVI fits (ROADMAP.md queue 1 item 10),
-streaming fits and ``capture_fit_state`` (item 11); ``attach_engine`` (item
-13) raises :class:`NotImplementedError`.
+Not ported yet: streaming fits and ``capture_fit_state`` (ROADMAP.md queue 1
+item 11); ``attach_engine`` (item 13) raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ CLASSIFIER_FORMAT = "repro.vanishing_ideal_classifier.v1"
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """The reference's ``PipelineConfig`` less the fields of unported paths
-    (``mesh``, ``class_batch``, ``chunk_rows``, ``capture_fit_state``)."""
+    (``mesh``, ``chunk_rows``, ``capture_fit_state``)."""
 
     method: str = "fast"  # repro_torch.api method spec (or bare OAVI variant)
     psi: float = 0.005
@@ -46,6 +46,9 @@ class PipelineConfig:
     oavi_kw: Optional[Dict] = None  # forwarded to the method config
     backend: str = "auto"  # 'auto' | 'local' (both run the local fit)
     batch_size: Optional[int] = None  # fused-transform chunking (rows)
+    # 'auto': eligible per-class OAVI fits run class-batched, grouped into
+    # shared row buckets (repro_torch.core.class_batch); 'off': sequential
+    class_batch: str = "auto"
 
 
 def _not_ported(what: str, item: str):
@@ -90,6 +93,7 @@ class VanishingIdealClassifier:
             method=cfg.method,
             psi=cfg.psi,
             backend=cfg.backend,
+            class_batch=cfg.class_batch,
             device=self.device,
             **dict(cfg.oavi_kw or {}),
         )
@@ -110,9 +114,14 @@ class VanishingIdealClassifier:
             "G_plus_O": sum(m.stats.get("G_plus_O", 0) for m in self.models),
             "regrowths": agg["regrowths"],
             "kernel_launches": agg["kernel_launches"],
+            "class_batched": agg["class_batched"],
+            "solver_schedule_len": agg["solver_schedule_len"],
+            "solver_escalations": agg["solver_escalations"],
             "per_class": [m.stats for m in self.models],
             "svm": self.svm.stats,
         }
+        if "class_batch_padding" in agg:
+            self.stats["class_batch_padding"] = agg["class_batch_padding"]
         return self
 
     def transform(self, X) -> np.ndarray:
@@ -186,7 +195,7 @@ class VanishingIdealClassifier:
                 "oavi_kw": cfg.oavi_kw,
                 "backend": cfg.backend,
                 "batch_size": cfg.batch_size,
-                "class_batch": "off",
+                "class_batch": cfg.class_batch,
                 "chunk_rows": None,
                 "capture_fit_state": False,
             },
@@ -213,6 +222,8 @@ class VanishingIdealClassifier:
                 oavi_kw=cfg["oavi_kw"],
                 backend=cfg.get("backend", "auto"),
                 batch_size=cfg["batch_size"],
+                # saves that lack the key fitted with the default, 'auto'
+                class_batch=cfg.get("class_batch", "auto"),
             ),
             device=device,
         )

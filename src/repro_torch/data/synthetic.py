@@ -1,14 +1,17 @@
 """Datasets of the paper's experiments, for the port.
 
-A copy of ``appendix_c``, ``uci_like``, ``random_cube`` and
-``train_test_split`` from the JAX package's ``repro.data.synthetic`` (numpy
-only; the port imports nothing of that package):
+A copy of ``appendix_c``, ``uci_like``, ``multiclass_planted``,
+``lognormal_sizes``, ``random_cube`` and ``train_test_split`` from the JAX
+package's ``repro.data.synthetic`` (numpy only; the port imports nothing of
+that package):
 
 * :func:`appendix_c` — the paper's 2M-sample synthetic dataset, to its exact
   specification (Appendix C): class 1 satisfies ``x1^2 + 0.01 x2 + x3^2 = 1``,
   class 2 satisfies ``x1^2 + x3^2 = 1.3``, both perturbed by N(0, 0.05^2).
 * :func:`uci_like` — datasets matching the (m, n, #classes) shapes of the
   paper's UCI table, with classes planted on distinct random algebraic sets.
+* :func:`multiclass_planted`, :func:`lognormal_sizes` — k planted classes of
+  given (lognormal-skewed) sizes: the multi-class fit benchmark's regime.
 * :func:`random_cube` — uniform noise in [0,1]^n (Figure 1's setting).
 """
 
@@ -91,6 +94,30 @@ def uci_like(name: str, seed: int = 0):
     y = np.concatenate(ys)
     perm = rng.permutation(m)
     return X[perm].astype(np.float32), y[perm]
+
+
+def multiclass_planted(sizes, n: int = 4, seed: int = 0):
+    """k classes of the given ``sizes``, each planted on its own random
+    algebraic set (see :func:`_planted_class`) — the multi-class fit
+    benchmark's dataset.  Returns shuffled ``(X, y)``."""
+    rng = np.random.default_rng(seed)
+    Xs, ys = [], []
+    for c, mc in enumerate(sizes):
+        Xs.append(_planted_class(rng, int(mc), n, degree=2 + (c % 2)))
+        ys.append(np.full(int(mc), c, np.int32))
+    X = np.concatenate(Xs, axis=0)
+    y = np.concatenate(ys)
+    perm = rng.permutation(X.shape[0])
+    return X[perm].astype(np.float32), y[perm]
+
+
+def lognormal_sizes(k: int, mean_rows: int, sigma: float = 0.8, seed: int = 0):
+    """Lognormal-skewed class sizes with the given mean — the skewed-classes
+    regime of the multi-class benchmark (min size clipped to 32)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.lognormal(mean=0.0, sigma=sigma, size=k)
+    sizes = np.maximum((raw / raw.mean() * mean_rows).astype(int), 32)
+    return [int(s) for s in sizes]
 
 
 def random_cube(m: int, n: int, seed: int = 0):

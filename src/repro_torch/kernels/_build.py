@@ -31,20 +31,27 @@ _lib: Optional[ctypes.CDLL] = None
 build_log: Dict[str, str] = {}
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ip = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # A, X, parents, vars, ql0, c0, ql, c, scratch, border, m, L, n, K, bm,
-    # group, fold, stream
-    "repro_gram_update": [_vp] * 10 + [_ll, _i, _i, _i, _i, _i, _i, _vp],
+    # group, fold, lanes, stream
+    "repro_gram_update": [_vp] * 10 + [_ll, _i, _i, _i, _i, _i, _i, _i, _vp],
     # L, K
     "repro_gram_tiles": [_i, _i],
     "repro_gram_partial_floats": [_i, _i],
     # L, n
     "repro_gram_can_gather": [_i, _i],
-    # N_in, N_out, q, btb, ell, active, u_scratch, L, stream
-    "repro_ihb_update": [_vp] * 7 + [_i, _vp],
-    # QLt, C, N, Lcap, Kcap, ell0, K, psi, accepted, mses, coeffs, slots,
-    # ell_out, u_scratch, stream
-    "repro_ihb_degree": [_vp] * 3 + [_i] * 4 + [ctypes.c_float] + [_vp] * 7,
+    # N_in, N_out, q, btb, ell, active, u_scratch, L, lanes, stream
+    "repro_ihb_update": [_vp] * 7 + [_i, _i, _vp],
+    # QLt, C, N, Lcap, Kcap, ell0s (host), Ks (host), lanes, kstride, psi,
+    # accepted, mses, coeffs, slots, ell_out, u_scratch, stream
+    "repro_ihb_degree": [_vp] * 3 + [_i] * 2 + [_ip] * 2 + [_i, _i, ctypes.c_float]
+    + [_vp] * 7,
+    "repro_ihb_max_lanes": [],
+    # rows, lanes
+    "repro_ihb_lane_blocks": [_i, _i],
+    # rows, K, rows_max, lanes
+    "repro_ihb_degree_staged": [_i] * 4,
     # q, k, v, o, BHq, Sq, Sk, d, dv, group, causal, dtype, stream
     "repro_flash_attention": [_vp] * 4 + [_i] * 8 + [_vp],
     # dtype, d, dv

@@ -58,6 +58,17 @@
 //     the grouping changes no bit.  Both reductions, and both border
 //     sources, give the same bits.
 //   Ragged L, K and n are masked; indices are clamped into range.
+//
+// A class axis (the class-batched fit, src/repro/core/class_batch.py, where
+// the reference vmaps this kernel): `lanes` independent problems of one
+// shape, laid out lane after lane (A, X, parents, vars, the carry, the
+// outputs, the scratch and the border buffer each at a fixed stride), run in
+// ONE launch of each kernel, the lane index as the last grid dimension.
+// Every block of a lane computes exactly what the same block of a one-lane
+// call computes: the reduction path, the scratch grouping and the border
+// source are the one-lane call's (the host picks them from the lane's shape,
+// not from lanes x tiles), so each lane's bits are the one-lane call's.  The
+// one-lane call is lanes = 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +120,31 @@ struct Problem {
   int L, n, K;
   int vec;  // 16-byte copies: rows of A (and Bm) 16-byte aligned, L and K multiples of 4
 };
+
+// Distances between consecutive lanes, in elements: A (m L), X (m n), the
+// border buffer (m K), QL and its carry (L K), C and its carry (K K), the
+// scratch (group x partial stride) and parents / vars (K).
+struct LaneStrides {
+  long long a, x, bm, ql, c, p;
+  int idx;
+};
+
+// The problem and outputs of lane `lane`: every pointer moved by its stride
+// (null stays null).
+__device__ __forceinline__ void to_lane(Problem& pb, const float*& ql0, const float*& c0,
+                                        float*& ql, float*& c, float*& P, const LaneStrides& ls,
+                                        int lane) {
+  pb.A += lane * ls.a;
+  pb.X += lane * ls.x;
+  pb.parents += (long long)lane * ls.idx;
+  pb.vars += (long long)lane * ls.idx;
+  if (pb.Bm != nullptr) pb.Bm += lane * ls.bm;
+  if (ql0 != nullptr) ql0 += lane * ls.ql;
+  if (c0 != nullptr) c0 += lane * ls.c;
+  if (ql != nullptr) ql += lane * ls.ql;
+  if (c != nullptr) c += lane * ls.c;
+  if (P != nullptr) P += lane * ls.p;
+}
 
 // Where a column of Y (i < L + K) or of the right operand B comes from:
 // kind 1 a plain column (src[row * ld] in global memory, or column `a` of the
@@ -183,8 +219,9 @@ int tile_smem_bytes(bool fold, bool gather, int L, int n) {
 template <int W, bool FOLD, bool GATHER>
 __global__ void __launch_bounds__(TileShape<W>::kThreads, FOLD ? 1 : 2)
 gram_tile_kernel(Problem pb, const float* ql0, const float* c0, float* ql, float* c, float* P,
-                 long long row0, int n_rb, int bm, int tiles_j) {
+                 long long row0, int n_rb, int bm, int tiles_j, LaneStrides ls) {
   using Sh = TileShape<W>;
+  to_lane(pb, ql0, c0, ql, c, P, ls, (int)blockIdx.z);
   constexpr int NT = Sh::kThreads;
   extern __shared__ __align__(16) float gsm[];
   const int L = pb.L, K = pb.K, LK = pb.L + pb.K, n = pb.n;
@@ -437,8 +474,16 @@ gram_tile_kernel(Problem pb, const float* ql0, const float* c0, float* ql, float
 // Partials lie `stride` floats apart (a multiple of 32).
 __global__ void __launch_bounds__(kFoldThreads)
 gram_fold_kernel(const float* __restrict__ P, int nblocks, long long stride, const float* ql0,
-                 const float* c0, float* ql, float* c, int L, int K) {
+                 const float* c0, float* ql, float* c, int L, int K, LaneStrides ls) {
   __shared__ __align__(16) float buf[kFoldStages][kFoldDepth][kFoldThreads];
+  {  // this block's lane of the class axis: blockIdx.y
+    const long long cls = blockIdx.y;
+    P += cls * ls.p;
+    if (ql0 != nullptr) ql0 += cls * ls.ql;
+    if (c0 != nullptr) c0 += cls * ls.c;
+    ql += cls * ls.ql;
+    c += cls * ls.c;
+  }
   const long long E = (long long)(L + K) * K;
   const int lane = threadIdx.x;
   const long long e0 = (long long)blockIdx.x * kFoldThreads;
@@ -502,12 +547,20 @@ gram_fold_kernel(const float* __restrict__ P, int nblocks, long long stride, con
   if (mirror) c[(long long)j * K + ci] = sl;
 }
 
-// Bm[r, k] = A[r, parents[k]] * X[r, vars[k]], one thread per entry.
+// Bm[r, k] = A[r, parents[k]] * X[r, vars[k]], one thread per entry; the
+// lane is blockIdx.y.
 __global__ void gram_border_kernel(const float* __restrict__ A, const float* __restrict__ X,
                                    const int* __restrict__ parents, const int* __restrict__ vars,
-                                   float* __restrict__ Bm, long long m, int L, int n, int K) {
+                                   float* __restrict__ Bm, long long m, int L, int n, int K,
+                                   LaneStrides ls) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= m * K) return;
+  const long long cls = blockIdx.y;
+  A += cls * ls.a;
+  X += cls * ls.x;
+  parents += cls * ls.idx;
+  vars += cls * ls.idx;
+  Bm += cls * ls.bm;
   const long long r = e / K;
   const int k = (int)(e % K);
   Bm[e] = __fmul_rn(A[r * L + clampi(parents[k], L)], X[r * n + clampi(vars[k], n)]);
@@ -516,35 +569,39 @@ __global__ void gram_border_kernel(const float* __restrict__ A, const float* __r
 
 template <int W, bool FOLD, bool GATHER>
 cudaError_t launch_tiles_as(const Problem& pb, const float* ql0, const float* c0, float* ql,
-                            float* c, float* P, long long row0, int n_rb, int bm,
-                            cudaStream_t stream) {
+                            float* c, float* P, long long row0, int n_rb, int bm, int lanes,
+                            const LaneStrides& ls, cudaStream_t stream) {
   const int tiles_i = (pb.L + pb.K + kTileRows - 1) / kTileRows;
   const int tiles_j = (pb.K + W - 1) / W;
   const int smem = tile_smem_bytes<W>(FOLD, GATHER, pb.L, pb.n);
   cudaError_t err = cudaFuncSetAttribute(gram_tile_kernel<W, FOLD, GATHER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(tiles_i * tiles_j), FOLD ? 1u : (unsigned)n_rb);
+  const dim3 grid((unsigned)(tiles_i * tiles_j), FOLD ? 1u : (unsigned)n_rb, (unsigned)lanes);
   gram_tile_kernel<W, FOLD, GATHER><<<grid, TileShape<W>::kThreads, smem, stream>>>(
-      pb, ql0, c0, ql, c, P, row0, n_rb, bm, tiles_j);
+      pb, ql0, c0, ql, c, P, row0, n_rb, bm, tiles_j, ls);
   return cudaGetLastError();
 }
 
 // Staged gather without a materialised border buffer, plain columns with it.
 template <int W, bool FOLD>
 cudaError_t launch_tiles(const Problem& pb, const float* ql0, const float* c0, float* ql, float* c,
-                         float* P, long long row0, int n_rb, int bm, cudaStream_t stream) {
+                         float* P, long long row0, int n_rb, int bm, int lanes,
+                         const LaneStrides& ls, cudaStream_t stream) {
   if (pb.Bm == nullptr)
-    return launch_tiles_as<W, FOLD, true>(pb, ql0, c0, ql, c, P, row0, n_rb, bm, stream);
-  return launch_tiles_as<W, FOLD, false>(pb, ql0, c0, ql, c, P, row0, n_rb, bm, stream);
+    return launch_tiles_as<W, FOLD, true>(pb, ql0, c0, ql, c, P, row0, n_rb, bm, lanes, ls,
+                                          stream);
+  return launch_tiles_as<W, FOLD, false>(pb, ql0, c0, ql, c, P, row0, n_rb, bm, lanes, ls,
+                                         stream);
 }
 
 template <int W>
 cudaError_t run_gram(const Problem& pb, const float* ql0, const float* c0, float* ql, float* c,
-                     float* scratch, long long m, int bm, int group_blocks, int fold,
-                     cudaStream_t stream) {
+                     float* scratch, long long m, int bm, int group_blocks, int fold, int lanes,
+                     const LaneStrides& ls, cudaStream_t stream) {
   const long long nb = m / bm;
-  if (fold) return launch_tiles<W, true>(pb, ql0, c0, ql, c, nullptr, 0, (int)nb, bm, stream);
+  if (fold)
+    return launch_tiles<W, true>(pb, ql0, c0, ql, c, nullptr, 0, (int)nb, bm, lanes, ls, stream);
   const long long stride = partial_stride(pb.L, pb.K);
   const unsigned fold_blocks = (unsigned)(stride / kFoldThreads);
   const float* acc_ql = ql0;
@@ -554,11 +611,11 @@ cudaError_t run_gram(const Problem& pb, const float* ql0, const float* c0, float
     const int g = (int)((nb - b0) < group_blocks ? (nb - b0) : group_blocks);
     if (g > 0) {
       cudaError_t err = launch_tiles<W, false>(pb, nullptr, nullptr, nullptr, nullptr, scratch,
-                                               b0 * bm, g, bm, stream);
+                                               b0 * bm, g, bm, lanes, ls, stream);
       if (err != cudaSuccess) return err;
     }
-    gram_fold_kernel<<<fold_blocks, kFoldThreads, 0, stream>>>(scratch, g, stride, acc_ql, acc_c,
-                                                                ql, c, pb.L, pb.K);
+    gram_fold_kernel<<<dim3(fold_blocks, (unsigned)lanes), kFoldThreads, 0, stream>>>(
+        scratch, g, stride, acc_ql, acc_c, ql, c, pb.L, pb.K, ls);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     acc_ql = ql;
@@ -593,23 +650,28 @@ extern "C" int repro_gram_can_gather(int L, int n) {
 }
 
 // Host entry point.  m must be a multiple of bm and bm of kSlab (the Python
-// wrapper pads and checks).  border (m x K floats) or null: where given, the
-// border columns are materialised there first; where null, they are gathered
-// in the kernel (repro_gram_can_gather).  fold = 1: one block per output tile
-// walks every row block (no scratch); fold = 0: scratch holds group_blocks
-// partials of repro_gram_partial_floats(L, K) floats each.  Returns the
-// first launch error, or cudaSuccess.
+// wrapper pads and checks).  border (m x K floats a lane) or null: where
+// given, the border columns are materialised there first; where null, they
+// are gathered in the kernel (repro_gram_can_gather).  fold = 1: one block
+// per output tile walks every row block (no scratch); fold = 0: scratch holds
+// group_blocks partials of repro_gram_partial_floats(L, K) floats each, for
+// every lane.  lanes problems of this shape lie one after another in every
+// array (a one-lane call is lanes = 1).  Returns the first launch error, or
+// cudaSuccess.
 extern "C" int repro_gram_update(const float* A, const float* X, const int* parents,
                                  const int* vars, const float* ql0, const float* c0, float* ql,
                                  float* c, float* scratch, float* border, long long m, int L,
-                                 int n, int K, int bm, int group_blocks, int fold,
+                                 int n, int K, int bm, int group_blocks, int fold, int lanes,
                                  cudaStream_t stream) {
   if (bm <= 0 || bm % kSlab != 0 || m % bm != 0) return (int)cudaErrorInvalidValue;
+  if (lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
   if (border == nullptr && !repro_gram_can_gather(L, n)) return (int)cudaErrorInvalidValue;
+  const LaneStrides ls{m * L, m * n, m * K, (long long)L * K, (long long)K * K,
+                       (long long)group_blocks * partial_stride(L, K), K};
   if (border != nullptr && m > 0) {
     const long long E = m * K;
-    gram_border_kernel<<<(unsigned)((E + 255) / 256), 256, 0, stream>>>(A, X, parents, vars,
-                                                                         border, m, L, n, K);
+    gram_border_kernel<<<dim3((unsigned)((E + 255) / 256), (unsigned)lanes), 256, 0, stream>>>(
+        A, X, parents, vars, border, m, L, n, K, ls);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -619,8 +681,10 @@ extern "C" int repro_gram_update(const float* A, const float* X, const int* pare
                   reinterpret_cast<uintptr_t>(border) % 16 == 0;
   const Problem pb{A, X, parents, vars, border, L, n, K, vec};
   if (K <= 64)
-    return (int)run_gram<64>(pb, ql0, c0, ql, c, scratch, m, bm, group_blocks, fold, stream);
-  return (int)run_gram<128>(pb, ql0, c0, ql, c, scratch, m, bm, group_blocks, fold, stream);
+    return (int)run_gram<64>(pb, ql0, c0, ql, c, scratch, m, bm, group_blocks, fold, lanes, ls,
+                             stream);
+  return (int)run_gram<128>(pb, ql0, c0, ql, c, scratch, m, bm, group_blocks, fold, lanes, ls,
+                            stream);
 }
 
 // Message of a CUDA error code returned by the entry points above.

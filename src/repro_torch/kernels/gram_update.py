@@ -18,6 +18,12 @@ call takes the same ones as the whole call, and no bit changes between them):
 * the border columns: gathered inside the kernel from whole rows of A and X
   staged in shared memory (where they fit: small L and n), or materialised
   once per call into an ``m x K`` buffer and staged as plain columns.
+
+:func:`gram_update_acc_batched` runs k problems of one shape (a leading class
+axis on every array: the class-batched fit) in one launch of each kernel.
+Both choices above, and the scratch grouping, are made from one problem's
+shape, as a one-problem call would make them, so every lane gives the bits
+of that call; the scratch is sized k times.
 """
 
 from __future__ import annotations
@@ -40,8 +46,9 @@ FOLD_MIN_TILES: Optional[int] = None
 # fit its staging ring (False: always materialise them first)
 GATHER_BORDERS = True
 
-# kernel launches made through this wrapper, by Pallas kernel name
-launches = {"gram_update_acc": 0, "gram_update": 0}
+# kernel launches made through these wrappers, by Pallas kernel name (the
+# class-batched entry counts one launch for all its classes)
+launches = {"gram_update_acc": 0, "gram_update": 0, "gram_update_acc_batched": 0}
 
 
 def path(L: int, K: int, device: torch.device) -> str:
@@ -72,27 +79,34 @@ def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
+    """One launch for a 2-D problem, or for k of them stacked on a leading
+    class axis (3-D ``A`` and ``X``, 2-D ``parents`` and ``vars``)."""
     device = A.device
     if device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {device}")
-    if A.dim() != 2 or X.dim() != 2:
-        raise ValueError("A and X must be 2-D")
-    m, L = A.shape
-    n = X.shape[1]
-    K = parents.shape[0]
-    _check_f32("A", A, (m, L), device)
-    _check_f32("X", X, (m, n), device)
-    if parents.shape != (K,) or vars_.shape != (K,):
-        raise ValueError("parents and vars must be 1-D of equal length")
+    batched = name.endswith("_batched")
+    if A.dim() != X.dim() or A.dim() != (3 if batched else 2):
+        raise ValueError(f"{name}: A and X must be {3 if batched else 2}-D")
+    lane = tuple(A.shape[:1]) if batched else ()
+    lanes = A.shape[0] if batched else 1
+    m, L = A.shape[-2:]
+    n = X.shape[-1]
+    K = parents.shape[-1]
+    _check_f32("A", A, lane + (m, L), device)
+    _check_f32("X", X, lane + (m, n), device)
+    if parents.shape != lane + (K,) or vars_.shape != lane + (K,):
+        raise ValueError(f"parents and vars must be of shape {lane + (K,)}")
+    if not 1 <= lanes <= _MAX_GRID_Y:
+        raise ValueError(f"{lanes} classes: one launch takes 1 to {_MAX_GRID_Y}")
     if bm <= 0 or bm % SLAB_ROWS or m % bm:
         raise ValueError(
             f"m={m} must be a multiple of bm={bm}, itself a multiple of {SLAB_ROWS}"
         )
     if acc is not None:
-        _check_f32("ql0", acc[0], (L, K), device)
-        _check_f32("c0", acc[1], (K, K), device)
-    QL = torch.empty((L, K), dtype=torch.float32, device=device)
-    C = torch.empty((K, K), dtype=torch.float32, device=device)
+        _check_f32("ql0", acc[0], lane + (L, K), device)
+        _check_f32("c0", acc[1], lane + (K, K), device)
+    QL = torch.empty(lane + (L, K), dtype=torch.float32, device=device)
+    C = torch.empty(lane + (K, K), dtype=torch.float32, device=device)
     if K == 0:
         return QL, C
     p32 = parents.to(device=device, dtype=torch.int32).contiguous()
@@ -103,11 +117,12 @@ def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
         group, scratch = nb, None
     else:
         per_block = _build.library().repro_gram_partial_floats(L, K)
+        # one problem's grouping (a one-problem call's), the scratch k times
         group = max(1, min(nb, _MAX_GRID_Y, SCRATCH_BYTES // (4 * per_block)))
-        scratch = torch.empty(group * per_block, dtype=torch.float32, device=device)
+        scratch = torch.empty(lanes * group * per_block, dtype=torch.float32, device=device)
     border = None
     if borders(L, n) == "materialised" and m > 0:
-        border = torch.empty((m, K), dtype=torch.float32, device=device)
+        border = torch.empty(lane + (m, K), dtype=torch.float32, device=device)
     lib = _build.library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -118,7 +133,7 @@ def _launch(A, X, parents, vars_, acc: Optional[Tuple], bm: int, name: str):
             QL.data_ptr(), C.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             border.data_ptr() if border is not None else None,
-            m, L, n, K, bm, group, int(fold), stream,
+            m, L, n, K, bm, group, int(fold), lanes, stream,
         )
     _build.check(err, name)
     launches[name] += 1
@@ -130,6 +145,15 @@ def gram_update_acc(A, X, parents, vars_, ql0=None, c0=None, *, bm: int):
     no carry (``ql0 = c0 = None``) starts from zeros."""
     acc = None if ql0 is None and c0 is None else (ql0, c0)
     return _launch(A, X, parents, vars_, acc, bm, "gram_update_acc")
+
+
+def gram_update_acc_batched(A, X, parents, vars_, ql0=None, c0=None, *, bm: int):
+    """:func:`gram_update_acc` for k classes in one launch: ``A (k, m, L)``,
+    ``X (k, m, n)``, ``parents``/``vars (k, K)``, the carry ``(k, L, K)``,
+    ``(k, K, K)`` or None; returns ``QL (k, L, K)`` and ``C (k, K, K)``, each
+    lane the bits of :func:`gram_update_acc` on that lane alone."""
+    acc = None if ql0 is None and c0 is None else (ql0, c0)
+    return _launch(A, X, parents, vars_, acc, bm, "gram_update_acc_batched")
 
 
 def gram_update(A, X, parents, vars_, *, bm: int = 512):

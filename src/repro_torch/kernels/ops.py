@@ -9,6 +9,11 @@ kernel's row block and dispatches on where its tensors lie:
 
 ``use_kernel=False`` forces the plain version on a CUDA tensor; only the tests
 and ``chip_smoke.py`` pass it, to compare the kernel with its plain version.
+
+The ``*_batched`` ops take k classes on a leading axis (the class-batched
+fit): one launch of the kernel for all of them on the card, and on the CPU
+the plain version of each class in turn, so that every class gets the bits
+of its own call on either device.
 """
 
 from __future__ import annotations
@@ -85,6 +90,25 @@ def gram_accumulate(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BLOCK,
     return _gram.gram_update_acc(A, X, parents, vars_, ql0, c0, bm=bm)
 
 
+def gram_accumulate_batched(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BLOCK,
+                            use_kernel=None):
+    """:func:`gram_accumulate` for k classes: ``A (k, m, L)``, ``X (k, m,
+    n)``, ``parents``/``vars (k, K)``, ``acc`` a ``((k, L, K), (k, K, K))``
+    carry or None.  Returns ``QL (k, L, K)`` and ``C (k, K, K)``."""
+    k, m, L = A.shape
+    K = parents.shape[-1]
+    m_pad = round_up(m, bm)
+    if m_pad != m:
+        A = F.pad(A, (0, 0, 0, m_pad - m))
+        X = F.pad(X, (0, 0, 0, m_pad - m))
+    if not _kernel_path(A, use_kernel):
+        if acc is None:
+            acc = (A.new_zeros((k, L, K)), A.new_zeros((k, K, K)))
+        return ref.gram_accumulate_batched_ref(A, X, parents, vars_, acc[0], acc[1], bm=bm)
+    ql0, c0 = (None, None) if acc is None else acc
+    return _gram.gram_update_acc_batched(A, X, parents, vars_, ql0, c0, bm=bm)
+
+
 def ihb_update_(N, q, btb, ell, *, active=None, use_kernel=None):
     """Theorem 4.9 padded block-inverse update of ``N`` in place (see
     :func:`.ref.ihb_update_ref`); returns ``N``.
@@ -102,6 +126,28 @@ def ihb_update(N, q, btb, ell, *, active=None, use_kernel=None):
     """The update of :func:`ihb_update_` on a copy of ``N``; ``N`` is
     unchanged.  For tests and comparisons: the fit updates in place."""
     return ihb_update_(N.clone(), q, btb, ell, active=active, use_kernel=use_kernel)
+
+
+def ihb_update_batched_(N, q, btb, ell, *, active=None, use_kernel=None):
+    """:func:`ihb_update_` for k classes, ``N (k, L, L)`` in place, ``q (k,
+    L)``, ``btb``/``ell``/``active (k,)`` tensors on ``N``'s device; an
+    inactive class's ``N`` is left as it is.  Returns ``N``."""
+    if not _kernel_path(N, use_kernel):
+        return N.copy_(ref.ihb_update_batched_ref(N, q, btb, ell, active))
+    # the candidate loop hands over strided slices (a column of QL, C's
+    # diagonal); the kernel reads each class's values at a fixed stride
+    return _ihb.ihb_update_batched_(N, q.contiguous(), btb.contiguous(), ell.contiguous(),
+                                    None if active is None else active.contiguous())
+
+
+def ihb_degree_batched(QLt, C, N, ell0s, psi: float, Ks, *, use_kernel=None):
+    """:func:`ihb_degree` for k classes (``QLt (k, Kcap, Lcap)``, ``C (k,
+    Kcap, Kcap)``, ``N (k, Lcap, Lcap)`` in place, host ints ``ell0s[c]`` and
+    ``Ks[c]``).  Returns ``(accepted, mses, coeffs, slots, ell)`` with a
+    leading class axis; see :func:`.ref.ihb_degree_batched_ref`."""
+    if not _kernel_path(N, use_kernel):
+        return ref.ihb_degree_batched_ref(QLt, C, N, ell0s, psi, Ks)
+    return _ihb.ihb_degree_batched(QLt, C, N, ell0s, psi, Ks)
 
 
 def ihb_degree(QLt, C, N, ell0: int, psi: float, K: int, *, use_kernel=None):

@@ -128,6 +128,51 @@ def ihb_degree_ref(QLt, C, N, ell0: int, psi, K: int):
     return accepted, mses, coeffs, slots, ell.reshape(1)
 
 
+def gram_accumulate_batched_ref(A, X, parents, vars_, ql0, c0, *, bm: int):
+    """:func:`gram_accumulate_ref` of every class of a leading class axis,
+    one class after another: each class's bits are its own call's."""
+    outs = [gram_accumulate_ref(A[c], X[c], parents[c], vars_[c], ql0[c], c0[c], bm=bm)
+            for c in range(A.shape[0])]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def ihb_update_batched_ref(N, q, btb, ell, active=None):
+    """:func:`ihb_update_ref` of every class of a leading class axis (``N (k,
+    L, L)``, ``q (k, L)``, ``btb``/``ell``/``active (k,)``), one class after
+    another; returns the new ``(k, L, L)``."""
+    return torch.stack([
+        ihb_update_ref(N[c], q[c], btb[c], ell[c], None if active is None else active[c])
+        for c in range(N.shape[0])
+    ])
+
+
+def ihb_degree_batched_ref(QLt, C, N, ell0s, psi, Ks):
+    """:func:`ihb_degree_ref` of every class of a leading class axis, one
+    class after another (``N (k, Lcap, Lcap)`` in place; a class with
+    ``Ks[c] == 0`` is left alone).  Returns ``(accepted (k, Kmax), mses,
+    coeffs (k, Kmax, Lcap), slots, ell (k,))``, ``Kmax = max(Ks)``; entries
+    past a class's own K are False, 0, 0 and ``Lcap``."""
+    k, Lcap = N.shape[0], N.shape[-1]
+    Kmax = max(int(x) for x in Ks)
+    dev, dtype = N.device, N.dtype
+    accepted = torch.zeros((k, Kmax), dtype=torch.bool, device=dev)
+    mses = torch.zeros((k, Kmax), dtype=dtype, device=dev)
+    coeffs = torch.zeros((k, Kmax, Lcap), dtype=dtype, device=dev)
+    slots = torch.full((k, Kmax), Lcap, dtype=torch.long, device=dev)
+    ell = torch.tensor([int(e) for e in ell0s], dtype=torch.int32, device=dev)
+    for c in range(k):
+        K = int(Ks[c])
+        if K == 0:
+            continue
+        acc, mse, coef, slot, e = ihb_degree_ref(QLt[c], C[c], N[c], int(ell0s[c]), psi, K)
+        accepted[c, :K] = acc
+        mses[c, :K] = mse
+        coeffs[c, :K] = coef
+        slots[c, :K] = slot
+        ell[c] = e[0]
+    return accepted, mses, coeffs, slots, ell
+
+
 # masked score of the plain version, as in the JAX package (finite, so a
 # fully masked row gives a uniform softmax, never NaN)
 NEG_INF = -1e30

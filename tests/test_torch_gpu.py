@@ -655,3 +655,145 @@ def test_baseline_classifier_save_load_on_card(cuda, tmp_path, method):
     again = VanishingIdealClassifier.load(str(tmp_path / "clf"))
     assert all(m.device.type == "cuda" for m in again.models)
     assert np.array_equal(again.predict(Xte), clf.predict(Xte))
+
+
+# ---------------------------------------------------------------------------
+# The class axis: each lane of a batched launch is its one-class call
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("border", ["gathered", "materialised"])
+@pytest.mark.parametrize("path", ["fold", "partials"])
+@pytest.mark.parametrize("m,L,n,K", [(1024, 70, 5, 150), (512, 40, 3, 64)])
+def test_gram_batched_lanes_bit_identical(cuda, monkeypatch, m, L, n, K, path, border):
+    """One launch for k = 3 classes: every lane equals the one-class call on
+    that lane bit for bit, on both reductions and both border sources, and
+    the plain version within the Gram tolerance; one batched launch."""
+    _force(monkeypatch, path, border)
+    rng = np.random.default_rng(m + L + K)
+    lanes = [_gram_inputs(rng, m, L, n, K, cuda) for _ in range(3)]
+    A, X, p, v = (torch.stack([lane[i] for lane in lanes]) for i in range(4))
+    acc = (torch.rand(3, L, K, device=cuda), torch.rand(3, K, K, device=cuda))
+    before = ops.launch_counts()
+    got = ops.gram_accumulate_batched(A, X, p, v, acc)
+    after = ops.launch_counts()
+    assert after["gram_update_acc_batched"] == before["gram_update_acc_batched"] + 1
+    assert after["gram_update_acc"] == before["gram_update_acc"]
+    want = ops.gram_accumulate_batched(A, X, p, v, acc, use_kernel=False)
+    for c in range(3):
+        one = ops.gram_accumulate(A[c], X[c], p[c], v[c], (acc[0][c], acc[1][c]))
+        assert torch.equal(got[0][c], one[0]) and torch.equal(got[1][c], one[1])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=GRAM_RTOL, atol=GRAM_ATOL)
+
+
+def test_gram_batched_scratch_groups_bit_exact(cuda, monkeypatch):
+    """The partials path walks each lane's row blocks in the one-class
+    call's groups (scratch sized k times): grouping changes no bit."""
+    rng = np.random.default_rng(11)
+    lanes = [_gram_inputs(rng, 4096, 32, 4, 24, cuda) for _ in range(2)]
+    A, X, p, v = (torch.stack([lane[i] for lane in lanes]) for i in range(4))
+    whole = ops.gram_accumulate_batched(A, X, p, v)
+    monkeypatch.setattr(gram_mod, "SCRATCH_BYTES", 3 * 4 * (32 + 24) * 24)
+    grouped = ops.gram_accumulate_batched(A, X, p, v)
+    for c in range(2):
+        one = ops.gram_accumulate(A[c], X[c], p[c], v[c])
+        for a, b, o in zip(whole, grouped, one):
+            assert torch.equal(a[c], b[c]) and torch.equal(a[c], o)
+
+
+# (Lcap, Kcap, lanes as (ell0, K)): a lane's blocks differ from the one-class
+# call's in each case; 16 lanes with staged bands, 4 spam-wide lanes whose
+# bands no longer fit shared memory, and lanes whose candidates run out early
+_BATCHED_DEGREE = {
+    "staged-16": (256, 128, [(50, 100)] * 14 + [(20, 0), (3, 40)]),
+    "unstaged-4": (2048, 2048, [(58, 1653), (100, 1500), (40, 1653), (1, 57)]),
+    "staged-2": (2048, 2048, [(58, 1653), (30, 900)]),
+}
+
+
+@pytest.mark.parametrize("case", list(_BATCHED_DEGREE))
+def test_ihb_degree_batched_lanes_bit_identical(cuda, case):
+    from repro_torch.kernels import ihb_update as ihb_kernels
+
+    Lcap, Kcap, shapes = _BATCHED_DEGREE[case]
+    k = len(shapes)
+    rows_max = max(e + K for e, K in shapes)
+    G = ihb_kernels.lane_blocks(rows_max, k)
+    staged = {ihb_kernels.degree_staged(e, K, rows_max, k) for e, K in shapes if K}
+    assert (False in staged) if case.startswith("unstaged") else staged == {True}
+    ins = []
+    for c, (ell0, K) in enumerate(shapes):
+        appended = np.random.default_rng(c).uniform(size=max(K, 1)) < 0.5
+        ins.append(degree_inputs(100 + c, Lcap, ell0, max(K, 1), appended, Kcap))
+    QLt, C, N0 = (torch.from_numpy(np.stack([x[i] for x in ins])).to(cuda) for i in range(3))
+    N = N0.clone()
+    before = ops.launch_counts()["ihb_degree_batched"]
+    got = ops.ihb_degree_batched(QLt, C, N, [e for e, _ in shapes], PSI, [K for _, K in shapes])
+    assert ops.launch_counts()["ihb_degree_batched"] == before + 1
+    for c, (ell0, K) in enumerate(shapes):
+        if K == 0:
+            assert torch.equal(N[c], N0[c]) and int(got[4][c]) == ell0
+            assert not bool(got[0][c].any())
+            continue
+        # the one-class call takes its own (larger) grid
+        assert ihb_kernels.lane_blocks(ell0 + K, 1) != G or k == 1
+        Nc = N0[c].clone()
+        one = ops.ihb_degree(QLt[c], C[c], Nc, ell0, PSI, K)
+        for got_t, want_t in zip(got[:4], one[:4]):
+            assert torch.equal(got_t[c, :K], want_t)
+        assert int(got[4][c]) == int(one[4]) and torch.equal(N[c], Nc)
+        assert bool((got[3][c, K:] == Lcap).all()) and not bool(got[0][c, K:].any())
+
+
+@pytest.mark.parametrize("L", [64, 512, 2048])
+def test_ihb_update_batched_lanes_bit_identical(cuda, L):
+    """Three lanes, the middle one gated off: the active lanes equal their
+    one-class updates bit for bit (the batched lanes get fewer blocks: at L =
+    2048 their bands leave shared memory), the inactive lane moves no byte."""
+    from repro_torch.kernels import ihb_update as ihb_kernels
+
+    rng = np.random.default_rng(L)
+    cases = [_ihb_inputs(rng, L, e, cuda) for e in (L // 2, L // 4, L - 1)]
+    N0 = torch.stack([c[0] for c in cases])
+    q = torch.stack([c[1] for c in cases])
+    btb = torch.stack([c[2] for c in cases])
+    ell = torch.tensor([c[3] for c in cases], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, False, True], device=cuda)
+    assert ihb_kernels.lane_blocks(L, 3) < ihb_kernels.lane_blocks(L, 1) or L == 64
+    N = N0.clone()
+    before = ops.launch_counts()["ihb_update_batched"]
+    assert ops.ihb_update_batched_(N, q, btb, ell, active=active) is N
+    assert ops.launch_counts()["ihb_update_batched"] == before + 1
+    assert torch.equal(N[1], N0[1])
+    for c in (0, 2):
+        one = ops.ihb_update(N0[c], q[c], btb[c], ell[c])
+        assert torch.equal(N[c], one)
+
+
+@pytest.mark.parametrize("variant", ["fast", "cgavi-ihb", "bpcgavi-wihb"])
+def test_class_batched_fit_on_card_equals_sequential(cuda, variant):
+    """Equal pow2 class sizes on the card: the batched models equal the
+    card's sequential fits bit for bit; the group launches the Gram kernel
+    once a degree (and, on the fast engine, the degree loop once a degree),
+    never the one-class entries."""
+    from repro_torch import api
+    from repro_torch.data import synthetic
+
+    Xs = [np.clip(synthetic._planted_class(np.random.default_rng(c), 1024, 4,
+                                           degree=2 + c % 2), 0, 1).astype(np.float32)
+          for c in range(3)]
+    bat = api.fit_classes(Xs, f"oavi:{variant}", psi=PSI)
+    seq = api.fit_classes(Xs, f"oavi:{variant}", psi=PSI, class_batch="off")
+    for b, s in zip(bat, seq):
+        assert b.book.terms == s.book.terms
+        assert [g.term for g in b.generators] == [g.term for g in s.generators]
+        for gb, gs in zip(b.generators, s.generators):
+            assert np.array_equal(gb.coeffs, gs.coeffs) and gb.mse == gs.mse
+    launches = bat[0].stats["kernel_launches"]
+    degrees = max(len(m.stats["degrees"]) for m in bat)
+    assert launches["gram_update_acc_batched"] == degrees
+    assert launches["gram_update_acc"] == 0 and launches["ihb_update"] == 0
+    assert launches["ihb_degree_batched"] == (degrees if variant == "fast" else 0)
+    if variant == "cgavi-ihb":
+        assert launches["ihb_update_batched"] > 0

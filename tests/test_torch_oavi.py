@@ -226,7 +226,9 @@ def test_fit_stats(datasets):
     assert s["border_sizes"] and len(s["degrees"]) == len(s["degree_times"])
     assert s["termination"] in ("empty_border", "max_degree=10")
     assert s["kernel_launches"] == {"gram_update_acc": 0, "gram_update": 0,
+                                    "gram_update_acc_batched": 0,
                                     "ihb_update": 0, "ihb_degree": 0,
+                                    "ihb_update_batched": 0, "ihb_degree_batched": 0,
                                     "flash_attention": 0}
     assert s["time_total"] > 0 and s["api"]["device"] == "cpu"
 
@@ -386,8 +388,8 @@ def test_eager_loop_equals_degree_loop_plain(monkeypatch, datasets, name):
 
     def eager_step(c, QL_raw, C_raw, state, ell0, K, m_total):
         inv_m = torch.tensor(np.float32(1.0) / np.float32(m_total))
-        *out, state = oavi._candidate_loop(c, QL_raw * inv_m, C_raw * inv_m,
-                                           state, ell0, K)
+        *out, state, _ = oavi._candidate_loop(c, QL_raw * inv_m, C_raw * inv_m,
+                                              state, ell0, K)
         return oavi.DegreeResult(*(t.numpy() for t in out)), state
 
     monkeypatch.setattr(oavi, "stats_step", eager_step)

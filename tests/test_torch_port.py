@@ -43,6 +43,7 @@ SLICE_MODULES = [
     "repro_torch.convert",
     "repro_torch.core",
     "repro_torch.core.abm",
+    "repro_torch.core.class_batch",
     "repro_torch.core.ihb",
     "repro_torch.core.oavi",
     "repro_torch.core.oracles",
@@ -130,8 +131,10 @@ def test_unported_options_raise():
         api.fit(X, backend="sharded", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         api.fit(X, chunk_rows=1024, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        api.fit([X, X], class_batch="auto", device="cpu")
+    models = api.fit([X, X], class_batch="auto", device="cpu")
+    assert all(m.stats["api"]["class_batch"] is True for m in models)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        api.fit([X, X], class_batch="auto", chunk_rows=1024, device="cpu")
 
 
 def test_resolve_matches_reference():

@@ -74,6 +74,22 @@ Phases, each reported on its own lines:
    regime) with ``fast`` and BPCG + IHB, its groups, padding and schedule
    escalations printed; (c) both classes of the spam-shaped set with
    ``fast`` (Lcap = 2048: the batched ``ihb_degree`` at full width).
+10. Out-of-core and incremental OAVI (``repro_torch.streaming``,
+   ``repro_torch.online``): the streamed fit's kernels at its shapes (the
+   carried Gram at 4,096- and 65,536-row chunks, ``ihb_degree`` at paper
+   scale's degree 2); (a) streamed ``fast`` and ``cgavi-ihb`` fits of the
+   scaled planted stream (131,072 rows) at chunk_rows 256, 1,024 and 4,096,
+   each bit for bit the card's in-memory fit, prefetch on equal to off; (b)
+   class 0 of the Appendix C set streamed at 4,096-row chunks: the
+   in-memory fit's bits, and held against the CPU's streamed fit; (c) the
+   streamed ``fast`` fit at m = 131,072, 2,097,152 and 16,777,216 (seconds,
+   chunks, peak device bytes within 1.5x across the sweep), at 16,777,216
+   rows also with 65,536-row chunks and in memory (bit-identical), and one
+   streamed fit profiled; (d) ``online.fit`` on the first 15/16 of the
+   largest stream, then ``api.update`` with the rest, bit for bit the
+   streamed refit, again from a saved and loaded ``FitState``; (e) the
+   16 skewed classes of 9b class-batched with ``chunk_rows=4096`` (``fast``
+   and BPCG + IHB), each model bit for bit its class's own streamed fit.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -1758,6 +1774,301 @@ def main_path_class_batch(paper_data):
     return launches_by_path, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: out-of-core and incremental OAVI
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNKS = (256, 1024, 4096)
+# the reference streaming benchmark's sweep (benchmarks/bench_streaming.py):
+# 128x, up to >= 1e7 rows
+SCALE_ROWS = (131_072, 2_097_152, 16_777_216)
+# streamed peak device bytes across the sweep: the reference benchmark's
+# assertion
+PEAK_RATIO = 1.5
+
+
+def planted_stream(m, scaler=None):
+    """Generator-backed planted stream of m rows (n = 3, seed 0) under a
+    streaming min-max scaler fitted on it in one pass, or the one given."""
+    from repro_torch.data import synthetic
+    from repro_torch.streaming import ScaledSource, StreamingMinMaxScaler
+
+    raw = synthetic.planted_source(m, n=3, seed=0)
+    if scaler is None:
+        scaler = StreamingMinMaxScaler(dtype="float32").fit_source(raw, 4096)
+    return ScaledSource(raw, scaler)
+
+
+def timed(fn):
+    """(fn's result, seconds on the host clock up to a device sync)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def peak_run(fn):
+    """(result, seconds, device bytes allocated above the level before the
+    run at its peak, the absolute peak)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, s = timed(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, s, peak - before, peak
+
+
+def _streamed(tag, model, launches):
+    """Check a streamed fit's launches (one Gram launch a chunk, one
+    ``ihb_degree`` a degree on the fast engine) and log its numbers."""
+    st = model.stats
+    chunks = st["streaming"]["num_chunks"]
+    fold_s = sum(st["degree_times"])
+    if launches["gram_update_acc"] != chunks:
+        raise AssertionError(f"{tag}: {launches['gram_update_acc']} Gram launches for "
+                             f"{chunks} chunks")
+    return dict(chunks=chunks, degrees=st["degrees"], degree_s=st["degree_times"],
+                chunks_per_s=chunks / fold_s, launches=dict(launches))
+
+
+def stream_bit_contract():
+    """10a: streamed fits equal the card's in-memory fit at every chunk size,
+    with prefetch on and off."""
+    from repro_torch import api, streaming
+    from repro_torch.kernels import ops
+
+    m = SCALE_ROWS[0]
+    log(f"phase 10a: streamed fits of planted_source({m}, n=3, seed=0) under a "
+        f"StreamingMinMaxScaler, chunk_rows {STREAM_CHUNKS}, against the in-memory fit")
+    src = planted_stream(m)
+    X = src.read(0, m)
+    out, launches_by_path = {}, {}
+    for v in ("fast", "cgavi-ihb"):
+        ref, ref_s = timed(lambda: api.fit(X, f"oavi:{v}", psi=PSI))
+        for c in STREAM_CHUNKS:
+            ops.reset_launch_counts()
+            model, s = timed(lambda: api.fit(src, f"oavi:{v}", psi=PSI, chunk_rows=c))
+            launches = ops.launch_counts()
+            _bit_equal_models(f"10a {v} chunk_rows={c}", [model], [ref])
+            rec = _streamed(f"10a {v} chunk_rows={c}", model, launches)
+            log(f"  10a {v} chunk_rows={c}: {s:.3f} s (in memory {ref_s:.3f} s), bit-identical; "
+                f"{rec['chunks']} chunks, {rec['chunks_per_s']:.0f} chunks/s in the folds; "
+                f"ihb_degree x{launches['ihb_degree']}, ihb_update x{launches['ihb_update']}")
+            out[f"{v}_{c}"] = dict(rec, s=s, in_memory_s=ref_s)
+            launches_by_path[v] = launches
+        cfg = api.oavi_config_for(v, PSI)
+        off, off_s = timed(lambda: streaming.fit(src, cfg, chunk_rows=4096, prefetch=False))
+        _bit_equal_models(f"10a {v} prefetch off", [off], [model])
+        log(f"  10a {v}: prefetch off {off_s:.3f} s, bit-identical to prefetch on")
+        out[f"{v}_prefetch_off_s"] = off_s
+    if launches_by_path["cgavi-ihb"]["ihb_update"] <= 0:
+        raise AssertionError("10a cgavi-ihb: the streamed oracle path launched no ihb_update")
+    return out, launches_by_path
+
+
+def stream_paper_scale():
+    """10b: class 0 of the Appendix C set, streamed at chunk_rows=4096: the
+    card's in-memory fit's bits, and the CPU's streamed fit's structure and
+    float64-witness distance."""
+    import importlib
+
+    from repro_torch import api
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    # the module (the package's ``fit`` is the function): its degree loop's
+    # collect_degree is the one recording_fit wraps
+    streaming_fit = importlib.import_module("repro_torch.streaming.fit")
+    log("phase 10b: api.fit(class 0 of appendix_c(m=2_000_000, seed=0), 'oavi', "
+        "chunk_rows=4096) on the card")
+    X, y = synthetic.appendix_c(m=2_000_000, seed=0)
+    X0 = MinMaxScaler(dtype="float32").fit_transform(X)[y == 0]
+    ops.reset_launch_counts()
+    (card, card_log), s = timed(lambda: recording_fit(
+        lambda: api.fit(X0, "oavi", psi=PSI, chunk_rows=4096), streaming_fit))
+    launches = ops.launch_counts()
+    rec = _streamed("10b", card, launches)
+    if launches["ihb_degree"] != len(card.stats["degrees"]):
+        raise AssertionError(f"10b: ihb_degree launched {launches['ihb_degree']} times for "
+                             f"{len(card.stats['degrees'])} degrees")
+    mem, mem_s = timed(lambda: api.fit(X0, "oavi", psi=PSI))
+    _bit_equal_models("10b streamed vs in memory", [card], [mem])
+    (cpu, cpu_log), cpu_s = timed(lambda: recording_fit(
+        lambda: api.fit(X0, "oavi", psi=PSI, chunk_rows=4096, device="cpu"), streaming_fit))
+    why, dist = judge_fits([card], [cpu], card_log, cpu_log, [lstsq_coeffs(cpu, X0)],
+                           FIT_DIRECT_TOL)
+    if why is not None:
+        raise AssertionError(f"10b: the card's streamed fit against the CPU's: {why}")
+    log(f"  10b: m={X0.shape[0]} streamed {s:.3f} s, in memory {mem_s:.3f} s, bit-identical; "
+        f"borders {card.stats['border_sizes']}, {rec['chunks']} chunks, "
+        f"{rec['chunks_per_s']:.0f} chunks/s in the folds; launches {launches}; CPU streamed "
+        f"{cpu_s:.3f} s, held by the float64 witness: {dist}")
+    return dict(rec, m=int(X0.shape[0]), s=s, in_memory_s=mem_s, cpu_s=cpu_s, **dist), launches
+
+
+def stream_scale():
+    """10c: the streamed fast fit across the reference's sweep: seconds,
+    chunks and peak device bytes; at the largest m also at 65,536-row chunks
+    and in memory, both bit-identical to the 4,096-row streamed fit."""
+    from repro_torch import api
+
+    log(f"phase 10c: streamed fast fits of the planted stream at m = {SCALE_ROWS}, "
+        f"chunk_rows=4096")
+    out, peaks = {}, []
+    for m in SCALE_ROWS:
+        src, scale_s = timed(lambda: planted_stream(m))
+        model, s, peak, peak_abs = peak_run(
+            lambda: api.fit(src, "oavi", psi=PSI, chunk_rows=4096))
+        rec = _streamed(f"10c m={m}", model, model.stats["kernel_launches"])
+        peaks.append(peak)
+        log(f"  10c m={m}: {s:.3f} s (scaler pass {scale_s:.3f} s); borders "
+            f"{model.stats['border_sizes']}; {rec['chunks']} chunks, {rec['chunks_per_s']:.0f} "
+            f"chunks/s in the folds, degree seconds {[round(t, 3) for t in rec['degree_s']]}; "
+            f"peak device bytes {peak} above the start ({peak_abs} absolute)")
+        out[m] = dict(rec, s=s, scaler_s=scale_s, peak_bytes=peak, peak_bytes_abs=peak_abs)
+    if max(peaks) > PEAK_RATIO * min(peaks):
+        raise AssertionError(f"10c: streamed peak device bytes {peaks} vary more than "
+                             f"{PEAK_RATIO}x across the sweep")
+    log(f"  10c: streamed peaks within {max(peaks) / min(peaks):.3f}x across a "
+        f"{SCALE_ROWS[-1] // SCALE_ROWS[0]}x sweep of m")
+    m = SCALE_ROWS[-1]
+    wide, s, peak, _ = peak_run(lambda: api.fit(src, "oavi", psi=PSI, chunk_rows=65536))
+    _bit_equal_models("10c chunk_rows=65536", [wide], [model])
+    rec = _streamed(f"10c m={m} chunk_rows=65536", wide, wide.stats["kernel_launches"])
+    log(f"  10c m={m} chunk_rows=65536: {s:.3f} s, bit-identical; {rec['chunks']} chunks, "
+        f"{rec['chunks_per_s']:.0f} chunks/s in the folds; peak device bytes {peak}")
+    out["chunk_65536"] = dict(rec, s=s, peak_bytes=peak)
+    X, read_s = timed(lambda: src.read(0, m))
+    mem, s, peak, _ = peak_run(lambda: api.fit(X, "oavi", psi=PSI))
+    del X
+    _bit_equal_models("10c in memory", [mem], [model])
+    log(f"  10c m={m} in memory: {s:.3f} s (host read {read_s:.3f} s), bit-identical; peak "
+        f"device bytes {peak} against {out[m]['peak_bytes']} streamed")
+    out["in_memory"] = dict(s=s, read_s=read_s, peak_bytes=peak)
+    src2 = planted_stream(SCALE_ROWS[1])
+    out["profile"] = profile_device(
+        f"streamed fast fit, m={SCALE_ROWS[1]}, chunk_rows=4096",
+        lambda: api.fit(src2, "oavi", psi=PSI, chunk_rows=4096), watch=("gram",))
+    return out, src, model
+
+
+def stream_online(src, refit):
+    """10d: online.fit on the first 15/16 of the largest stream, api.update
+    with the rest: the streamed refit's bits; then again from a saved and
+    loaded FitState."""
+    import shutil
+
+    from repro_torch import api, online
+    from repro_torch.kernels import ops
+
+    m = src.num_rows
+    base = m - m // 16
+    log(f"phase 10d: online fit of {base} rows, api.update to {m} rows (chunk_rows=4096)")
+    prefix = planted_stream(base, scaler=src.scaler)
+    model0, fit_s = timed(lambda: api.fit(prefix, "oavi", psi=PSI, chunk_rows=4096,
+                                          capture_state=True))
+    ops.reset_launch_counts()
+    res, up_s = timed(lambda: api.update(model0, model0.fit_state, src))
+    launches = ops.launch_counts()
+    _bit_equal_models("10d update vs refit", [res.model], [refit])
+    st = res.stats
+    if st["replayed_degrees"] or st["folded_degrees"] != len(model0.fit_state.records):
+        raise AssertionError(f"10d: expected every degree to fold: {st}")
+    if launches["gram_update_acc"] != st["chunks"]:
+        raise AssertionError(f"10d: {launches['gram_update_acc']} Gram launches for "
+                             f"{st['chunks']} chunks")
+    ckpt = os.path.join(HERE, "build", "chip_smoke_fit_state")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        (_, save_s) = timed(lambda: model0.fit_state.save(ckpt))
+        loaded, load_s = timed(lambda: online.FitState.load(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    again, again_s = timed(lambda: api.update(model0, loaded, src))
+    _bit_equal_models("10d update from a loaded FitState", [again.model], [refit])
+    refit_chunks = refit.stats["streaming"]["num_chunks"]
+    log(f"  10d: online fit {fit_s:.3f} s; update {up_s:.3f} s folding {st['chunks']} chunks "
+        f"({st['folded_degrees']} degrees folded, none replayed) against the refit's "
+        f"{refit.stats['time_total']:.3f} s and {refit_chunks} chunks; bit-identical to the "
+        f"refit; FitState save {save_s:.3f} s, load {load_s:.3f} s, update from it "
+        f"{again_s:.3f} s, bit-identical")
+    return dict(base_rows=base, fit_s=fit_s, update_s=up_s, update_chunks=st["chunks"],
+                refit_s=refit.stats["time_total"], refit_chunks=refit_chunks, save_s=save_s,
+                load_s=load_s, update_from_loaded_s=again_s, launches=launches)
+
+
+def stream_class_batch():
+    """10e: the 16 skewed classes of phase 9b, class-batched streaming,
+    against each class's own streamed fit."""
+    from repro_torch import api
+    from repro_torch.core.oavi import OAVIConfig
+    from repro_torch.core.oracles import OracleConfig
+    from repro_torch.core.transform import MinMaxScaler
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+
+    sizes = synthetic.lognormal_sizes(16, 4096, seed=16)
+    log("phase 10e: api.fit_classes(..., chunk_rows=4096) of the phase-9b classes")
+    X9, y9 = synthetic.multiclass_planted(sizes, n=4, seed=116)
+    X9 = MinMaxScaler(dtype="float32").fit_transform(X9)
+    classes = [X9[y9 == c] for c in range(len(sizes))]
+    bpcg_ihb = OAVIConfig(psi=PSI, engine="oracle", solver=OracleConfig(name="bpcg"), ihb=True,
+                          cap_terms=64)
+    out = {}
+    for tag, cfg in (("fast", OAVIConfig(psi=PSI, cap_terms=64)), ("bpcg-ihb", bpcg_ihb)):
+        ops.reset_launch_counts()
+        bat, bat_s = timed(lambda: api.fit_classes(classes, "oavi", config=cfg, chunk_rows=4096))
+        launches = ops.launch_counts()
+        seq, seq_s = timed(lambda: [api.fit(X, "oavi", config=cfg, chunk_rows=4096)
+                                    for X in classes])
+        _bit_equal_models(f"10e {tag}", bat, seq)
+        degrees = max(len(m.stats["degrees"]) for m in bat)
+        chunks = sum(m.stats["streaming"]["num_chunks"] for m in bat)
+        step = launches["ihb_degree_batched"] if tag == "fast" else launches["ihb_update_batched"]
+        if launches["gram_update_acc"] != chunks or launches["gram_update_acc_batched"]:
+            raise AssertionError(f"10e {tag}: Gram launches {launches} for {chunks} chunks")
+        if tag == "fast" and step != degrees:
+            raise AssertionError(f"10e fast: {step} ihb_degree_batched launches for "
+                                 f"{degrees} degrees")
+        agg = api.aggregate_fit_stats(bat)
+        log(f"  10e {tag}: batched {bat_s:.3f} s, per-class streamed {seq_s:.3f} s, "
+            f"bit-identical; {degrees} degrees, statistics-step launches "
+            f"{'ihb_degree_batched' if tag == 'fast' else 'ihb_update_batched'} x{step} "
+            f"({step / degrees:.1f} a degree); escalations {agg['solver_escalations']}; "
+            f"{chunks} chunks")
+        out[tag] = dict(batched_s=bat_s, per_class_s=seq_s, degrees=degrees, step_launches=step,
+                        escalations=agg["solver_escalations"], chunks=chunks, launches=launches)
+    return out
+
+
+def main_path_streaming(dev):
+    """Phase 10: the streaming path's kernels at its shapes, then 10a-10e."""
+    log("phase 10: out-of-core and incremental OAVI on the card")
+    # the streamed fit's Gram at its chunk shapes, with a carry; its degree
+    # loop at paper scale's degree 2 (Lcap = Kcap = 64, ell0 = 4, K = 6)
+    kernels = dict(gram_chunk=check_gram_acc(dev, 4096, 64, 3, 64, split_blocks=7, reps=50),
+                   gram_chunk_65536=check_gram_acc(dev, 65536, 64, 3, 64, split_blocks=97,
+                                                   reps=20),
+                   degree=check_ihb_degree(dev, 64, 4, 6, 64, reps=20))
+    contract, bit_launches = stream_bit_contract()
+    paper, paper_launches = stream_paper_scale()
+    scale, src, refit = stream_scale()
+    online_rec = stream_online(src, refit)
+    batched = stream_class_batch()
+    return kernels, dict(paper=paper_launches, **bit_launches), dict(
+        bit_contract=contract, paper=paper, scale=scale, online=online_rec,
+        class_batched=batched)
+
+
 def profile_device(tag, fn, watch=()):
     """Device time by kernel over one call of ``fn`` (after a warm-up call),
     and the device's busy share of its wall time, from ``torch.profiler``.
@@ -1854,6 +2165,7 @@ def main() -> int:
     oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
     abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
     batch_launches, class_batched = main_path_class_batch(paper_data)
+    stream_kernels, stream_launches, streamed = main_path_streaming(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -1883,12 +2195,24 @@ def main() -> int:
         dict(name="ihb_degree (class-batched)", route="cuda", source=src + "ihb_update.cu",
              replaces="src/repro/kernels/ihb_update.py:52",
              launches=batch_launches["9c"]["ihb_degree_batched"], **degree_b["spam"]),
+        # the streamed fit (phase 10b): one carried Gram launch a chunk, and
+        # the fast engine's degree loop once a degree; the streamed oracle
+        # path (10a, cgavi-ihb) launches the single update a candidate
+        dict(name="gram_update_acc (streaming, carry per chunk)", route="cuda",
+             source=src + "gram_update.cu", replaces="src/repro/kernels/gram_update.py:118",
+             launches=stream_launches["paper"]["gram_update_acc"], **stream_kernels["gram_chunk"]),
+        dict(name="ihb_update (streaming)", route="cuda", source=src + "ihb_update.cu",
+             replaces="src/repro/kernels/ihb_update.py:52",
+             launches=stream_launches["paper"]["ihb_degree"], entry="ihb_degree (fast path)",
+             **stream_kernels["degree"],
+             ihb_update=dict(launches=stream_launches["cgavi-ihb"]["ihb_update"], **ihb[64])),
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"], **flash["serve"]),
     ]
     for entry in kernels:
-        if entry["launches"] <= 0 or entry.get("ihb_degree", {"launches": 1})["launches"] <= 0:
+        nested = [v["launches"] for v in entry.values() if isinstance(v, dict) and "launches" in v]
+        if min([entry["launches"]] + nested) <= 0:
             raise AssertionError(f"{entry['name']}: no launch on its main path")
     log("wide shapes: " + json.dumps({
         "gram_update_acc_m2M": gacc,
@@ -1906,7 +2230,9 @@ def main() -> int:
                                   "ihb_update_L2048": ihb_b[2048],
                                   "ihb_degree_paper": degree_b["paper"]},
         "class_batched_fits": class_batched,
-    }))
+        "streaming_kernels": {"gram_chunk_65536": stream_kernels["gram_chunk_65536"]},
+        "streaming": streamed,
+    }, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -12,6 +12,11 @@
   as in the reference, eligible OAVI configurations are fitted class-batched
   (:mod:`repro_torch.core.class_batch`), everything else sequentially;
   :func:`aggregate_fit_stats` rolls their counters up.
+* Out-of-core OAVI: ``fit(source=...)`` (or a source as ``X``, or an array
+  with ``chunk_rows``) streams through :mod:`repro_torch.streaming`;
+  ``capture_state=True`` also keeps the :class:`repro_torch.online.FitState`
+  that :func:`update` folds new rows into; ``fit_classes(...,
+  chunk_rows=...)`` streams every class.
 * :func:`save` / :func:`load` persist a model (every kind of
   :class:`VanishingIdealModel`) through :mod:`repro_torch.checkpoint.store`
   in the JAX package's format, so each package loads the other's saves
@@ -46,6 +51,8 @@ import numpy as np
 import torch
 
 from . import _device
+from . import online as online_mod
+from . import streaming as streaming_mod
 from .checkpoint import store as ckpt_store
 from .core import abm as abm_mod
 from .core import class_batch as class_batch_mod
@@ -72,11 +79,7 @@ OAVI_VARIANTS: Dict[str, Tuple[str, str, bool, bool]] = {
     "fast": ("fast", "bpcg", True, False),  # beyond-paper closed-form engine
 }
 
-_TODO = {
-    "sharded": "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12",
-    "chunk_rows": "chunk_rows (out-of-core fits) is not ported yet: "
-                  "ROADMAP.md queue 1 item 11",
-}
+_SHARDED = "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12"
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +230,9 @@ def fit(
     backend: str = "auto",
     config=None,
     class_batch: str = "auto",
+    source=None,
     chunk_rows: Optional[int] = None,
+    capture_state: bool = False,
     device=None,
     **method_kw,
 ):
@@ -235,34 +240,101 @@ def fit(
 
     ``X`` is an (m, n) array in ``[0, 1]^n``, or a list of per-class arrays
     (one model per class, see :func:`fit_classes`; ``class_batch`` applies
-    there).  ``method`` is a spec of :func:`available_methods`.  ``backend``
-    is ``"auto"`` or ``"local"`` (both run the local fit).  ``config`` is a
+    there), or a :class:`repro_torch.streaming.DataSource` (as ``source=``).
+    ``method`` is a spec of :func:`available_methods`.  ``backend`` is
+    ``"auto"`` or ``"local"`` (both run the local fit).  ``config`` is a
     pre-built ``OAVIConfig`` / ``ABMConfig`` / ``VCAConfig`` and overrides
     ``psi`` and ``method_kw``.  ``device=None`` means the CUDA card.
     ``**method_kw`` goes to the method's config (e.g. ``cap_terms=64``, or
     ``solver_kw={"tau": 50.0}`` for an OAVI variant's oracle).
+
+    ``source`` fits OAVI out-of-core (:func:`repro_torch.streaming.fit`):
+    the evaluation matrix is rebuilt per degree in ``chunk_rows``-row chunks
+    (default :data:`repro_torch.streaming.DEFAULT_CHUNK_ROWS`) and folded
+    into Gram statistics, bit for bit the in-memory fit at matched capacity.
+    The source must be scaled to ``[0, 1]^n`` already.  ``chunk_rows`` with
+    an array streams through the array.  ``capture_state`` (streamed fits
+    only) also keeps the :class:`repro_torch.online.FitState`, as
+    ``model.fit_state``, for :func:`update`.
     """
-    if chunk_rows is not None:
-        raise NotImplementedError(_TODO["chunk_rows"])
+    if source is None and streaming_mod.is_source(X):
+        source, X = X, None
+    if source is None and chunk_rows is not None and not isinstance(X, (list, tuple)):
+        source, X = streaming_mod.as_source(np.asarray(X)), None
+    if source is not None:
+        return _fit_streaming(source, method, psi=psi, backend=backend, config=config,
+                              chunk_rows=chunk_rows, capture_state=capture_state,
+                              device=device, **method_kw)
+    if capture_state:
+        raise ValueError(
+            "capture_state=True needs the streaming fit path: pass source= "
+            "(or an in-memory X together with chunk_rows=)"
+        )
     if isinstance(X, (list, tuple)):
         return fit_classes(X, method, psi=psi, backend=backend, config=config,
-                           class_batch=class_batch, device=device, **method_kw)
+                           class_batch=class_batch, chunk_rows=chunk_rows, device=device,
+                           **method_kw)
     _check_class_batch(class_batch)
     entry, variant = resolve(method)
-    if backend == "sharded":
-        if entry.name != "oavi":
-            raise ValueError(f"method {entry.name!r} does not support backend='sharded'")
-        raise NotImplementedError(_TODO["sharded"])
-    if backend not in ("auto", "local"):
-        raise ValueError(
-            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
-        )
+    _check_backend(entry, backend)
     dev = _device.resolve(device)
     model = entry.fit(np.asarray(X), variant=variant, psi=psi, config=config,
                       device=dev, **method_kw)
     model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
                           "device": str(dev)}
     return model
+
+
+def _check_backend(entry: MethodEntry, backend: str) -> None:
+    if backend == "sharded":
+        if entry.name != "oavi":
+            raise ValueError(f"method {entry.name!r} does not support backend='sharded'")
+        raise NotImplementedError(_SHARDED)
+    if backend not in ("auto", "local"):
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
+        )
+
+
+def _fit_streaming(source, method: str, *, psi: float, backend: str, config,
+                   chunk_rows: Optional[int], capture_state: bool, device, **method_kw):
+    """Out-of-core dispatch: an OAVI spec to :func:`repro_torch.streaming.fit`,
+    or with ``capture_state`` to :func:`repro_torch.online.fit` (the same
+    fold, plus the persisted accumulators)."""
+    entry, variant = resolve(method)
+    if entry.name != "oavi":
+        raise ValueError(f"streaming fit (source=) supports OAVI only, got method {method!r}")
+    _check_backend(entry, backend)
+    cfg = config if config is not None else oavi_config_for(variant or "fast", psi, **method_kw)
+    dev = _device.resolve(device)
+    chunk_rows = chunk_rows or streaming_mod.DEFAULT_CHUNK_ROWS
+    api_stats = {"method": entry.spec(variant), "backend": "local", "device": str(dev),
+                 "streaming": True}
+    if capture_state:
+        model, fit_state = online_mod.fit(source, cfg, chunk_rows=chunk_rows, device=dev)
+        model.fit_state = fit_state
+        api_stats["online"] = True
+    else:
+        model = streaming_mod.fit(source, cfg, chunk_rows=chunk_rows, device=dev)
+    model.stats["api"] = api_stats
+    return model
+
+
+def update(model, state, source, **kw):
+    """Refresh a :func:`fit(..., capture_state=True) <fit>` model after its
+    source grew: only the new rows are folded into ``state``'s per-degree
+    Gram accumulators, and the degree steps re-run; the model equals a
+    refit of the grown source bit for bit at matched capacity.  Returns the
+    :class:`repro_torch.online.UpdateResult`, whose ``.model`` carries the
+    next ``fit_state``.  Keywords go to :func:`repro_torch.online.update`
+    (``chunk_rows``, ``scaler``, ``prefetch``, ``device``, ...)."""
+    result = online_mod.update(model, state, source, **kw)
+    api_stats = dict(getattr(model, "stats", {}).get("api") or {})
+    api_stats.update({"backend": "local", "device": str(result.model.device),
+                      "streaming": True, "online": True})
+    result.model.stats["api"] = api_stats
+    result.model.fit_state = result.state
+    return result
 
 
 def _check_class_batch(class_batch: str) -> None:
@@ -294,20 +366,22 @@ def fit_classes(
     fit's at matched capacity.  ``class_batch="off"``, a single class, ABM,
     VCA and the Cholesky engine fit one class after another.  Each batched
     model's ``stats["class_batch_padding"]`` reports the padded rows its
-    group paid.  ``chunk_rows`` and ``backend="sharded"`` are not ported
-    (ROADMAP.md queue 1 items 11 and 12).  Returns the models in class
-    order; count group-shared stats with :func:`aggregate_fit_stats`.
+    group paid.  With ``chunk_rows`` every OAVI class streams out-of-core:
+    batchable configs through :func:`repro_torch.streaming.fit_classes` (one
+    statistics step per degree for the group, no row padding), the others
+    one streamed fit after another.  ``backend="sharded"`` is not ported
+    (ROADMAP.md queue 1 item 12).  Returns the models in class order; count
+    group-shared stats with :func:`aggregate_fit_stats`.
     """
     _check_class_batch(class_batch)
-    if chunk_rows is not None:
-        raise NotImplementedError(_TODO["chunk_rows"])
     entry, variant = resolve(method)
     Xs = [np.asarray(X) for X in Xs]
     dev = _device.resolve(device)
+    stream = chunk_rows is not None and entry.name == "oavi"
 
     def seq_fit(X):
         return fit(X, method, psi=psi, backend=backend, config=config, device=dev,
-                   **method_kw)
+                   chunk_rows=chunk_rows if stream else None, **method_kw)
 
     if class_batch == "off" or entry.name != "oavi" or len(Xs) < 2:
         return [seq_fit(X) for X in Xs]
@@ -315,12 +389,13 @@ def fit_classes(
                                                             **dict(method_kw))
     if not oavi_mod.class_batchable(cfg):
         return [seq_fit(X) for X in Xs]  # the Cholesky engine: sequential
-    if backend == "sharded":
-        raise NotImplementedError(_TODO["sharded"])
-    if backend not in ("auto", "local"):
-        raise ValueError(
-            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
-        )
+    _check_backend(entry, backend)
+    if stream:
+        fitted = streaming_mod.fit_classes(Xs, cfg, chunk_rows=chunk_rows, device=dev)
+        for model in fitted:
+            model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
+                                  "device": str(dev), "streaming": True, "class_batch": True}
+        return fitted
 
     models: List[Optional[VanishingIdealModel]] = [None] * len(Xs)
     sizes = [X.shape[0] for X in Xs]
@@ -706,5 +781,6 @@ __all__ = [
     "resolve",
     "save",
     "save_state_dict",
+    "update",
     "VanishingIdealModel",
 ]

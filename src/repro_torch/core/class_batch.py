@@ -42,9 +42,10 @@ changes no bit either (``tests/test_torch_class_batch.py`` holds uneven
 class sizes against the unpadded sequential fit).
 
 The host planner (:func:`class_buckets`, :func:`plan_class_groups`) is a copy
-of the reference's (stdlib and numpy only).  Not ported: the sharded
-composition (ROADMAP queue 1 item 12), class-batched streaming (item 11) and
-the observability registry's gauges (item 13a); the reference's
+of the reference's (stdlib and numpy only).  Class-batched streaming is
+:func:`repro_torch.streaming.fit_classes`.  Not ported: the sharded
+composition (ROADMAP queue 1 item 12) and the observability registry's
+gauges (item 13a); the reference's
 ``recompiles`` count jit traces, which the eager port has none of.
 """
 
@@ -205,21 +206,9 @@ def fit_classes(
         valid_t = torch.as_tensor(valid, device=dev)
         # all O(m) work: one launch of the hand-written kernel for the group
         QL_raw, C_raw = kernel_ops.gram_accumulate_batched(A, Xd, p_t, v_t)
-        # escalation: a budget that cut a valid solve short doubles, and the
-        # candidate loop runs again from the same Gram and a copy of N (the
-        # loop updates N in place; AtA and A are not touched before the end)
-        while True:
-            st_in = state
-            if schedule is not None and state.N is not None:
-                st_in = state._replace(N=state.N.clone())
-            res, st_out = stats_step_batched(config, QL_raw, C_raw, st_in, ells, Ks, ms,
-                                             valid_t, schedule)
-            if (schedule is None or not bool(res.unconverged.any())
-                    or schedule >= oracles.max_schedule(config.solver)):
-                break
-            schedule = oracles.escalate_schedule(config.solver, schedule)
-            escalations += 1
-        state = st_out
+        res, state, schedule, escalated = escalating_step(config, QL_raw, C_raw, state, ells,
+                                                          Ks, ms, valid_t, schedule)
+        escalations += escalated
 
         # appended candidates' columns into each class's slice of A
         kmax = res.accepted.shape[1]
@@ -264,6 +253,29 @@ def fit_classes(
                                 feature_perm=perms[c], stats=stats, dtype=config.dtype,
                                 device=dev))
     return models
+
+
+def escalating_step(config: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState, ells, Ks,
+                    ms, valid, schedule: Optional[int]):
+    """One class-batched degree's decisions (:func:`~repro_torch.core.oavi.
+    stats_step_batched`) under the escalation protocol: while a valid
+    class's solve was cut short by the fixed-schedule budget, the budget
+    doubles and the step runs again from the same Gram and a copy of N (the
+    step updates N in place; AtA is not touched before the end), up to
+    ``oracles.max_schedule``.  Returns ``(result, new state, schedule,
+    escalations)``."""
+    escalations = 0
+    while True:
+        st_in = state
+        if schedule is not None and state.N is not None:
+            st_in = state._replace(N=state.N.clone())
+        res, st_out = stats_step_batched(config, QL_raw, C_raw, st_in, ells, Ks, ms, valid,
+                                         schedule)
+        if (schedule is None or not bool(res.unconverged.any())
+                or schedule >= oracles.max_schedule(config.solver)):
+            return res, st_out, schedule, escalations
+        schedule = oracles.escalate_schedule(config.solver, schedule)
+        escalations += 1
 
 
 def class_buckets(sizes: Sequence[int]) -> Dict[int, List[int]]:

@@ -627,6 +627,22 @@ def collect_degree(book, border, accepted, mses, coeffs, generators) -> int:
     return len(book)
 
 
+def finish_fit_stats(stats: Dict, book, generators, Lcap: int, launches0: Dict,
+                     reads0: int, t_start: float) -> None:
+    """The closing entries of a fit's stats: kernel launches and host reads
+    since ``launches0`` / ``reads0`` (the result copies of each degree not
+    counted), the final capacity, the wall time since ``t_start`` and the
+    model's sizes."""
+    launches1 = kernel_ops.launch_counts()
+    stats["kernel_launches"] = {k: launches1[k] - launches0[k] for k in launches1}
+    stats["host_reads"] = oracles.host_reads - reads0
+    stats["Lcap_final"] = Lcap
+    stats["time_total"] = time.perf_counter() - t_start
+    stats["num_G"] = len(generators)
+    stats["num_O"] = len(book)
+    stats["G_plus_O"] = len(generators) + len(book)
+
+
 def check_config(config: OAVIConfig) -> None:
     """Raise on an engine, solver or ordering the fit does not know."""
     if config.engine not in ("fast", "oracle"):
@@ -709,16 +725,7 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
         ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
                              generators)
 
-    launches1 = kernel_ops.launch_counts()
-    stats["kernel_launches"] = {k: launches1[k] - launches0[k] for k in launches1}
-    # host reads inside the candidate loops (the result copies of each
-    # degree not counted)
-    stats["host_reads"] = oracles.host_reads - reads0
-    stats["Lcap_final"] = Lcap
-    stats["time_total"] = time.perf_counter() - t_start
-    stats["num_G"] = len(generators)
-    stats["num_O"] = len(book)
-    stats["G_plus_O"] = len(generators) + len(book)
+    finish_fit_stats(stats, book, generators, Lcap, launches0, reads0, t_start)
     return OAVIModel(
         n=n,
         psi=config.psi,

@@ -16,8 +16,11 @@ A fitted pipeline serializes whole (scaler, per-class models, SVM head) in
 the JAX package's layout and format (``to_state_dict`` / ``save`` /
 ``load``), so either package loads the other's classifiers.
 
-Not ported yet: streaming fits and ``capture_fit_state`` (ROADMAP.md queue 1
-item 11); ``attach_engine`` (item 13) raises :class:`NotImplementedError`.
+``chunk_rows`` streams each per-class OAVI fit out-of-core
+(:mod:`repro_torch.streaming`), and ``capture_fit_state`` also keeps each
+class's :class:`repro_torch.online.FitState` on ``clf.fit_states`` for
+:func:`repro_torch.api.update`.  Not ported yet: ``attach_engine`` (ROADMAP.md
+queue 1 item 13) raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ CLASSIFIER_FORMAT = "repro.vanishing_ideal_classifier.v1"
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The reference's ``PipelineConfig`` less the fields of unported paths
-    (``mesh``, ``chunk_rows``, ``capture_fit_state``)."""
+    """The reference's ``PipelineConfig`` less the field of the unported
+    sharded path (``mesh``)."""
 
     method: str = "fast"  # repro_torch.api method spec (or bare OAVI variant)
     psi: float = 0.005
@@ -49,6 +52,14 @@ class PipelineConfig:
     # 'auto': eligible per-class OAVI fits run class-batched, grouped into
     # shared row buckets (repro_torch.core.class_batch); 'off': sequential
     class_batch: str = "auto"
+    # out-of-core generator construction: each per-class OAVI fit streams in
+    # chunk_rows-row chunks (repro_torch.streaming; bit for bit the in-memory
+    # fit at matched capacity).  None: in-memory fits.
+    chunk_rows: Optional[int] = None
+    # keep each class's repro_torch.online.FitState (clf.fit_states, class
+    # order) for repro_torch.api.update; needs chunk_rows and an OAVI method,
+    # and fits the classes one after another (states are per class)
+    capture_fit_state: bool = False
 
 
 def _not_ported(what: str, item: str):
@@ -67,6 +78,28 @@ class VanishingIdealClassifier:
         self.svm = LinearSVM(config.svm, device=self.device)
         self.classes_: Optional[np.ndarray] = None
         self.stats: Dict = {}
+        self.fit_states: List = []  # per-class FitState (capture_fit_state)
+
+    def _fit_generator_models(self, Xcs) -> List:
+        """Per-class generator construction through
+        :func:`repro_torch.api.fit_classes`, or one streamed fit per class
+        that keeps its :class:`~repro_torch.online.FitState`."""
+        from .. import api
+
+        cfg = self.config
+        self.fit_states = []
+        kw = dict(method=cfg.method, psi=cfg.psi, backend=cfg.backend,
+                  chunk_rows=cfg.chunk_rows, device=self.device, **dict(cfg.oavi_kw or {}))
+        if not cfg.capture_fit_state:
+            return api.fit_classes(Xcs, class_batch=cfg.class_batch, **kw)
+        if cfg.chunk_rows is None:
+            raise ValueError(
+                "capture_fit_state=True requires chunk_rows (the streaming "
+                "fit path persists the Gram accumulators)"
+            )
+        models = [api.fit(Xc, capture_state=True, **kw) for Xc in Xcs]
+        self.fit_states = [m.fit_state for m in models]
+        return models
 
     def _feature_transform(self, X) -> np.ndarray:
         from .. import api
@@ -83,20 +116,11 @@ class VanishingIdealClassifier:
     def fit(self, X, y) -> "VanishingIdealClassifier":
         from .. import api
 
-        cfg = self.config
         t0 = time.perf_counter()
         X = self.scaler.fit_transform(X)
         y = np.asarray(y)
         self.classes_ = np.unique(y)
-        self.models = api.fit_classes(
-            [X[y == c] for c in self.classes_],
-            method=cfg.method,
-            psi=cfg.psi,
-            backend=cfg.backend,
-            class_batch=cfg.class_batch,
-            device=self.device,
-            **dict(cfg.oavi_kw or {}),
-        )
+        self.models = self._fit_generator_models([X[y == c] for c in self.classes_])
         t_gen = time.perf_counter() - t0
         t1 = time.perf_counter()
         Xt = self._feature_transform(X)
@@ -163,8 +187,7 @@ class VanishingIdealClassifier:
         """Flat array tree + JSON-safe metadata for the whole pipeline, in
         the JAX package's layout: ``model_###.`` prefixed per-class model
         arrays, ``scaler_lo``, ``scaler_scale``, ``svm_W``, ``svm_b`` and
-        ``classes``.  The reference's config keys of paths the port lacks
-        are written with the values the port behaves as."""
+        ``classes``."""
         from .. import api
 
         if self.svm.W is None or self.classes_ is None:
@@ -196,8 +219,8 @@ class VanishingIdealClassifier:
                 "backend": cfg.backend,
                 "batch_size": cfg.batch_size,
                 "class_batch": cfg.class_batch,
-                "chunk_rows": None,
-                "capture_fit_state": False,
+                "chunk_rows": cfg.chunk_rows,
+                "capture_fit_state": cfg.capture_fit_state,
             },
             "svm_stats": self.svm.stats,
             "stats": self.stats,
@@ -224,6 +247,9 @@ class VanishingIdealClassifier:
                 batch_size=cfg["batch_size"],
                 # saves that lack the key fitted with the default, 'auto'
                 class_batch=cfg.get("class_batch", "auto"),
+                # saves that lack the keys fitted in memory
+                chunk_rows=cfg.get("chunk_rows"),
+                capture_fit_state=cfg.get("capture_fit_state", False),
             ),
             device=device,
         )

@@ -13,10 +13,16 @@ that package):
 * :func:`multiclass_planted`, :func:`lognormal_sizes` — k planted classes of
   given (lognormal-skewed) sizes: the multi-class fit benchmark's regime.
 * :func:`random_cube` — uniform noise in [0,1]^n (Figure 1's setting).
+* :func:`planted_stream_tile`, :func:`planted_source`, :func:`write_shards`
+  — the out-of-core data: a tile-deterministic planted stream as a
+  generator-backed source, and the ``.npy`` shard directory writer (the
+  reference's chaos hooks are not ported: ROADMAP.md queue 1 item 13d).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -134,3 +140,139 @@ def train_test_split(X, y, test_frac: float = 0.4, seed: int = 0):
     cut = int(round(m * (1.0 - test_frac)))
     tr, te = perm[:cut], perm[cut:]
     return X[tr], y[tr], X[te], y[te]
+
+
+# ---------------------------------------------------------------------------
+# Streaming data: deterministic planted-polynomial tiles + .npy shard writer
+# ---------------------------------------------------------------------------
+
+STREAM_TILE_ROWS = 4096  # fixed tile granularity of the streamed generators
+
+
+def planted_stream_tile(
+    tile_idx: int, n: int = 3, seed: int = 0, degree: int = 2, noise: float = 0.03
+) -> np.ndarray:
+    """One full ``(STREAM_TILE_ROWS, n)`` tile of the planted-polynomial
+    stream: the construction of :func:`_planted_class` made
+    tile-deterministic (the constraint from ``seed`` alone, each tile its
+    own derived rng), so row ``r`` has the same values however the stream is
+    chunked and however large ``m`` is."""
+    rng_w = np.random.default_rng(seed)
+    k = min(3, n)
+    w = rng_w.uniform(0.5, 1.5, k)
+    c = rng_w.uniform(0.5, 1.5)
+    rng = np.random.default_rng(np.random.SeedSequence([seed + 1, tile_idx]))
+    X = rng.uniform(0.0, 1.0, (STREAM_TILE_ROWS, n))
+    s = (w * X[:, :k] ** degree).sum(axis=1)
+    scale = (c / np.maximum(s, 1e-9)) ** (1.0 / degree)
+    X[:, :k] *= scale[:, None]
+    X += rng.normal(0.0, noise, X.shape)
+    return X.astype(np.float32)
+
+
+def planted_source(m: int, n: int = 3, seed: int = 0, degree: int = 2,
+                   noise: float = 0.03):
+    """Generator-backed :class:`repro_torch.streaming.source.SyntheticSource`
+    over the planted-polynomial stream: ``m`` rows that occupy no storage."""
+    from ..streaming.source import SyntheticSource
+
+    return SyntheticSource(
+        lambda idx: planted_stream_tile(idx, n=n, seed=seed, degree=degree,
+                                        noise=noise),
+        num_rows=m,
+        num_features=n,
+        tile_rows=STREAM_TILE_ROWS,
+    )
+
+
+def write_shards(
+    path: str,
+    data,
+    shard_rows: int = 1 << 16,
+    dtype: str = "float32",
+    append: bool = False,
+) -> Dict:
+    """Write a source (or array) as a memory-mappable ``.npy`` shard
+    directory (``shard_00000.npy``, ... and ``meta.json``, format
+    ``repro.shards.v1``) that :class:`repro_torch.streaming.source.
+    ShardDirSource` reads.  Returns the metadata dict.
+
+    ``meta.json`` records a CRC32 and byte length per shard, checked before
+    a shard's rows are served.  ``append=True`` grows an existing directory:
+    the new shard files are written first and ``meta.json`` is replaced last
+    by an atomic rename, so a reader sees either the old or the new
+    directory.  Appending needs every existing shard full (the reader
+    indexes rows as ``pos // shard_rows``).
+    """
+    from ..resilience.integrity import checksum_file
+    from ..streaming.source import SHARD_FORMAT, SHARD_META, as_source
+
+    source = as_source(data)
+    m, n = source.num_rows, source.num_features
+    os.makedirs(path, exist_ok=True)
+    np_dtype = np.dtype(dtype)
+    first_shard, row_offset = 0, 0
+    checksums: list = []
+    shard_bytes: list = []
+    if append:
+        with open(os.path.join(path, SHARD_META)) as f:
+            meta = json.load(f)
+        if meta.get("format") != SHARD_FORMAT:
+            raise ValueError(
+                f"{path!r} is not a {SHARD_FORMAT} shard directory "
+                f"(format={meta.get('format')!r})"
+            )
+        if int(meta["num_features"]) != n or str(meta["dtype"]) != str(np_dtype):
+            raise ValueError(
+                f"append mismatch at {path!r}: existing "
+                f"(n={meta['num_features']}, dtype={meta['dtype']}), "
+                f"appending (n={n}, dtype={np_dtype})"
+            )
+        shard_rows = int(meta["shard_rows"])
+        row_offset = int(meta["num_rows"])
+        if row_offset % shard_rows != 0:
+            raise ValueError(
+                f"cannot append to {path!r}: existing num_rows={row_offset} "
+                f"is not a multiple of shard_rows={shard_rows} (the trailing "
+                "shard is partial; readers assume all but the last shard are "
+                "full)"
+            )
+        first_shard = int(meta["num_shards"])
+        if first_shard * shard_rows != row_offset:
+            raise ValueError(
+                f"{path!r}: meta.json is inconsistent — "
+                f"num_shards={first_shard} * shard_rows={shard_rows} != "
+                f"num_rows={row_offset} (partial write?)"
+            )
+        # a directory written without checksums keeps None (unknown) for
+        # its existing shards
+        checksums = list(meta.get("checksums") or [None] * first_shard)
+        shard_bytes = list(meta.get("shard_bytes") or [None] * first_shard)
+    num_new = max((m + shard_rows - 1) // shard_rows, 0 if append else 1)
+    for idx in range(num_new):
+        lo = idx * shard_rows
+        hi = min(lo + shard_rows, m)
+        block = np.asarray(source.read(lo, hi), np_dtype)
+        fname = os.path.join(path, f"shard_{first_shard + idx:05d}.npy")
+        np.save(fname, block)
+        crc, nbytes = checksum_file(fname)
+        checksums.append(crc)
+        shard_bytes.append(nbytes)
+    meta = {
+        "format": SHARD_FORMAT,
+        "num_rows": int(row_offset + m),
+        "num_features": int(n),
+        "shard_rows": int(shard_rows),
+        "num_shards": int(first_shard + num_new),
+        "dtype": str(np_dtype),
+        "checksums": checksums,
+        "shard_bytes": shard_bytes,
+    }
+    # meta commits the write: tmp + rename is atomic on POSIX
+    tmp = os.path.join(path, SHARD_META + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, SHARD_META))
+    return meta

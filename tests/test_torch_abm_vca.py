@@ -413,7 +413,7 @@ def test_fused_transform_row_stable_on_cpu(f1_data, appc_split):
 def test_fit_classes_baselines_run_sequentially_under_class_batch_auto(appc_split):
     """The reference batches OAVI classes only; ABM and VCA fit one class
     after another under class_batch='auto', in both packages, while OAVI
-    runs the class-batched path (and chunk_rows still raises)."""
+    runs the class-batched path, streamed with chunk_rows."""
     Xtr, ytr = appc_split[0], appc_split[1]
     Xs = MinMaxScaler(dtype="float32").fit_transform(Xtr)
     classes = [Xs[ytr == c] for c in np.unique(ytr)]
@@ -424,8 +424,10 @@ def test_fit_classes_baselines_run_sequentially_under_class_batch_auto(appc_spli
         assert all(m.stats.get("class_batch") is None for m in port)
     oavi_models = api.fit_classes(classes, "oavi", class_batch="auto", device="cpu")
     assert all(m.stats["class_batch"]["size"] == len(classes) for m in oavi_models)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.fit_classes(classes, "oavi", class_batch="auto", chunk_rows=1024, device="cpu")
+    streamed = api.fit_classes(classes, "oavi", class_batch="auto", chunk_rows=1024,
+                               device="cpu")
+    assert all(m.stats["class_batch"]["streaming"] for m in streamed)
+    assert [m.book.terms for m in streamed] == [m.book.terms for m in oavi_models]
 
 
 # ---------------------------------------------------------------------------

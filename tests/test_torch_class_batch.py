@@ -409,8 +409,9 @@ def test_api_routes_and_padding_stats():
 
 def test_api_sequential_routes():
     """``class_batch="off"``, a single class, ABM, VCA and the Cholesky engine
-    fit one class after another (no group stats); ``chunk_rows`` and the
-    sharded backend still raise, naming their ROADMAP items."""
+    fit one class after another (no group stats); ``chunk_rows`` streams the
+    classes to the in-memory bits; the sharded backend still raises, naming
+    its ROADMAP item."""
     Xs = _classes(k=2, m=128, seed=3)
     auto = api.fit_classes(Xs, "oavi:fast", psi=PSI, device="cpu")
     off = api.fit_classes(Xs, "oavi:fast", psi=PSI, class_batch="off", device="cpu")
@@ -426,8 +427,10 @@ def test_api_sequential_routes():
         assert all(m.stats.get("class_batch") is None for m in models), spec
     with pytest.raises(ValueError, match="class_batch"):
         api.fit_classes(Xs, "oavi:fast", class_batch="always", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.fit_classes(Xs, "oavi:fast", chunk_rows=1024, device="cpu")
+    streamed = api.fit_classes(Xs, "oavi:fast", psi=PSI, chunk_rows=1024, device="cpu")
+    assert all(m.stats["class_batch"]["streaming"] for m in streamed)
+    for s, b in zip(streamed, off):
+        _assert_bit_exact(s, b)
     with pytest.raises(NotImplementedError, match="item 12"):
         api.fit_classes(Xs, "oavi:fast", backend="sharded", device="cpu")
 

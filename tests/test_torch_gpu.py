@@ -797,3 +797,103 @@ def test_class_batched_fit_on_card_equals_sequential(cuda, variant):
     assert launches["ihb_degree_batched"] == (degrees if variant == "fast" else 0)
     if variant == "cgavi-ihb":
         assert launches["ihb_update_batched"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core and incremental OAVI on the card
+# ---------------------------------------------------------------------------
+
+
+def _bit_equal_models(a, b):
+    assert a.book.terms == b.book.terms
+    assert [g.term for g in a.generators] == [g.term for g in b.generators]
+    for ga, gb in zip(a.generators, b.generators):
+        assert np.array_equal(ga.coeffs, gb.coeffs) and ga.mse == gb.mse, ga.term
+
+
+def _planted_stream(m, seed=0):
+    from repro_torch.data import synthetic
+    from repro_torch.streaming import ScaledSource, StreamingMinMaxScaler
+
+    raw = synthetic.planted_source(m, n=3, seed=seed)
+    return ScaledSource(raw, StreamingMinMaxScaler(dtype="float32").fit_source(raw, 4096))
+
+
+@pytest.mark.parametrize("chunk_rows", [256, 1024, 4096])
+@pytest.mark.parametrize("variant", ["fast", "cgavi-ihb"])
+def test_streamed_fit_on_card_equals_in_memory(cuda, variant, chunk_rows):
+    """The streamed fit on the card equals the card's in-memory fit bit for
+    bit, launching the one-class Gram kernel once per chunk per degree."""
+    from repro_torch import api
+
+    src = _planted_stream(20_000)
+    X = src.read(0, src.num_rows)
+    ref = api.fit(X, f"oavi:{variant}", psi=PSI)
+    model = api.fit(src, f"oavi:{variant}", psi=PSI, chunk_rows=chunk_rows)
+    _bit_equal_models(model, ref)
+    st = model.stats
+    assert st["streaming"]["num_chunks"] == len(st["degrees"]) * -(-20_000 // chunk_rows)
+    assert st["kernel_launches"]["gram_update_acc"] == st["streaming"]["num_chunks"]
+    if variant == "fast":
+        assert st["kernel_launches"]["ihb_degree"] == len(st["degrees"])
+
+
+@pytest.mark.parametrize("m,L,n,K,chunk_rows", [
+    (16_384, 64, 3, 64, 4096),    # a paper-scale degree: partials path
+    (16_384, 64, 3, 64, 256),
+    (2_048, 1280, 57, 1280, 256),  # wide: the in-block fold
+])
+def test_gram_carry_chain_at_streaming_shapes(cuda, m, L, n, K, chunk_rows):
+    """A chain of carried calls at the streamed fit's chunk shapes equals
+    one call bit for bit, on the path the wrapper picks, and the plain
+    version within the Gram tolerance."""
+    rng = np.random.default_rng(m + chunk_rows)
+    A, X, p, v = _gram_inputs(rng, m, L, n, K, cuda)
+    whole = ops.gram_accumulate(A, X, p, v)
+    acc = (torch.zeros(L, K, device=cuda), torch.zeros(K, K, device=cuda))
+    before = ops.launch_counts()["gram_update_acc"]
+    for lo in range(0, m, chunk_rows):
+        acc = ops.gram_accumulate(A[lo:lo + chunk_rows], X[lo:lo + chunk_rows], p, v, acc=acc)
+    assert ops.launch_counts()["gram_update_acc"] == before + m // chunk_rows
+    for a, b in zip(acc, whole):
+        assert torch.equal(a, b)
+    want = ops.gram_accumulate(A, X, p, v, use_kernel=False)
+    for g, w in zip(acc, want):
+        torch.testing.assert_close(g, w, rtol=GRAM_RTOL, atol=GRAM_ATOL)
+
+
+def test_online_update_on_card_equals_refit(cuda, tmp_path):
+    """online.fit on a prefix, then update with the rest (and from a saved
+    and loaded state): the streamed refit's bits, on the card."""
+    from repro_torch import api, online
+    from repro_torch.data import synthetic
+    from repro_torch.streaming import ScaledSource
+
+    src = _planted_stream(40_000, seed=1)
+    prefix = ScaledSource(synthetic.planted_source(37_501, n=3, seed=1), src.scaler)
+    model0 = api.fit(prefix, "oavi:fast", psi=PSI, chunk_rows=4096, capture_state=True)
+    res = api.update(model0, model0.fit_state, src)
+    ref = api.fit(src, "oavi:fast", psi=PSI, chunk_rows=4096)
+    _bit_equal_models(res.model, ref)
+    assert res.stats["folded_degrees"] == len(model0.fit_state.records)
+    model0.fit_state.save(str(tmp_path / "state"))
+    again = api.update(model0, online.FitState.load(str(tmp_path / "state")), src)
+    _bit_equal_models(again.model, ref)
+
+
+@pytest.mark.parametrize("variant", ["fast", "bpcgavi-wihb"])
+def test_streamed_fit_classes_on_card(cuda, variant):
+    """The class-batched streamed fit on the card: each class equals its own
+    streamed fit bit for bit; one statistics step per degree for the group."""
+    from repro_torch import api
+
+    Xs = [_planted_stream(m, seed=10 + i).read(0, m) for i, m in enumerate((3000, 5000, 1200))]
+    bat = api.fit_classes(Xs, f"oavi:{variant}", psi=PSI, chunk_rows=1024)
+    for X, b in zip(Xs, bat):
+        _bit_equal_models(b, api.fit(X, f"oavi:{variant}", psi=PSI, chunk_rows=1024))
+    launches = bat[0].stats["kernel_launches"]
+    degrees = max(len(m.stats["degrees"]) for m in bat)
+    assert launches["gram_update_acc"] == sum(m.stats["streaming"]["num_chunks"] for m in bat)
+    assert launches["gram_update_acc_batched"] == 0
+    if variant == "fast":
+        assert launches["ihb_degree_batched"] == degrees and launches["ihb_degree"] == 0

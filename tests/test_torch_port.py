@@ -68,8 +68,16 @@ SLICE_MODULES = [
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.model",
+    "repro_torch.online",
+    "repro_torch.online.drift",
+    "repro_torch.online.state",
+    "repro_torch.online.update",
     "repro_torch.resilience",
     "repro_torch.resilience.integrity",
+    "repro_torch.streaming",
+    "repro_torch.streaming.fit",
+    "repro_torch.streaming.scaler",
+    "repro_torch.streaming.source",
 ]
 
 
@@ -126,15 +134,24 @@ def test_unported_methods_raise(spec):
 
 
 def test_unported_options_raise():
+    """Only the sharded backend (item 12) still raises; out-of-core fits
+    (item 11) stream, one class or a class-batched list, and equal the
+    in-memory fits bit for bit."""
     X = np.random.default_rng(0).uniform(0, 1, (64, 3))
     with pytest.raises(NotImplementedError, match="item 12"):
         api.fit(X, backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.fit(X, chunk_rows=1024, device="cpu")
+    streamed = api.fit(X, chunk_rows=1024, device="cpu")
+    in_memory = api.fit(X, device="cpu")
+    assert streamed.stats["api"]["streaming"] is True
+    assert streamed.book.terms == in_memory.book.terms
+    assert all(np.array_equal(a.coeffs, b.coeffs)
+               for a, b in zip(streamed.generators, in_memory.generators))
     models = api.fit([X, X], class_batch="auto", device="cpu")
     assert all(m.stats["api"]["class_batch"] is True for m in models)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.fit([X, X], class_batch="auto", chunk_rows=1024, device="cpu")
+    both = api.fit([X, X], class_batch="auto", chunk_rows=1024, device="cpu")
+    assert all(m.stats["api"]["streaming"] and m.stats["class_batch"]["streaming"]
+               for m in both)
+    assert [m.book.terms for m in both] == [m.book.terms for m in models]
 
 
 def test_resolve_matches_reference():

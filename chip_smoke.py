@@ -90,6 +90,26 @@ Phases, each reported on its own lines:
    streamed refit, again from a saved and loaded ``FitState``; (e) the
    16 skewed classes of 9b class-batched with ``chunk_rows=4096`` (``fast``
    and BPCG + IHB), each model bit for bit its class's own streamed fit.
+11. Serving and observability (``repro_torch.serving``, ``repro_torch.obs``):
+   (a) the phase-3 classifier saved, then served by
+   ``launch.serve_vi.main(["--model-dir", ...])`` (``ModelRegistry.load``
+   on the card, every bucket from 64 to 16,384 warmed): 2,048 requests of
+   ``synth_trace(mean_rows=128, seed=0)``, 8 closed-loop clients, a 2 ms
+   window, once ``predict`` and once ``transform`` inside a
+   ``torch.profiler`` window (``OBS_TORCH_PROFILE``); every reply held bit
+   for bit against the direct ``api.feature_transform`` (labels against
+   the classifier's head), 0 recompiles, 0 hand-kernel launches; (b) the
+   800,000-row test split through the engine, bit-equal to the direct
+   transform; (c) a hot swap with an injected activation failure, each
+   version's replies against its own direct path, and a replay with one
+   transient fault and one poison request (every other reply bit-equal to
+   the fault-free one); (d) an engine over phase 4's wide model (one
+   ``addcmul`` launch a term of its book a call); (e) phase 3's generator
+   fit with obs on (spans as ``record_function`` ranges, a profiler
+   window) against obs off: identical bits, the timing contract to 1e-9 s,
+   ``flops_per_degree`` equal to this script's ``gram_work`` and
+   ``degree_work`` at the shapes the fit dispatched, the exported trace
+   validated and rendered by ``launch.obs_report``.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -987,7 +1007,7 @@ def main_path_paper_scale():
                          classes, control, direct=FIT_DIRECT_TOL)
     return launches, dict(fit_s=fit_s, transform_s=transform_s, accuracy=acc,
                           ihb_appends=appends, generators_batched_s=gen_s["auto"],
-                          generators_sequential_s=gen_s["off"], **check), (Xtr, ytr, Xte, yte)
+                          generators_sequential_s=gen_s["off"], **check), (Xtr, ytr, Xte, yte), clf
 
 
 def main_path_wide():
@@ -2069,6 +2089,340 @@ def main_path_streaming(dev):
         class_batched=batched)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving (the (FT) stack) and the fits' observability
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 2048
+SERVE_ARGS = ["--requests", str(SERVE_REQUESTS), "--mean-rows", "128", "--concurrency", "8",
+              "--max-delay-ms", "2", "--max-batch-rows", "8192"]
+
+
+@contextlib.contextmanager
+def obs_profile(path):
+    """``OBS_TORCH_PROFILE=path`` for the duration (the obs profiler
+    windows capture there)."""
+    old = os.environ.get("OBS_TORCH_PROFILE")
+    os.environ["OBS_TORCH_PROFILE"] = path
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["OBS_TORCH_PROFILE"]
+        else:
+            os.environ["OBS_TORCH_PROFILE"] = old
+
+
+def serve_summary(tag, report, terms):
+    """Log one replay's report; returns its numbers, with the launches per
+    device call (hand kernels from the counts, ``addcmul`` from the
+    profile when there is one)."""
+    out = {k: report[k] for k in ("requests", "rows", "wall_s", "rows_per_s", "requests_per_s",
+                                  "lat_p50_ms", "lat_p90_ms", "lat_p99_ms", "lat_p999_ms",
+                                  "lat_max_ms", "device_calls", "padded_rows", "batches",
+                                  "requests_per_batch", "recompiles")}
+    msg = (f"  {tag}: {report['requests']} requests ({report['rows']} rows) in "
+           f"{report['wall_s']:.3f} s, {report['rows_per_s']:.0f} rows/s, "
+           f"{report['requests_per_s']:.1f} req/s; latency ms p50 {report['lat_p50_ms']:.3f} "
+           f"p90 {report['lat_p90_ms']:.3f} p99 {report['lat_p99_ms']:.3f} "
+           f"p999 {report['lat_p999_ms']:.3f}; {report['device_calls']} device calls, "
+           f"{report['padded_rows']} padded rows, {report['requests_per_batch']:.2f} requests "
+           f"a coalesced call, {report['recompiles']} recompiles")
+    if "device_busy_s" in report:
+        addcmul = sum(n for k, n in report["kernel_launches_by_name"].items() if "addcmul" in k)
+        launches = sum(report["kernel_launches_by_name"].values())
+        out.update(device_busy_s=report["device_busy_s"],
+                   device_idle_share=report["device_idle_share"],
+                   addcmul_per_call=addcmul / report["device_calls"],
+                   launches_per_call=launches / report["device_calls"])
+        # the engine's worker thread launches: the profiler sees its kernels
+        # (device activity) but not its host ops, so these are counts of
+        # kernels by name; a call of a book of L terms makes L - 1 addcmul
+        msg += (f"; profiled: device busy {report['device_busy_s'] * 1e3:.3f} ms, idle share "
+                f"{100 * report['device_idle_share']:.1f}%, {out['launches_per_call']:.1f} "
+                f"kernels a call of which addcmul {out['addcmul_per_call']:.1f} "
+                f"(the fused book has {terms} terms: {terms - 1} expected)")
+    log(msg)
+    if report["recompiles"] != 0:
+        raise AssertionError(f"{tag}: {report['recompiles']} recompiles after warm-up")
+    return out
+
+
+def serve_paper_scale(clf, Xte, tmp):
+    """11a-c: the phase-3 classifier saved, loaded through the registry and
+    served by ``serve_vi`` (predict, then transform under a profile), the
+    test split through the engine, a hot swap and a chaos replay."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_vi
+    from repro_torch.resilience import chaos
+    from repro_torch.serving import BatcherConfig, MicroBatcher, ModelRegistry
+
+    log("phase 11a: serve_vi over the phase-3 classifier (saved, then ModelRegistry.load on "
+        f"the card), {SERVE_REQUESTS} requests of synth_trace(mean_rows=128, seed=0), "
+        "concurrency 8, max_delay_ms 2, max_batch_rows 8192")
+    path = os.path.join(tmp, "clf")
+    clf.save(path)
+    payloads = serve_vi.make_payloads(clf.scaler.transform,
+                                      serve_vi.synth_trace(SERVE_REQUESTS, 128, 0), 0)
+    direct = [api.feature_transform(clf.models, p) for p in payloads]
+    launches0 = ops.launch_counts()
+    labels = []
+    rep = serve_vi.main(["--model-dir", path, "--kind", "predict"] + SERVE_ARGS, replies=labels)
+    feats = []
+    with obs_profile(os.path.join(tmp, "profile")):
+        rep_t = serve_vi.main(["--model-dir", path, "--kind", "transform"] + SERVE_ARGS,
+                              replies=feats)
+    if ops.launch_counts() != launches0:
+        raise AssertionError("serving launched a hand-written kernel")
+    for i, (lab, f, d) in enumerate(zip(labels, feats, direct)):
+        if not np.array_equal(f, d):
+            raise AssertionError(f"11a: transform reply {i} differs from the direct transform")
+        if not np.array_equal(lab, clf.head(d)):
+            raise AssertionError(f"11a: predicted labels of request {i} differ from clf's")
+    terms = len(api._fuse(clf.models).parents)
+    out = dict(predict=serve_summary("predict", rep, terms),
+               transform=serve_summary("transform, profiled", rep_t, terms),
+               hand_kernel_launches_per_call=0, terms=terms)
+
+    log("phase 11b: the 800,000-row test split through engine.transform (16,384-row chunks)")
+    want = clf.transform(Xte)  # the direct path: no engine attached yet
+    eng = clf.attach_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = clf.transform(Xte)
+    split_s = time.perf_counter() - t0
+    calls = eng.stats["device_calls"]
+    if not np.array_equal(got, want):
+        raise AssertionError("11b: engine transform of the test split differs from direct")
+    if calls != -(-Xte.shape[0] // eng.max_bucket):
+        raise AssertionError(f"11b: {calls} device calls")
+    log(f"  {Xte.shape[0]} rows in {split_s:.3f} s ({Xte.shape[0] / split_s:.0f} rows/s), "
+        f"{calls} device calls, {eng.stats['padded_rows']} padded rows; bit-equal to direct")
+    out["test_split"] = dict(rows=int(Xte.shape[0]), seconds=split_s, device_calls=calls)
+    clf.engine = None
+
+    log("phase 11c: hot swap (chaos site registry.activate) and a chaos replay "
+        "(one transient fault, one poison request at engine.transform)")
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.data import synthetic
+
+    reg = ModelRegistry()
+    v1 = reg.load("clf", path)
+    Xs, ys = synthetic.appendix_c(m=100_000, seed=1)
+    other = VanishingIdealClassifier(PipelineConfig(method="fast", psi=0.01)).fit(Xs, ys)
+    v2 = reg.register("clf", other, activate=False)
+    chaos.install(chaos.FaultPlan([chaos.Fault(site="registry.activate", at=1,
+                                               action="raise")]))
+    try:
+        reg.activate("clf", v2.version)
+        raise AssertionError("11c: the injected activation fault did not fire")
+    except chaos.InjectedFault:
+        pass
+    finally:
+        chaos.uninstall()
+    if reg.active_version("clf") != v1.version:
+        raise AssertionError("11c: a failed activation moved the active version")
+    req = Xte[:1000]
+    one = reg.get("clf").predict(req)
+    reg.activate("clf", v2.version)
+    two = reg.get("clf").predict(req)
+    if not (np.array_equal(one, clf.predict(req)) and np.array_equal(two, other.predict(req))
+            and np.array_equal(reg.get("clf", v1.version).transform(req), want[:1000])
+            and np.array_equal(reg.get("clf").transform(req), other.transform(req))):
+        raise AssertionError("11c: a version's reply differs from its own direct path")
+    sub = payloads[:256]
+    poison_at = 100
+    bad = sub[poison_at].copy()
+    bad[0, 0] = chaos.POISON_SENTINEL
+    sub = sub[:poison_at] + [bad] + sub[poison_at + 1:]
+    chaos.install(chaos.FaultPlan([
+        chaos.Fault(site="engine.transform", at=3, action="raise_transient"),
+        chaos.Fault(site="engine.transform", action="poison")]))
+    bat = MicroBatcher(v1.engine, config=BatcherConfig(max_delay_ms=2.0, backoff_ms=1.0))
+    try:
+        with bat:
+            futs = [bat.submit(p, "transform") for p in sub]
+            results = []
+            for f in futs:
+                try:
+                    results.append(f.result(timeout=120))
+                except chaos.PoisonRequestError as e:
+                    results.append(e)
+    finally:
+        plan = chaos.installed()
+        chaos.uninstall()
+    failed = [i for i, r in enumerate(results) if isinstance(r, Exception)]
+    if failed != [poison_at]:
+        raise AssertionError(f"11c: requests {failed} failed, expected only {poison_at}")
+    for i, r in enumerate(results):
+        if i != poison_at and not np.array_equal(r, direct[i]):
+            raise AssertionError(f"11c: rider {i} differs from the fault-free reply")
+    st = bat.stats
+    if st["retries"] < 1 or st["isolated_failures"] != 1:
+        raise AssertionError(f"11c: retries {st['retries']}, isolated {st['isolated_failures']}")
+    log(f"  swap: v{v1.version} -> v{v2.version} after one injected activation failure; "
+        f"each version's replies equal its own direct path.  chaos replay of {len(sub)} "
+        f"requests: {st['retries']} retry, {st['bisections']} bisections, "
+        f"{st['isolated_failures']} isolated failure (request {poison_at}), every other "
+        f"reply bit-equal to the fault-free one; fired {plan.fired[:4]}")
+    out["chaos"] = dict(retries=st["retries"], bisections=st["bisections"],
+                        isolated_failures=st["isolated_failures"], batches=st["batches"])
+    return out
+
+
+def serve_wide(wide_fast, tmp):
+    """11d: an engine over phase 4's wide model (Lcap = 2048): the
+    launch-bound case, one addcmul launch a term of the book per call."""
+    from repro_torch import api, obs
+    from repro_torch.launch import serve_vi
+    from repro_torch.serving import MicroBatcher, TransformEngine
+
+    X0, model, _ = wide_fast
+    eng = TransformEngine([model])
+    eng.warmup()
+    sizes = serve_vi.synth_trace(256, 128, 0)
+    rng = np.random.default_rng(1)
+    payloads = [X0[o:o + q] for q, o in
+                ((q, int(rng.integers(0, X0.shape[0] - q + 1))) for q in sizes)]
+    log(f"phase 11d: full width, {eng!r}, 256 requests of synth_trace(mean_rows=128)")
+    replies = []
+    with obs_profile(os.path.join(tmp, "profile_wide")):
+        with obs.device.profile_window("wide/replay") as win:
+            with MicroBatcher(eng) as bat:
+                rep = serve_vi.replay(bat, payloads, kind="transform", concurrency=8,
+                                      replies=replies)
+    busy_s, by_kernel = obs.device.profile_kernels(win.prof)
+    for i, (p, r) in enumerate(zip(payloads, replies)):
+        if not np.array_equal(r, api.feature_transform([model], p)):
+            raise AssertionError(f"11d: reply {i} differs from the direct transform")
+    es, bs = eng.stats, bat.stats
+    rep.update(device_calls=es["device_calls"], padded_rows=es["padded_rows"],
+               batches=bs["batches"], requests_per_batch=bs["requests"] / bs["batches"],
+               recompiles=es["recompiles"], device_busy_s=busy_s,
+               device_idle_share=1 - busy_s / rep["wall_s"], kernel_launches_by_name=by_kernel)
+    return serve_summary("wide", rep, eng.terms)
+
+
+def fit_observed(paper_data, tmp):
+    """11e: the phase-3 generator fit (class-batched, fast) again with obs
+    on, every span a record_function range, in a profile window; against
+    the same fit with obs off."""
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.core import oavi
+    from repro_torch.kernels import ops
+    from repro_torch.launch import obs_report
+
+    from repro_torch.core.transform import MinMaxScaler
+
+    Xtr, ytr = paper_data[0], paper_data[1]
+    Xs = MinMaxScaler(dtype="float32").fit_transform(Xtr)
+    classes = [Xs[ytr == c] for c in np.unique(ytr)]
+    log("phase 11e: the phase-3 generator fit with obs on (spans, record_function, a "
+        "torch.profiler window) against obs off")
+    with obs.disabled():
+        off_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            off = api.fit_classes(classes, psi=PSI)
+            torch.cuda.synchronize()
+            off_s.append(time.perf_counter() - t0)
+    on_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        api.fit_classes(classes, psi=PSI)
+        torch.cuda.synchronize()
+        on_s.append(time.perf_counter() - t0)
+    obs.reset()
+    obs.configure(torch_trace=True)
+    degrees = []
+    gram, collect = ops.gram_accumulate_batched, oavi.collect_degree
+
+    def rec_gram(A, X, parents, vars_, acc=None, **kw):
+        degrees.append((A.shape[0], A.shape[1], A.shape[2], X.shape[2], parents.shape[-1], []))
+        return gram(A, X, parents, vars_, acc, **kw)
+
+    def rec_collect(book, border, accepted, mses, coeffs, generators):
+        degrees[-1][5].append((len(book), np.asarray(accepted[: len(border)], bool)))
+        return collect(book, border, accepted, mses, coeffs, generators)
+
+    ops.gram_accumulate_batched, oavi.collect_degree = rec_gram, rec_collect
+    try:
+        with obs_profile(os.path.join(tmp, "profile_fit")):
+            on = api.fit_classes(classes, psi=PSI)
+            torch.cuda.synchronize()
+    finally:
+        ops.gram_accumulate_batched, oavi.collect_degree = gram, collect
+        obs.configure(torch_trace=False)
+    for a, b in zip(on, off):
+        if a.book.terms != b.book.terms or not all(
+                np.array_equal(x.coeffs, y.coeffs) for x, y in zip(a.generators, b.generators)):
+            raise AssertionError("11e: the obs-on fit's generators differ from obs-off")
+    st = on[0].stats
+    parts = st["time_setup"] + st["time_degrees"] + st["time_finalize"] + st["time_unattributed"]
+    if abs(st["time_total"] - parts) > 1e-9:
+        raise AssertionError(f"11e: timing contract off by {st['time_total'] - parts}")
+    # held against this script's own counts (gram_work, degree_work) at the
+    # shapes the fit dispatched: the Gram at its block-padded rows and
+    # capacity columns, the candidate loop on each class's real decisions
+    def dispatched(k, m, L, n, K, decided):
+        m_pad = -(-m // ops.GRAM_BLOCK) * ops.GRAM_BLOCK
+        gram = gram_work(torch.empty((m_pad, L), device="meta"),
+                         torch.empty((m_pad, n), device="meta"),
+                         torch.empty((K,), dtype=torch.int32, device="meta"), carry=False)[0]
+        return k * gram + sum(degree_work(acc, ell0, len(acc), L)[0] if len(acc) else 0.0
+                              for ell0, acc in decided)
+
+    want = [dispatched(*d) for d in degrees]
+    if st["flops_per_degree"] != want:
+        raise AssertionError(f"11e: flops_per_degree {st['flops_per_degree']} != {want}")
+    obs_dir = os.path.join(tmp, "obs")
+    os.makedirs(obs_dir, exist_ok=True)
+    obs.export_metrics(os.path.join(obs_dir, "metrics.jsonl"))
+    obs.export_trace(os.path.join(obs_dir, "trace.json"))
+    with open(os.path.join(obs_dir, "trace.json")) as f:
+        events = obs.validate_chrome_trace(json.load(f))
+    profiles = sorted(os.listdir(os.path.join(tmp, "profile_fit")))
+    if not profiles:
+        raise AssertionError("11e: the profile window wrote no trace")
+    summary = obs_report.trace_summary(os.path.join(obs_dir, "trace.json"))
+    top = sorted(summary["spans"].items(), key=lambda kv: -kv[1]["total_s"])[:6]
+    lines = obs_report.report(obs_dir)
+    log(f"  obs off {off_s} s, obs on {on_s} s (median overhead "
+        f"{float(np.median(on_s)) - float(np.median(off_s)):+.4f} s); timing contract "
+        f"{st['time_total']:.6f} = setup {st['time_setup']:.6f} + degrees "
+        f"{st['time_degrees']:.6f} + finalize {st['time_finalize']:.6f} + unattributed "
+        f"{st['time_unattributed']:.6f} s; flops_per_degree {st['flops_per_degree']} "
+        f"(analytic), achieved {st['achieved_gflops']} GFLOP/s, compile_seconds "
+        f"{st['compile_seconds']}; {len(events)} trace events, profile {profiles[0]}; "
+        f"obs_report: {len(lines)} lines")
+    for name, sp in top:
+        log(f"    span {name:<24} n={sp['n']:<4} total {sp['total_s'] * 1e3:.3f} ms "
+            f"mean {sp['mean_ms']:.3f} ms")
+    return dict(off_s=off_s, on_s=on_s, time_total=st["time_total"],
+                time_setup=st["time_setup"], time_degrees=st["time_degrees"],
+                time_finalize=st["time_finalize"], time_unattributed=st["time_unattributed"],
+                flops_per_degree=st["flops_per_degree"], achieved_gflops=st["achieved_gflops"],
+                top_spans={k: v for k, v in top})
+
+
+def main_path_serving(clf, paper_data, wide_fast):
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = serve_paper_scale(clf, paper_data[2], tmp)
+        out["wide"] = serve_wide(wide_fast, tmp)
+        out["fit_obs"] = fit_observed(paper_data, tmp)
+        out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def profile_device(tag, fn, watch=()):
     """Device time by kernel over one call of ``fn`` (after a warm-up call),
     and the device's busy share of its wall time, from ``torch.profiler``.
@@ -2123,7 +2477,10 @@ def main() -> int:
     log(f"  {nvcc[-2]} / {nvcc[-1]}")
     t0 = time.perf_counter()
     _build.library()
-    log(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    from repro_torch.obs import device as obs_device
+
+    log(f"  kernels built in {time.perf_counter() - t0:.2f} s (obs.device.compile_snapshot: "
+        f"{obs_device.compile_snapshot()})")
     for src, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -2146,7 +2503,7 @@ def main() -> int:
                 "spam": check_ihb_degree_batched(dev, 2048, 2048, [(58, 1653), (58, 1653)],
                                                  reps=5)}
 
-    launches, paper, paper_data = main_path_paper_scale()
+    launches, paper, paper_data, paper_clf = main_path_paper_scale()
     wide_launches, wide, wide_fast = main_path_wide()
 
     log("phase 5: flash_attention against its plain version on the card (bf16)")
@@ -2166,6 +2523,7 @@ def main() -> int:
     abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
     batch_launches, class_batched = main_path_class_batch(paper_data)
     stream_kernels, stream_launches, streamed = main_path_streaming(dev)
+    serving = main_path_serving(paper_clf, paper_data, wide_fast)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2232,6 +2590,7 @@ def main() -> int:
         "class_batched_fits": class_batched,
         "streaming_kernels": {"gram_chunk_65536": stream_kernels["gram_chunk_65536"]},
         "streaming": streamed,
+        "serving": serving,
     }, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -27,7 +27,8 @@
   evaluation plus one product (:func:`_fuse`, :func:`plan_constants`,
   :func:`eval_with_constants`).  Model sets that cannot share one plan (VCA
   models, mixed widths or dtypes, no models) go through the per-model loop
-  :func:`repro_torch.core.transform.feature_transform`.
+  :func:`repro_torch.core.transform.feature_transform`.  With ``engine=``
+  it goes through a warmed :class:`repro_torch.serving.TransformEngine`.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from typing import (
 import numpy as np
 import torch
 
-from . import _device
+from . import _device, obs
 from . import online as online_mod
 from . import streaming as streaming_mod
 from .checkpoint import store as ckpt_store
@@ -432,8 +433,10 @@ def aggregate_fit_stats(models: Sequence) -> Dict:
     group's, so they are counted once per group (the reference's dedup),
     and each sequentially fitted model's once.  ``solver_schedule_len`` is
     the longest schedule any group ran; ``class_batch_padding`` totals the
-    groups' dispatched and padded rows.  The reference's ``recompiles`` (jit
-    traces) and its metric-registry mirror have no counterpart here."""
+    groups' dispatched and padded rows.  While obs is enabled, the schedule
+    length, escalations and padding waste are mirrored into the metric
+    registry, as in the reference.  The reference's ``recompiles`` (jit
+    traces) have no counterpart here."""
     totals = dict.fromkeys(_GROUP_SHARED, 0)
     launches: Dict[str, int] = {}
     schedule_len: Optional[int] = None
@@ -477,6 +480,15 @@ def aggregate_fit_stats(models: Sequence) -> Dict:
             "padded_rows": padded_rows,
             "waste": padded_rows / float(dispatched_rows),
         }
+    if obs.enabled():
+        reg = obs.registry()
+        if schedule_len is not None:
+            reg.gauge("fit.solver_schedule_len", backend="aggregate").set(float(schedule_len))
+        if totals["solver_escalations"]:
+            reg.counter("fit.solver_escalations", backend="aggregate").inc(
+                totals["solver_escalations"])
+        if dispatched_rows:
+            reg.gauge("fit.class_batch_padding_waste").set(padded_rows / float(dispatched_rows))
     return out
 
 
@@ -699,17 +711,17 @@ def plan_constants(plan: _FusedPlan, device) -> PlanConstants:
 
 def _row_stable_product(cols: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """``cols @ C`` with each output summed over its own row in one fixed
-    order, whatever the number of rows.
+    order, whatever the number of rows: one multiply-add pass over the
+    (q, k) output per row of ``C``.
 
-    cuBLAS chooses its kernel, and with it the summation order, by the number
-    of rows (on an H100, one-row chunks, even padded to two rows, gave other
-    last bits than one 300-row call), so on the card the product is summed
-    term by term, one multiply-add pass over the (q, k) output per row of
-    ``C``.  The CPU keeps the BLAS product, whose rows are independent there
-    (the CPU tests hold direct, chunked and single-row transforms equal).
+    A library product chooses its kernel, and with it the summation order,
+    by the number of rows: cuBLAS on an H100 gave one-row chunks (even
+    padded to two rows) other last bits than one 300-row call, and the CPU's
+    BLAS gave a one-row call (a matrix-vector product) other bits than the
+    same row inside a 32-row call at L = 13, k = 16.  Elementwise passes give
+    every row the same operations on either device, so direct, chunked,
+    single-row and zero-padded (serving) calls agree bit for bit.
     """
-    if cols.device.type != "cuda":
-        return cols @ C
     acc = cols[:, :1] * C[0]
     for j in range(1, C.shape[0]):
         acc = torch.addcmul(acc, cols[:, j : j + 1], C[j])
@@ -731,17 +743,29 @@ def feature_transform(
     batch_size: Optional[int] = None,
     dtype: Optional[str] = None,
     device=None,
+    engine=None,
 ) -> np.ndarray:
     """(FT) over all per-class models as ONE fused evaluation, or through
     the per-model loop where the models cannot share one plan.
 
     ``device=None`` evaluates the fused plan where the first model lives.
-    ``batch_size`` streams ``Z`` through the device in row chunks.  Returns
-    host numpy.
+    ``batch_size`` streams ``Z`` through the device in row chunks.
+    ``engine`` routes the call through a warmed
+    :class:`repro_torch.serving.TransformEngine` built for the same model
+    set (row buckets, constants held on its device), bit-identical to the
+    direct path on the engine's device.  Returns host numpy.
     """
     if batch_size is not None and batch_size < 1:
         raise ValueError(f"batch_size must be a positive integer, got {batch_size}")
     models = list(models)
+    if engine is not None:
+        if not engine.matches(models):
+            raise ValueError(
+                "engine was built for a different model set; build a "
+                "TransformEngine over exactly these models"
+            )
+        out = engine.transform(Z)
+        return out if dtype is None else out.astype(np.dtype(dtype), copy=False)
     plan = _fuse(models)
     if plan is None:
         # VCA models, mixed widths or dtypes, or no models: each model on its

@@ -30,10 +30,13 @@ sorted order), so leaf ``i`` is the same array in both packages.  Tensors are
 copied to the host (``.cpu()``) and written as numpy arrays in C order, as
 ``jax.device_get`` gives them; ``restore`` returns numpy arrays.
 
-Not ported yet: the reference's ``shardings`` (re-sharding onto a device
-mesh on restore; ROADMAP.md queue 1 item 12 — ``restore`` accepts and
-ignores it), and its ``obs.span`` / ``obs.event`` / ``checkpoint.saves``
-counter and ``chaos.fire("store.committed")`` hooks (item 13).
+As in the reference, a save runs in an ``obs.span("checkpoint/save")``, a
+committed save fires the chaos site ``store.committed`` (with the committed
+directory as ``path``: corrupt-after-commit faults), emits the
+``checkpoint/committed`` event and counts ``checkpoint.saves``; a restore
+runs in ``checkpoint/restore``.  Not ported yet: the reference's
+``shardings`` (re-sharding onto a device mesh on restore; ROADMAP.md queue 1
+item 12 — ``restore`` accepts and ignores it).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
+from ..resilience import chaos
 from ..resilience.integrity import IntegrityError, checksum_bytes, verify_file
 
 _MANIFEST = "manifest.json"
@@ -126,6 +131,11 @@ def _decode_leaf(arr: np.ndarray, stored_as: Optional[str]):
 
 def save(directory: str, step: int, tree, metadata: Optional[Dict] = None) -> str:
     """Synchronous atomic save.  Returns the committed checkpoint path."""
+    with obs.span("checkpoint/save", step=step):
+        return _save(directory, step, tree, metadata)
+
+
+def _save(directory: str, step: int, tree, metadata: Optional[Dict] = None) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -173,6 +183,9 @@ def save(directory: str, step: int, tree, metadata: Optional[Dict] = None) -> st
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    chaos.fire("store.committed", path=final)
+    obs.event("checkpoint/committed", step=step, leaves=len(leaves))
+    obs.registry().counter("checkpoint.saves").inc()
     return final
 
 
@@ -308,6 +321,11 @@ def restore(directory: str, step: int, like, shardings: Any = None, *,
     path = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, _MARKER)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
+    with obs.span("checkpoint/restore", step=step):
+        return _restore_committed(directory, step, path, like, verify_integrity)
+
+
+def _restore_committed(directory: str, step: int, path: str, like, verify_integrity: bool):
     if verify_integrity:
         verify(directory, step)
     with open(os.path.join(path, _MANIFEST)) as f:

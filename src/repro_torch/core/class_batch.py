@@ -43,16 +43,16 @@ class sizes against the unpadded sequential fit).
 
 The host planner (:func:`class_buckets`, :func:`plan_class_groups`) is a copy
 of the reference's (stdlib and numpy only).  Class-batched streaming is
-:func:`repro_torch.streaming.fit_classes`.  Not ported: the sharded
-composition (ROADMAP queue 1 item 12) and the observability registry's
-gauges (item 13a); the reference's
-``recompiles`` count jit traces, which the eager port has none of.
+:func:`repro_torch.streaming.fit_classes`.  The group's degree loop runs in
+one :class:`~repro_torch.core.oavi.FitScope` (backend ``class_batch``), whose
+timing fields every class's stats share.  Not ported: the sharded
+composition (ROADMAP queue 1 item 12); the reference's ``recompiles`` count
+jit traces, which the eager port has none of.
 """
 
 from __future__ import annotations
 
 import itertools
-import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -65,10 +65,12 @@ from . import oavi as oavi_mod
 from . import oracles
 from . import terms as terms_mod
 from .oavi import (
+    FitScope,
     OAVIConfig,
     OAVIModel,
     border_index_arrays,
     class_batchable,
+    init_fit_stats,
     pow2_bucket,
     stats_step_batched,
 )
@@ -123,16 +125,27 @@ def fit_classes(
         raise ValueError("all classes must be (m_c, n) with one shared n")
     ms = [int(X.shape[0]) for X in Xs]
     dev = _device.resolve(device)
-    dtype = config.torch_dtype()
-    t_start = time.perf_counter()
-    launches0 = kernel_ops.launch_counts()
-    reads0 = oracles.host_reads
     group = next(_GROUP_IDS)
+    # the group's own record: one degree loop, one capacity schedule, one
+    # set of launches and host reads serve all k classes
+    batch: Dict = {"group": group, "size": k, "m_cap": 0, "regrowths": 0,
+                   "degree_times": [], "flops_per_degree": [], "m": int(sum(ms)), "n": n}
+    scope = FitScope(batch, backend="class_batch", device=dev)
+    with scope:
+        return _fit_group(Xs, config, m_cap, dev, scope)
 
+
+def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope) -> List[OAVIModel]:
+    """The body of :func:`fit_classes`, inside the group's scope."""
+    batch = scope.stats
+    group, k, n = batch["group"], batch["size"], batch["n"]
+    ms = [int(X.shape[0]) for X in Xs]
+    dtype = config.torch_dtype()
     # per-class Pearson ordering (each class permutes its own features)
     Xp, perms = zip(*(oavi_mod.order_features(X, config.ordering) for X in Xs))
 
     mc = max(int(m_cap) if m_cap is not None else pow2_bucket(max(ms)), max(ms))
+    batch["m_cap"] = int(mc)
     # rows held on the device: the bucket rounded to the Gram block (zeros)
     m_rows = kernel_ops.round_up(mc, kernel_ops.GRAM_BLOCK)
     Xd = torch.zeros((k, m_rows, n), dtype=dtype, device=dev)
@@ -149,12 +162,7 @@ def fit_classes(
     generators: List[List] = [[] for _ in range(k)]
     ells = [1] * k
     active = [True] * k
-    per_class: List[Dict] = [
-        {"border_sizes": [], "degrees": [], "solver_iters": [], "m": ms[c], "n": n}
-        for c in range(k)
-    ]
-    degree_times: List[float] = []
-    regrowths = 0
+    per_class: List[Dict] = [init_fit_stats(ms[c], n, device=dev) for c in range(k)]
     # the shared fixed-schedule budget (oracle / WIHB configs): it starts at
     # the config's bucket, doubles whenever a valid class's solve was cut
     # short, and persists across degrees
@@ -188,7 +196,7 @@ def fit_classes(
         # shared capacity: regrow when the largest class overflows
         while max(ells[c] + Ks[c] for c in range(k)) > Lcap:
             Lcap *= 2
-            regrowths += 1
+            scope.regrowth(Lcap)
             A = _grow_rows(A, Lcap)
             state = ihb_mod.grow_state(state, Lcap)
 
@@ -200,26 +208,25 @@ def fit_classes(
             if borders[c]:
                 parents[c], vars_[c], valid[c] = border_index_arrays(books[c], borders[c],
                                                                      Kcap)
-        t0 = time.perf_counter()
-        p_t = torch.as_tensor(parents, device=dev)
-        v_t = torch.as_tensor(vars_, device=dev)
-        valid_t = torch.as_tensor(valid, device=dev)
-        # all O(m) work: one launch of the hand-written kernel for the group
-        QL_raw, C_raw = kernel_ops.gram_accumulate_batched(A, Xd, p_t, v_t)
-        res, state, schedule, escalated = escalating_step(config, QL_raw, C_raw, state, ells,
-                                                          Ks, ms, valid_t, schedule)
-        escalations += escalated
+        with scope.degree(d, K=int(max(Ks)), k=k):
+            p_t = torch.as_tensor(parents, device=dev)
+            v_t = torch.as_tensor(vars_, device=dev)
+            valid_t = torch.as_tensor(valid, device=dev)
+            # all O(m) work: one launch of the hand-written kernel for the group
+            QL_raw, C_raw = kernel_ops.gram_accumulate_batched(A, Xd, p_t, v_t)
+            res, state, schedule, escalated = escalating_step(
+                config, QL_raw, C_raw, state, ells, Ks, ms, valid_t, schedule)
+            escalations += escalated
 
-        # appended candidates' columns into each class's slice of A
-        kmax = res.accepted.shape[1]
-        in_border = np.arange(kmax)[None, :] < np.asarray(Ks)[:, None]
-        ci, ai = np.nonzero(in_border & ~res.accepted & (res.slots < Lcap))
-        if ci.size:
-            c_t = torch.as_tensor(ci, device=dev)
-            a_t = torch.as_tensor(ai, device=dev)
-            cols = A[c_t, :, p_t[c_t, a_t]] * Xd[c_t, :, v_t[c_t, a_t]]
-            A[c_t, :, torch.as_tensor(res.slots[ci, ai], device=dev)] = cols
-        degree_times.append(time.perf_counter() - t0)
+            # appended candidates' columns into each class's slice of A
+            kmax = res.accepted.shape[1]
+            in_border = np.arange(kmax)[None, :] < np.asarray(Ks)[:, None]
+            ci, ai = np.nonzero(in_border & ~res.accepted & (res.slots < Lcap))
+            if ci.size:
+                c_t = torch.as_tensor(ci, device=dev)
+                a_t = torch.as_tensor(ai, device=dev)
+                cols = A[c_t, :, p_t[c_t, a_t]] * Xd[c_t, :, v_t[c_t, a_t]]
+                A[c_t, :, torch.as_tensor(res.slots[ci, ai], device=dev)] = cols
 
         for c in range(k):
             if not borders[c]:
@@ -228,27 +235,19 @@ def fit_classes(
             ells[c] = oavi_mod.collect_degree(books[c], borders[c], res.accepted[c],
                                               res.mses[c], res.coeffs[c], generators[c])
 
-    launches1 = kernel_ops.launch_counts()
-    launches = {key: launches1[key] - launches0[key] for key in launches1}
-    time_total = time.perf_counter() - t_start
     models: List[OAVIModel] = []
     for c in range(k):
         stats = per_class[c]
         # shared by the group: one degree loop, one capacity schedule, one
         # set of launches and host reads serve all k classes
-        stats["degree_times"] = list(degree_times)
-        stats["regrowths"] = regrowths
-        stats["kernel_launches"] = dict(launches)
-        stats["host_reads"] = oracles.host_reads - reads0
-        stats["Lcap_final"] = Lcap
-        stats["time_total"] = time_total
+        stats["degree_times"] = list(batch["degree_times"])
+        stats["flops_per_degree"] = list(batch["flops_per_degree"])
+        stats["regrowths"] = batch["regrowths"]
         stats["solver_schedule_len"] = schedule
         stats["solver_escalations"] = escalations
         stats["class_batch"] = {"group": group, "size": k, "index": c, "m_cap": int(mc),
-                                "regrowths": regrowths}
-        stats["num_G"] = len(generators[c])
-        stats["num_O"] = len(books[c])
-        stats["G_plus_O"] = len(generators[c]) + len(books[c])
+                                "regrowths": batch["regrowths"]}
+        scope.finalize(books[c], generators[c], Lcap, config, stats=stats)
         models.append(OAVIModel(n=n, psi=config.psi, book=books[c], generators=generators[c],
                                 feature_perm=perms[c], stats=stats, dtype=config.dtype,
                                 device=dev))

@@ -32,6 +32,11 @@ processed by one degree step:
 buckets that grow on demand, as in the reference.  ``A`` and ``X`` are kept
 with ``m`` padded to a multiple of ``GRAM_BLOCK`` by zero rows, so the Gram
 op never copies them to pad.
+
+Every fit loop of the port (this one, the class-batched, streamed and online
+fits) is instrumented by :class:`FitScope`, the reference's timing contract
+and spans (``fit``, ``fit/degree``, ``fit/regrowth``) with the port's
+counterparts of its device fields (:mod:`repro_torch.obs.device`).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _device, obs
 from ..kernels import ops as kernel_ops
 from . import ihb as ihb_mod
 from . import oracles
@@ -369,6 +374,7 @@ def stats_step(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
         *out, iters, state, _ = _candidate_loop(cfg, QL, C, state, ell0, K)
         iters = iters.cpu().numpy()
     accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
+    kernel_ops.count_flops(kernel_ops.ihb_degree_flops(accepted[:K], ell0))
     return DegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots,
                         iters=iters), state
 
@@ -576,6 +582,8 @@ def stats_step_batched(cfg: OAVIConfig, QL_raw, C_raw, state: ihb_mod.IHBState,
             cfg, QL, C, state, ell0, Kmax, valid=valid, schedule=schedule)
         iters, unconverged = iters.cpu().numpy(), unconverged.cpu().numpy()
     accepted, mses, coeffs, slots = (t.cpu().numpy() for t in out[:4])
+    kernel_ops.count_flops(sum(kernel_ops.ihb_degree_flops(accepted[c, : int(Ks[c])], int(ells[c]))
+                               for c in range(k)))
     return BatchedDegreeResult(accepted=accepted, mses=mses, coeffs=coeffs, slots=slots,
                                iters=iters, unconverged=unconverged), state
 
@@ -627,20 +635,200 @@ def collect_degree(book, border, accepted, mses, coeffs, generators) -> int:
     return len(book)
 
 
-def finish_fit_stats(stats: Dict, book, generators, Lcap: int, launches0: Dict,
-                     reads0: int, t_start: float) -> None:
-    """The closing entries of a fit's stats: kernel launches and host reads
-    since ``launches0`` / ``reads0`` (the result copies of each degree not
-    counted), the final capacity, the wall time since ``t_start`` and the
-    model's sizes."""
-    launches1 = kernel_ops.launch_counts()
-    stats["kernel_launches"] = {k: launches1[k] - launches0[k] for k in launches1}
-    stats["host_reads"] = oracles.host_reads - reads0
-    stats["Lcap_final"] = Lcap
-    stats["time_total"] = time.perf_counter() - t_start
-    stats["num_G"] = len(generators)
-    stats["num_O"] = len(book)
-    stats["G_plus_O"] = len(generators) + len(book)
+def sample_memory_stats(stats: Dict, device=None) -> None:
+    """Record the card's memory high-water marks into a fit ``stats`` dict
+    (``peak_bytes``, ``live_bytes_peak``; nothing off the card) through
+    :func:`repro_torch.obs.device.sample_memory`, which also refreshes the
+    ``device.*`` gauges and the trace's memory timeline.  ``peak_bytes`` is
+    the allocator's high-water mark since the process started or its last
+    reset: compare it with ``peak_bytes_start``."""
+    obs.device.sample_memory(stats, device)
+
+
+def init_fit_stats(m: int, n: int, device=None, **extra) -> Dict:
+    """The ``stats`` skeleton shared by the local, class-batched, streamed
+    and online fit loops (the reference's keys; its ``recompiles`` counts
+    jit traces, which the eager port has none of)."""
+    stats = {
+        "border_sizes": [],
+        "solver_iters": [],
+        "degrees": [],
+        "degree_times": [],
+        "regrowths": 0,
+        # fixed-schedule solver discipline (batched oracle/WIHB fits only)
+        "solver_schedule_len": None,
+        "solver_escalations": 0,
+        # analytic work per degree (kernels.ops.flop_count; None while device
+        # capture is off), kernel-build seconds inside this fit, and the work
+        # over the degree time
+        "flops_per_degree": [],
+        "compile_seconds": 0.0,
+        "achieved_gflops": None,
+        "time_total": 0.0,
+        "m": m,
+        "n": n,
+    }
+    peak = obs.device.device_memory_stats(device).get("peak_bytes_in_use")
+    if peak is not None:
+        stats["peak_bytes_start"] = int(peak)
+    stats.update(extra)
+    return stats
+
+
+class _DegreeScope:
+    """One degree step's timing window (see :meth:`FitScope.degree`)."""
+
+    __slots__ = ("_scope", "_span", "_t0", "_flops0")
+
+    def __init__(self, scope: "FitScope", span) -> None:
+        self._scope = scope
+        self._span = span
+
+    def __enter__(self) -> "_DegreeScope":
+        self._span.__enter__()
+        self._flops0 = kernel_ops.flop_count()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        t1 = time.perf_counter()
+        self._span.__exit__(exc_type, exc, tb)
+        scope = self._scope
+        dur = t1 - self._t0
+        if scope._t_first_degree is None:
+            scope._t_first_degree = self._t0
+        scope._t_last_degree_end = t1
+        scope._time_degrees += dur
+        scope.stats["degree_times"].append(round(dur, 6))
+        flops = kernel_ops.flop_count() - self._flops0
+        scope.record_flops(flops if obs.device.device_enabled() else None)
+        sample_memory_stats(scope.stats, scope.device)
+
+
+class FitScope:
+    """Instrumentation shared by every fit loop (local, class-batched,
+    streamed, online): the reference's ``FitScope``.
+
+    Owns the *timing contract* of fit ``stats``::
+
+        time_total == time_setup + time_degrees + time_finalize
+                      + time_unattributed          # exact, by construction
+
+    * ``time_total``    wall time from scope entry to :meth:`finalize`.
+    * ``time_setup``    entry -> first degree step (feature ordering, the
+      initial buffers; the streamed fit's Pearson moment pass).
+    * ``time_degrees``  unrounded sum of the per-degree segments, each from
+      the degree's first launch to the host copy of its decisions (so it
+      includes a kernel build at the first launch); ``sum(stats[
+      "degree_times"])`` equals it up to their 6-decimal rounding.
+    * ``time_finalize`` last degree's end -> :meth:`finalize`.
+    * ``time_unattributed`` the residual: host combinatorics between the
+      degrees (borders, regrowth, collecting decisions).
+
+    Each degree also records its analytic work as dispatched
+    (``flops_per_degree``, from :func:`repro_torch.kernels.ops.flop_count`:
+    the Gram at its padded capacity shapes, the candidate loop on its real
+    decisions), and :meth:`finalize` adds ``compile_seconds`` (kernel builds
+    inside the fit), ``achieved_gflops`` (that work over ``time_degrees``,
+    a rate of the dispatched work), the kernel launches and host reads since
+    the scope began, and the ``fit.seconds`` histogram.  Timing is always
+    on; the spans reach the trace only while :func:`repro_torch.obs.enabled`,
+    and nothing here changes what the fit computes.
+    """
+
+    def __init__(self, stats: Dict, backend: str = "local", name: str = "fit",
+                 device=None) -> None:
+        self.stats = stats
+        self.backend = backend
+        self.device = device
+        attrs = {k: stats[k] for k in ("m", "n") if stats.get(k) is not None}
+        self._span = obs.span(name, backend=backend, **attrs)
+        self._t_start = time.perf_counter()
+        self._t_first_degree: Optional[float] = None
+        self._t_last_degree_end: Optional[float] = None
+        self._time_degrees = 0.0
+        self._timing: Optional[Dict] = None
+        self._flops = 0.0
+        self._compile0 = obs.device.compile_snapshot()
+        self._launches0 = kernel_ops.launch_counts()
+        self._reads0 = oracles.host_reads
+        self._profile = None
+
+    def __enter__(self) -> "FitScope":
+        self._span.__enter__()
+        # OBS_TORCH_PROFILE=<dir>: the whole fit in one torch.profiler capture
+        self._profile = obs.device.profile_window(f"fit/{self.backend}")
+        self._profile.__enter__()
+        self._t_start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self._profile.__exit__(exc_type, exc, tb)
+        self._span.__exit__(exc_type, exc, tb)
+
+    def degree(self, d: int, **attrs) -> _DegreeScope:
+        """Context manager timing one degree step: on exit it appends the
+        rounded segment to ``stats["degree_times"]`` and the degree's work to
+        ``stats["flops_per_degree"]``, and samples memory."""
+        return _DegreeScope(self, obs.span("fit/degree", d=d, backend=self.backend, **attrs))
+
+    def regrowth(self, Lcap: int) -> None:
+        self.stats["regrowths"] += 1
+        obs.registry().counter("fit.regrowths", backend=self.backend).inc()
+        obs.event("fit/regrowth", backend=self.backend, Lcap=int(Lcap))
+
+    def record_flops(self, flops: Optional[float]) -> None:
+        """Append one degree's work (None = capture off)."""
+        self.stats.setdefault("flops_per_degree", []).append(flops)
+        if flops:
+            self._flops += flops
+
+    def timing_fields(self) -> Dict:
+        """The timing-contract fields and the launches and host reads since
+        the scope began, computed once (shared by every class of a batched
+        fit, so their stats agree to the bit)."""
+        if self._timing is None:
+            t_end = time.perf_counter()
+            total = t_end - self._t_start
+            if self._t_first_degree is None:
+                setup, degrees, fin = total, 0.0, 0.0
+            else:
+                setup = self._t_first_degree - self._t_start
+                degrees = self._time_degrees
+                fin = t_end - self._t_last_degree_end
+            launches1 = kernel_ops.launch_counts()
+            self._timing = {
+                "time_total": total,
+                "time_setup": setup,
+                "time_degrees": degrees,
+                "time_finalize": fin,
+                "time_unattributed": total - setup - degrees - fin,
+                "kernel_launches": {k: launches1[k] - self._launches0[k] for k in launches1},
+                "host_reads": oracles.host_reads - self._reads0,
+            }
+        return self._timing
+
+    def finalize(self, book, generators, Lcap: int, config: "OAVIConfig",
+                 stats: Optional[Dict] = None) -> Dict:
+        """Fill the summary and timing fields every fit loop reports."""
+        stats = self.stats if stats is None else stats
+        sample_memory_stats(stats, self.device)
+        timing = self.timing_fields()
+        stats.update({k: v for k, v in timing.items() if k != "kernel_launches"})
+        stats["kernel_launches"] = dict(timing["kernel_launches"])
+        stats["compile_seconds"] = round(obs.device.compile_snapshot()[0] - self._compile0[0], 6)
+        if self._flops > 0.0 and timing["time_degrees"] > 0.0:
+            stats["achieved_gflops"] = round(self._flops / timing["time_degrees"] / 1e9, 3)
+            obs.registry().gauge("device.achieved_gflops", backend=self.backend).set(
+                stats["achieved_gflops"])
+        stats["num_G"] = len(generators)
+        stats["num_O"] = len(book)
+        stats["G_plus_O"] = len(generators) + len(book)
+        stats["Lcap_final"] = int(Lcap)
+        stats["thm43_bound"] = terms_mod.theorem_4_3_size_bound(config.psi, book.n)
+        obs.registry().histogram("fit.seconds", backend=self.backend).observe(
+            stats["time_total"])
+        return stats
 
 
 def check_config(config: OAVIConfig) -> None:
@@ -668,64 +856,60 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
     check_config(config)
     dev = _device.resolve(device)
     dtype = config.torch_dtype()
-    t_start = time.perf_counter()
-    launches0 = kernel_ops.launch_counts()
-    reads0 = oracles.host_reads
     X = np.asarray(X)
     m, n = X.shape
-    stats: Dict = {"border_sizes": [], "degrees": [], "degree_times": [],
-                   "solver_iters": [], "regrowths": 0, "m": m, "n": n}
+    stats = init_fit_stats(m, n, device=dev)
 
-    X, perm = order_features(X, config.ordering)
+    with FitScope(stats, backend="local", device=dev) as scope:
+        X, perm = order_features(X, config.ordering)
 
-    # rows padded once to the Gram block with zeros (bitwise no-ops)
-    m_pad = kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK)
-    Xd = torch.zeros((m_pad, n), dtype=dtype, device=dev)
-    Xd[:m] = _device.tensor(X, dtype, dev)
-    book = terms_mod.TermBook(n=n)
-    generators: List[Generator] = []
+        # rows padded once to the Gram block with zeros (bitwise no-ops)
+        m_pad = kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK)
+        Xd = torch.zeros((m_pad, n), dtype=dtype, device=dev)
+        Xd[:m] = _device.tensor(X, dtype, dev)
+        book = terms_mod.TermBook(n=n)
+        generators: List[Generator] = []
 
-    Lcap = pow2_bucket(config.cap_terms)
-    A = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
-    A[:m, 0] = 1.0
-    # normalized Gram convention: AtA[0,0] = ||1||^2 / m = 1
-    state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(),
-                               device=dev)
-    ell = 1
+        Lcap = pow2_bucket(config.cap_terms)
+        A = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
+        A[:m, 0] = 1.0
+        # normalized Gram convention: AtA[0,0] = ||1||^2 / m = 1
+        state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(),
+                                   device=dev)
+        ell = 1
 
-    d = 0
-    while True:
-        d += 1
-        if d > config.max_degree:
-            stats["termination"] = f"max_degree={config.max_degree}"
-            break
-        border = book.border(d)
-        if not border:
-            stats["termination"] = "empty_border"
-            break
-        K = len(border)
-        stats["border_sizes"].append(K)
-        stats["degrees"].append(d)
+        d = 0
+        while True:
+            d += 1
+            if d > config.max_degree:
+                stats["termination"] = f"max_degree={config.max_degree}"
+                break
+            border = book.border(d)
+            if not border:
+                stats["termination"] = "empty_border"
+                break
+            K = len(border)
+            stats["border_sizes"].append(K)
+            stats["degrees"].append(d)
 
-        # capacity management: regrowth into the next pow2 bucket
-        while ell + K > Lcap:
-            Lcap *= 2
-            stats["regrowths"] += 1
-            grown = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
-            grown[:, : A.shape[1]] = A
-            A = grown
-            state = ihb_mod.grow_state(state, Lcap)
+            # capacity management: regrowth into the next pow2 bucket
+            while ell + K > Lcap:
+                Lcap *= 2
+                scope.regrowth(Lcap)
+                grown = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
+                grown[:, : A.shape[1]] = A
+                A = grown
+                state = ihb_mod.grow_state(state, Lcap)
 
-        Kcap = max(config.cap_border, pow2_bucket(K))
-        parents, vars_, _ = border_index_arrays(book, border, Kcap)
-        t0 = time.perf_counter()
-        res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m)
-        stats["degree_times"].append(time.perf_counter() - t0)
-        stats["solver_iters"].append(int(res.iters.sum()))
-        ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
-                             generators)
+            Kcap = max(config.cap_border, pow2_bucket(K))
+            parents, vars_, _ = border_index_arrays(book, border, Kcap)
+            with scope.degree(d, K=K):
+                res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m)
+            stats["solver_iters"].append(int(res.iters.sum()))
+            ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
+                                 generators)
 
-    finish_fit_stats(stats, book, generators, Lcap, launches0, reads0, t_start)
+        scope.finalize(book, generators, Lcap, config)
     return OAVIModel(
         n=n,
         psi=config.psi,

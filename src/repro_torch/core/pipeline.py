@@ -19,8 +19,9 @@ the JAX package's layout and format (``to_state_dict`` / ``save`` /
 ``chunk_rows`` streams each per-class OAVI fit out-of-core
 (:mod:`repro_torch.streaming`), and ``capture_fit_state`` also keeps each
 class's :class:`repro_torch.online.FitState` on ``clf.fit_states`` for
-:func:`repro_torch.api.update`.  Not ported yet: ``attach_engine`` (ROADMAP.md
-queue 1 item 13) raises :class:`NotImplementedError`.
+:func:`repro_torch.api.update`.  :meth:`~VanishingIdealClassifier.
+attach_engine` routes ``transform`` / ``predict`` through a warmed
+:class:`repro_torch.serving.TransformEngine` on the classifier's device.
 """
 
 from __future__ import annotations
@@ -62,10 +63,6 @@ class PipelineConfig:
     capture_fit_state: bool = False
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
-
-
 class VanishingIdealClassifier:
     """Fit per-class generators, transform, train a linear SVM (Algorithm 2)."""
 
@@ -78,6 +75,7 @@ class VanishingIdealClassifier:
         self.svm = LinearSVM(config.svm, device=self.device)
         self.classes_: Optional[np.ndarray] = None
         self.stats: Dict = {}
+        self.engine = None  # optional serving TransformEngine (attach_engine)
         self.fit_states: List = []  # per-class FitState (capture_fit_state)
 
     def _fit_generator_models(self, Xcs) -> List:
@@ -104,13 +102,45 @@ class VanishingIdealClassifier:
     def _feature_transform(self, X) -> np.ndarray:
         from .. import api
 
+        engine = self.engine
+        if engine is not None and not engine.matches(self.models):
+            engine = None  # the models were refitted since attach_engine
         return api.feature_transform(
             self.models, X, batch_size=self.config.batch_size, dtype=self.dtype,
-            device=self.device,
+            device=self.device, engine=engine,
         )
 
+    def attach_engine(self, engine=None, *, engine_config=None, warmup: bool = True,
+                      mesh=None):
+        """Route ``transform`` / ``predict`` through a serving
+        :class:`~repro_torch.serving.engine.TransformEngine` on the
+        classifier's device (row buckets warmed before traffic).
+
+        Builds one over ``self.models`` when ``engine`` is omitted.  Model
+        sets without a fused term-book plan (VCA) keep the per-model path:
+        the engine stays ``None`` and ``None`` is returned.  ``mesh`` (the
+        sharded engine) raises, naming ROADMAP.md queue 1 item 12.
+        """
+        from ..serving.engine import EngineConfig, TransformEngine, UnsupportedModelError
+
+        if engine is None:
+            try:
+                engine = TransformEngine(self.models, device=self.device, mesh=mesh,
+                                         config=engine_config or EngineConfig())
+            except UnsupportedModelError:
+                self.engine = None
+                return None
+        elif not engine.matches(self.models):
+            raise ValueError("engine was built for a different model set")
+        if warmup:
+            engine.warmup()  # idempotent: warmed buckets are skipped
+        self.engine = engine
+        return engine
+
     def head(self, feats) -> np.ndarray:
-        """Classifier head over precomputed (FT) features: SVM argmax."""
+        """Classifier head over precomputed (FT) features: SVM argmax (the
+        per-request tail of ``predict`` the serving batcher applies after
+        the coalesced transform)."""
         return self.svm.predict(np.asarray(feats))
 
     def fit(self, X, y) -> "VanishingIdealClassifier":
@@ -287,8 +317,3 @@ class VanishingIdealClassifier:
 
         arrays, metadata = api.load_state_dict(path, CLASSIFIER_FORMAT)
         return cls.from_state_dict(arrays, metadata["meta"], device=device)
-
-    # -- not ported yet ----------------------------------------------------
-
-    def attach_engine(self, *args, **kwargs):
-        raise _not_ported("the serving engine (attach_engine)", "queue 1 item 13")

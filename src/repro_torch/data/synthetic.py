@@ -15,8 +15,8 @@ that package):
 * :func:`random_cube` — uniform noise in [0,1]^n (Figure 1's setting).
 * :func:`planted_stream_tile`, :func:`planted_source`, :func:`write_shards`
   — the out-of-core data: a tile-deterministic planted stream as a
-  generator-backed source, and the ``.npy`` shard directory writer (the
-  reference's chaos hooks are not ported: ROADMAP.md queue 1 item 13d).
+  generator-backed source, and the ``.npy`` shard directory writer, with the
+  reference's chaos sites ``shards.shard_written`` and ``shards.committed``.
 """
 
 from __future__ import annotations
@@ -198,12 +198,16 @@ def write_shards(
     ShardDirSource` reads.  Returns the metadata dict.
 
     ``meta.json`` records a CRC32 and byte length per shard, checked before
-    a shard's rows are served.  ``append=True`` grows an existing directory:
+    a shard's rows are served.  Chaos sites (:mod:`repro_torch.resilience.
+    chaos`): ``shards.shard_written`` after each shard file (before the meta
+    commit: a kill there is a torn write) and ``shards.committed`` after
+    ``meta.json``.  ``append=True`` grows an existing directory:
     the new shard files are written first and ``meta.json`` is replaced last
     by an atomic rename, so a reader sees either the old or the new
     directory.  Appending needs every existing shard full (the reader
     indexes rows as ``pos // shard_rows``).
     """
+    from ..resilience import chaos
     from ..resilience.integrity import checksum_file
     from ..streaming.source import SHARD_FORMAT, SHARD_META, as_source
 
@@ -258,6 +262,7 @@ def write_shards(
         crc, nbytes = checksum_file(fname)
         checksums.append(crc)
         shard_bytes.append(nbytes)
+        chaos.fire("shards.shard_written", path=fname)
     meta = {
         "format": SHARD_FORMAT,
         "num_rows": int(row_offset + m),
@@ -275,4 +280,5 @@ def write_shards(
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(path, SHARD_META))
+    chaos.fire("shards.committed", path=os.path.join(path, SHARD_META))
     return meta

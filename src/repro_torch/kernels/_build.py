@@ -7,6 +7,11 @@ runs at the first launch of any kernel, into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), and is keyed by a hash of the
 sources, so an edited source rebuilds and concurrent processes never load a
 half-written library.  Nothing here runs at import time.
+
+This is the port's counterpart of an XLA compile: the seconds of the first
+:func:`library` call of a process (the build, where one is needed, and the
+``ctypes`` load) go to :func:`repro_torch.obs.device.add_build_seconds`,
+which the fits' and the serving engine's ``compile_seconds`` read.
 """
 
 from __future__ import annotations
@@ -17,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional
+
+from ..obs import device as obs_device
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -128,6 +136,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             target = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
             if not target.exists():
                 _build(target)
@@ -139,6 +148,7 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
+            obs_device.add_build_seconds(time.perf_counter() - t0)
         return _lib
 
 

@@ -14,11 +14,24 @@ The ``*_batched`` ops take k classes on a leading axis (the class-batched
 fit): one launch of the kernel for all of them on the card, and on the CPU
 the plain version of each class in turn, so that every class gets the bits
 of its own call on either device.
+
+Work is counted analytically as dispatched, the same count on either path:
+each Gram op adds :func:`gram_flops` at the shapes it computes (rows padded
+to the block, every capacity column), and the degree step adds
+:func:`ihb_degree_flops` for the real candidates the loop visits, once its
+decisions are on the host.  A fit's count is therefore the work the card is
+given, as the reference's cost analysis of its jitted step counts, and more
+than the least work of the live terms.  A flop counter over the dispatched
+ops would see neither the ``ctypes`` launches nor the card's term-by-term
+products.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +49,46 @@ GRAM_BLOCK = 256
 
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+_flops_lock = threading.Lock()
+_flops = [0.0]
+
+
+def gram_flops(m: int, L: int, K: int) -> float:
+    """Work of one Gram call at the shapes it computes, ``m`` rows (padded),
+    ``L`` columns of ``A`` and ``K`` border columns (capacities, padding
+    included): the border ``B = A[:, p] * X[:, v]`` (m*K products), ``QL =
+    A^T B`` (2*m*L*K) and the upper triangle of the symmetric ``C = B^T B``
+    (m*K*(K+1)); ``chip_smoke.py``'s ``gram_work`` on those shapes."""
+    return m * K + 2.0 * m * L * K + 1.0 * m * K * (K + 1)
+
+
+def ihb_degree_flops(accepted, ell0: int) -> float:
+    """Work of one degree's candidate loop on its decisions (``accepted``,
+    the K real candidates in order; the loop never visits the padded
+    lanes, so this is also its dispatched work): candidate ``a`` with
+    ``ell_a`` columns in O costs the closed-form matvec and the Schur
+    reduction, ``2 ell_a^2 + 3 ell_a - ell0``, and an appended one the rank-1
+    update of N, ``3 ell_a^2 + 2 ell_a + 1``; ``chip_smoke.py``'s
+    ``degree_work``.  The convex oracles' iterations are not counted."""
+    rej = ~np.asarray(accepted, bool)
+    if rej.size == 0:
+        return 0.0
+    ells = ell0 + np.concatenate([[0], np.cumsum(rej)[:-1]]).astype(np.float64)
+    return float(np.sum(2.0 * ells ** 2 + 3.0 * ells - ell0)
+                 + np.sum((3.0 * ells ** 2 + 2.0 * ells + 1)[rej]))
+
+
+def count_flops(flops: float) -> None:
+    """Add work done outside the Gram ops (the degree's candidate loop)."""
+    with _flops_lock:
+        _flops[0] += flops
+
+
+def flop_count() -> float:
+    """Work counted since the process started (read deltas)."""
+    return _flops[0]
 
 
 def _kernel_path(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -60,6 +113,7 @@ def gram_update(A, X, parents, vars_, *, bm: int = 512, use_kernel=None):
     multiple of ``bm``; the plain path is one un-blocked product, as in the
     JAX package's off-TPU fallback.
     """
+    count_flops(gram_flops(A.shape[0], A.shape[1], parents.shape[0]))
     if not _kernel_path(A, use_kernel):
         return ref.gram_update_gather_ref(A, X, parents, vars_)
     m_pad = round_up(A.shape[0], bm)
@@ -80,6 +134,7 @@ def gram_accumulate(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BLOCK,
     L = A.shape[1]
     K = parents.shape[0]
     m_pad = round_up(A.shape[0], bm)
+    count_flops(gram_flops(m_pad, L, K))
     A = _pad_rows(A, m_pad)
     X = _pad_rows(X, m_pad)
     if not _kernel_path(A, use_kernel):
@@ -98,6 +153,7 @@ def gram_accumulate_batched(A, X, parents, vars_, acc=None, *, bm: int = GRAM_BL
     k, m, L = A.shape
     K = parents.shape[-1]
     m_pad = round_up(m, bm)
+    count_flops(k * gram_flops(m_pad, L, K))
     if m_pad != m:
         A = F.pad(A, (0, 0, 0, m_pad - m))
         X = F.pad(X, (0, 0, 0, m_pad - m))

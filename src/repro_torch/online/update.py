@@ -34,8 +34,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from .. import _device
-from ..core import oracles
-from ..core.oavi import OAVIConfig, OAVIModel, check_config, finish_fit_stats
+from ..core.oavi import FitScope, OAVIConfig, OAVIModel, check_config
 from ..core.ordering import pearson_order_from_moments
 from ..kernels import ops as kernel_ops
 from ..streaming.fit import (
@@ -127,20 +126,19 @@ def _drive(
     rows past the snapshot)."""
     check_config(config)
     dev = _device.resolve(device)
-    t_start = time.perf_counter()
-    launches0 = kernel_ops.launch_counts()
-    reads0 = oracles.host_reads
     m, n = source.num_rows, source.num_features
     base_rows = state_in.num_rows if state_in is not None else 0
-    stats = new_stats(m, n, chunk_rows, online={
+    stats = new_stats(m, n, chunk_rows, device=dev, online={
         "base_rows": base_rows,
         "new_rows": m - base_rows,
         "folded_degrees": 0,
         "replayed_degrees": [],
     })
-    book, generators, Lcap, snapshots = fit_degrees(
-        source, config, chunk_rows, perm, dev, prefetch, stats, base=state_in, capture=True)
-    finish_fit_stats(stats, book, generators, Lcap, launches0, reads0, t_start)
+    with FitScope(stats, backend="online", device=dev) as scope:
+        book, generators, Lcap, snapshots = fit_degrees(
+            source, config, chunk_rows, perm, dev, prefetch, scope, base=state_in,
+            capture=True)
+        scope.finalize(book, generators, Lcap, config)
     scaler_lo, scaler_hi = _scaler_stats(scaler)
     model = OAVIModel(n=n, psi=config.psi, book=book, generators=generators,
                       feature_perm=perm, stats=stats, dtype=config.dtype, device=dev)

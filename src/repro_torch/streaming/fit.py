@@ -29,14 +29,16 @@ chunk ahead of the fold (:func:`prefetch_map`), and copied to the device by
 the folding thread.  Peak device memory is O(chunk_rows * Lcap + Lcap^2)
 whatever ``m`` is.
 
-Not ported: the sharded streaming fit (``mesh=``, ROADMAP.md queue 1 item
-12), the observability spans and cost sampling (item 13a); the reference's
-recompile accounting has no counterpart, as eager PyTorch compiles nothing.
+Each fit runs in a :class:`~repro_torch.core.oavi.FitScope` (backend
+``streaming``, ``streaming_class_batch`` or ``online``) with a
+``streaming/accumulate`` span around each degree's fold.  Not ported: the
+sharded streaming fit (``mesh=``, ROADMAP.md queue 1 item 12); the
+reference's recompile accounting has no counterpart, as eager PyTorch
+compiles nothing.
 """
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -44,11 +46,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _device
+from .. import _device, obs
 from ..core import ihb as ihb_mod
 from ..core import oracles
 from ..core import terms as terms_mod
 from ..core.oavi import (
+    FitScope,
     Generator,
     OAVIConfig,
     OAVIModel,
@@ -57,7 +60,7 @@ from ..core.oavi import (
     check_config,
     class_batchable,
     collect_degree,
-    finish_fit_stats,
+    init_fit_stats,
     pow2_bucket,
     stats_step,
     wavefront_schedule,
@@ -220,20 +223,21 @@ def accumulate_source_range(
 # ---------------------------------------------------------------------------
 
 
-def new_stats(m: int, n: int, chunk_rows: int, **extra) -> Dict:
+def new_stats(m: int, n: int, chunk_rows: int, device=None, **extra) -> Dict:
     """The stats dict of a streamed fit (the in-memory fit's keys plus
     ``streaming``)."""
-    return {"border_sizes": [], "degrees": [], "degree_times": [], "solver_iters": [],
-            "regrowths": 0, "m": m, "n": n,
-            "streaming": {"chunk_rows": chunk_rows, "num_chunks": 0, "passes": 0}, **extra}
+    return init_fit_stats(m, n, device=device,
+                          streaming={"chunk_rows": chunk_rows, "num_chunks": 0, "passes": 0},
+                          **extra)
 
 
 def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
                 perm: Optional[np.ndarray], device: torch.device, prefetch: bool,
-                stats: Dict, *, base=None, capture: bool = False):
+                scope: FitScope, *, base=None, capture: bool = False):
     """The degree loop of a streamed fit: per degree, fold the source into
     fresh ``(Lcap, Kcap)`` / ``(Kcap, Kcap)`` accumulators, then run
-    :func:`~repro_torch.core.oavi.stats_step` on them.
+    :func:`~repro_torch.core.oavi.stats_step` on them, each degree in
+    ``scope``'s timing window (its stats are ``scope.stats``).
 
     ``capture`` (the online fit) folds rows ``[0, aligned)`` first, with
     ``aligned = (m // GRAM_BLOCK) * GRAM_BLOCK``, and snapshots the
@@ -244,6 +248,7 @@ def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
     ``stats["online"]``.  Returns ``(book, generators, Lcap, snapshots)``,
     each snapshot the fields of a :class:`repro_torch.online.DegreeRecord`.
     """
+    stats = scope.stats
     dtype = config.torch_dtype()
     np_dtype = np.dtype(config.dtype)
     m, n = source.num_rows, source.num_features
@@ -273,48 +278,48 @@ def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
         # capacity: only the O(Lcap^2) state grows; there is no (m, Lcap) A
         while ell + K > Lcap:
             Lcap *= 2
-            stats["regrowths"] += 1
+            scope.regrowth(Lcap)
             state = ihb_mod.grow_state(state, Lcap)
 
         Kcap = max(config.cap_border, pow2_bucket(K))
         parents, vars_, _ = border_index_arrays(book, border, Kcap)
-        t0 = time.perf_counter()
-        acc_fn = ChunkAccumulator(book, Lcap, chunk_rows, device)
-        p_t = torch.as_tensor(parents, device=device)
-        v_t = torch.as_tensor(vars_, device=device)
+        with scope.degree(d, K=K):
+            acc_fn = ChunkAccumulator(book, Lcap, chunk_rows, device)
+            p_t = torch.as_tensor(parents, device=device)
+            v_t = torch.as_tensor(vars_, device=device)
 
-        def fold(acc, lo, hi):
-            ql, c, chunks = accumulate_source_range(
-                acc_fn, source, lo, hi, chunk_rows, acc, p_t, v_t, perm=perm,
-                np_dtype=np_dtype, prefetch=prefetch)
-            stats["streaming"]["num_chunks"] += chunks
-            return ql, c
+            def fold(acc, lo, hi):
+                with obs.span("streaming/accumulate", d=d, rows=hi - lo):
+                    ql, c, chunks = accumulate_source_range(
+                        acc_fn, source, lo, hi, chunk_rows, acc, p_t, v_t, perm=perm,
+                        np_dtype=np_dtype, prefetch=prefetch)
+                stats["streaming"]["num_chunks"] += chunks
+                return ql, c
 
-        rec = base.record_matches(d, book, K, Lcap, Kcap) if base is not None else None
-        if rec is not None:
-            # resume where the snapshot ends: a GRAM_BLOCK boundary
-            acc = (_device.tensor(rec.accQL, dtype, device),
-                   _device.tensor(rec.accC, dtype, device))
-            start = base.aligned_rows
-            stats["online"]["folded_degrees"] += 1
-        else:
-            acc = (torch.zeros((Lcap, Kcap), dtype=dtype, device=device),
-                   torch.zeros((Kcap, Kcap), dtype=dtype, device=device))
-            start = 0
-            if "online" in stats:
-                stats["online"]["replayed_degrees"].append(d)
-        if capture:
-            acc = fold(acc, start, aligned)
-            snapshots.append(dict(degree=d, ell=ell, K=K, Lcap=Lcap, Kcap=Kcap,
-                                  accQL=acc[0].cpu().numpy().copy(),
-                                  accC=acc[1].cpu().numpy().copy()))
-            acc = fold(acc, aligned, m)
-        else:
-            acc = fold(acc, 0, m)
-        stats["streaming"]["passes"] += 1
+            rec = base.record_matches(d, book, K, Lcap, Kcap) if base is not None else None
+            if rec is not None:
+                # resume where the snapshot ends: a GRAM_BLOCK boundary
+                acc = (_device.tensor(rec.accQL, dtype, device),
+                       _device.tensor(rec.accC, dtype, device))
+                start = base.aligned_rows
+                stats["online"]["folded_degrees"] += 1
+            else:
+                acc = (torch.zeros((Lcap, Kcap), dtype=dtype, device=device),
+                       torch.zeros((Kcap, Kcap), dtype=dtype, device=device))
+                start = 0
+                if "online" in stats:
+                    stats["online"]["replayed_degrees"].append(d)
+            if capture:
+                acc = fold(acc, start, aligned)
+                snapshots.append(dict(degree=d, ell=ell, K=K, Lcap=Lcap, Kcap=Kcap,
+                                      accQL=acc[0].cpu().numpy().copy(),
+                                      accC=acc[1].cpu().numpy().copy()))
+                acc = fold(acc, aligned, m)
+            else:
+                acc = fold(acc, 0, m)
+            stats["streaming"]["passes"] += 1
 
-        res, state = stats_step(config, acc[0], acc[1], state, ell, K, m)
-        stats["degree_times"].append(time.perf_counter() - t0)
+            res, state = stats_step(config, acc[0], acc[1], state, ell, K, m)
         stats["solver_iters"].append(int(res.iters.sum()))
         ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs, generators)
     return book, generators, Lcap, snapshots
@@ -346,18 +351,16 @@ def fit(
     source = as_source(source)
     chunk_rows = _check_chunk_rows(chunk_rows)
     dev = _device.resolve(device)
-    t_start = time.perf_counter()
-    launches0 = kernel_ops.launch_counts()
-    reads0 = oracles.host_reads
     m, n = source.num_rows, source.num_features
-    stats = new_stats(m, n, chunk_rows)
-    perm = None
-    if config.ordering in ("pearson", "reverse_pearson"):
-        perm = streaming_pearson_order(
-            source, chunk_rows, reverse=(config.ordering == "reverse_pearson"))
-    book, generators, Lcap, _ = fit_degrees(source, config, chunk_rows, perm, dev,
-                                            prefetch, stats)
-    finish_fit_stats(stats, book, generators, Lcap, launches0, reads0, t_start)
+    stats = new_stats(m, n, chunk_rows, device=dev)
+    with FitScope(stats, backend="streaming", device=dev) as scope:
+        perm = None
+        if config.ordering in ("pearson", "reverse_pearson"):
+            perm = streaming_pearson_order(
+                source, chunk_rows, reverse=(config.ordering == "reverse_pearson"))
+        book, generators, Lcap, _ = fit_degrees(source, config, chunk_rows, perm, dev,
+                                                prefetch, scope)
+        scope.finalize(book, generators, Lcap, config)
     return OAVIModel(n=n, psi=config.psi, book=book, generators=generators,
                      feature_perm=perm, stats=stats, dtype=config.dtype, device=dev)
 
@@ -414,13 +417,23 @@ def fit_classes(
         raise ValueError("all classes must share one feature count n")
     ms = [int(s.num_rows) for s in sources]
     dev = _device.resolve(device)
+    group = next(class_batch_mod._GROUP_IDS)
+    batch: Dict = {"group": group, "size": k, "regrowths": 0, "degree_times": [],
+                   "flops_per_degree": [], "m": int(sum(ms)), "n": n}
+    with FitScope(batch, backend="streaming_class_batch", device=dev) as scope:
+        return _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev, scope)
+
+
+def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
+                          scope: FitScope) -> List[OAVIModel]:
+    """The body of :func:`fit_classes`, inside the group's scope."""
+    from ..core import class_batch as class_batch_mod
+
+    batch = scope.stats
+    group, k, n = batch["group"], batch["size"], batch["n"]
+    ms = [int(s.num_rows) for s in sources]
     dtype = config.torch_dtype()
     np_dtype = np.dtype(config.dtype)
-    t_start = time.perf_counter()
-    launches0 = kernel_ops.launch_counts()
-    reads0 = oracles.host_reads
-    group = next(class_batch_mod._GROUP_IDS)
-
     perms: List[Optional[np.ndarray]] = [
         streaming_pearson_order(s, chunk_rows, reverse=(config.ordering == "reverse_pearson"))
         if config.ordering in ("pearson", "reverse_pearson") else None
@@ -430,9 +443,7 @@ def fit_classes(
     generators: List[List[Generator]] = [[] for _ in range(k)]
     ells = [1] * k
     active = [True] * k
-    per_class = [new_stats(ms[c], n, chunk_rows) for c in range(k)]
-    degree_times: List[float] = []
-    regrowths = 0
+    per_class = [new_stats(ms[c], n, chunk_rows, device=dev) for c in range(k)]
     Lcap = pow2_bucket(config.cap_terms)
     state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(), device=dev,
                                classes=k)
@@ -465,34 +476,36 @@ def fit_classes(
 
         while max(ells[c] + Ks[c] for c in range(k)) > Lcap:
             Lcap *= 2
-            regrowths += 1
+            scope.regrowth(Lcap)
             state = ihb_mod.grow_state(state, Lcap)
         Kcap = max(config.cap_border, pow2_bucket(max(Ks)))
         valid = np.zeros((k, Kcap), bool)  # a finished class: all False
-        t0 = time.perf_counter()
-        # each class folds its own rows: the statistics of its own fit
-        QLs, Cs = [], []
-        for c in range(k):
-            acc = (torch.zeros((Lcap, Kcap), dtype=dtype, device=dev),
-                   torch.zeros((Kcap, Kcap), dtype=dtype, device=dev))
-            if borders[c]:
-                parents_c, vars_c, valid[c] = border_index_arrays(books[c], borders[c], Kcap)
-                ql, cc, chunks = accumulate_source_range(
-                    ChunkAccumulator(books[c], Lcap, chunk_rows, dev), sources[c], 0, ms[c],
-                    chunk_rows, acc, torch.as_tensor(parents_c, device=dev),
-                    torch.as_tensor(vars_c, device=dev), perm=perms[c], np_dtype=np_dtype,
-                    prefetch=prefetch)
-                acc = (ql, cc)
-                per_class[c]["streaming"]["num_chunks"] += chunks
-                per_class[c]["streaming"]["passes"] += 1
-            QLs.append(acc[0])
-            Cs.append(acc[1])
-        QL_b = torch.stack(QLs)
-        C_b = torch.stack(Cs)
-        res, state, schedule, escalated = class_batch_mod.escalating_step(
-            config, QL_b, C_b, state, ells, Ks, ms, torch.as_tensor(valid, device=dev), schedule)
-        escalations += escalated
-        degree_times.append(time.perf_counter() - t0)
+        with scope.degree(d, K=int(max(Ks)), k=k):
+            # each class folds its own rows: the statistics of its own fit
+            QLs, Cs = [], []
+            for c in range(k):
+                acc = (torch.zeros((Lcap, Kcap), dtype=dtype, device=dev),
+                       torch.zeros((Kcap, Kcap), dtype=dtype, device=dev))
+                if borders[c]:
+                    parents_c, vars_c, valid[c] = border_index_arrays(books[c], borders[c],
+                                                                      Kcap)
+                    with obs.span("streaming/accumulate", d=d, rows=ms[c], c=c):
+                        ql, cc, chunks = accumulate_source_range(
+                            ChunkAccumulator(books[c], Lcap, chunk_rows, dev), sources[c], 0,
+                            ms[c], chunk_rows, acc, torch.as_tensor(parents_c, device=dev),
+                            torch.as_tensor(vars_c, device=dev), perm=perms[c],
+                            np_dtype=np_dtype, prefetch=prefetch)
+                    acc = (ql, cc)
+                    per_class[c]["streaming"]["num_chunks"] += chunks
+                    per_class[c]["streaming"]["passes"] += 1
+                QLs.append(acc[0])
+                Cs.append(acc[1])
+            QL_b = torch.stack(QLs)
+            C_b = torch.stack(Cs)
+            res, state, schedule, escalated = class_batch_mod.escalating_step(
+                config, QL_b, C_b, state, ells, Ks, ms, torch.as_tensor(valid, device=dev),
+                schedule)
+            escalations += escalated
 
         for c in range(k):
             if not borders[c]:
@@ -506,14 +519,15 @@ def fit_classes(
         stats = per_class[c]
         # shared by the group: one degree loop, one capacity schedule, one
         # set of launches and host reads serve all k classes
-        finish_fit_stats(stats, books[c], generators[c], Lcap, launches0, reads0, t_start)
-        stats["degree_times"] = list(degree_times)
-        stats["regrowths"] = regrowths
+        stats["degree_times"] = list(batch["degree_times"])
+        stats["flops_per_degree"] = list(batch["flops_per_degree"])
+        stats["regrowths"] = batch["regrowths"]
         stats["solver_schedule_len"] = schedule
         stats["solver_escalations"] = escalations
         stats["class_batch"] = {"group": group, "size": k, "index": c,
                                 "m_cap": None,  # no shared row bucket, no padding
-                                "streaming": True, "regrowths": regrowths}
+                                "streaming": True, "regrowths": batch["regrowths"]}
+        scope.finalize(books[c], generators[c], Lcap, config, stats=stats)
         models.append(OAVIModel(n=n, psi=config.psi, book=books[c], generators=generators[c],
                                 feature_perm=perms[c], stats=stats, dtype=config.dtype,
                                 device=dev))

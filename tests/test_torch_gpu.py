@@ -897,3 +897,88 @@ def test_streamed_fit_classes_on_card(cuda, variant):
     assert launches["gram_update_acc_batched"] == 0
     if variant == "fast":
         assert launches["ihb_degree_batched"] == degrees and launches["ihb_degree"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Serving on the card (repro_torch.serving)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def served(cuda):
+    """A class-batched classifier of the Appendix C fixture on the card and
+    its engine over every bucket from 64 to 16,384."""
+    from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
+    from repro_torch.data import synthetic
+    from repro_torch.serving import EngineConfig
+
+    X, y = synthetic.appendix_c(m=20_000, seed=0)
+    clf = VanishingIdealClassifier(PipelineConfig(psi=PSI)).fit(X, y)
+    eng = clf.attach_engine(engine_config=EngineConfig(min_bucket=64, max_bucket=16_384))
+    return clf, eng, clf.scaler.transform(X)
+
+
+def test_engine_bit_identical_to_direct_on_card_across_buckets(served):
+    """Every bucket from 64 to 16,384 rows, chunked requests past it and a
+    single row: the engine's zero-padded calls give each real row the bits
+    of the direct ``api.feature_transform`` on the card, with no recompile
+    after warm-up and no hand-kernel launch."""
+    from repro_torch import api
+
+    clf, eng, Xs = served
+    assert eng.device.type == "cuda" and eng.device.index is not None
+    assert eng.buckets() == tuple(64 << i for i in range(9))
+    launches0 = ops.launch_counts()
+    for q in (1, 63, 64, 65, 200, 1000, 4097, 16_384, 20_000):
+        Z = Xs[:q]
+        assert np.array_equal(eng.transform(Z), api.feature_transform(clf.models, Z)), q
+    assert eng.stats["recompiles"] == 0
+    assert ops.launch_counts() == launches0
+
+
+def test_batcher_coalescing_bit_identical_on_card(served):
+    """Requests coalesced by the batcher's worker thread on the card equal
+    the same requests served one by one, bit for bit; predictions equal the
+    classifier's."""
+    from repro_torch.launch import serve_vi
+    from repro_torch.serving import BatcherConfig, MicroBatcher
+
+    clf, eng, Xs = served
+    payloads = serve_vi.make_payloads(clf.scaler.transform, serve_vi.synth_trace(64, 128, 0), 0)
+    alone = [eng.transform(p) for p in payloads]
+    calls0 = eng.stats["device_calls"]
+    replies = []
+    with MicroBatcher(eng, head=clf.head, config=BatcherConfig(max_delay_ms=5.0)) as bat:
+        serve_vi.replay(bat, payloads, kind="transform", concurrency=8, replies=replies)
+        labels = [bat.submit(p, "predict") for p in payloads[:8]]
+        labels = [f.result(timeout=60) for f in labels]
+    for got, want in zip(replies, alone):
+        assert np.array_equal(got, want)
+    assert bat.stats["batches"] < len(payloads) + 8
+    assert eng.stats["device_calls"] - calls0 == bat.stats["batches"]
+    for p, lab in zip(payloads[:8], labels):
+        assert np.array_equal(lab, clf.svm.predict(eng.transform(p)))
+
+
+def test_fit_device_fields_on_card(cuda):
+    """On the card a fit's stats carry the allocator's peaks and, once the
+    kernels' library is loaded, 0 compile seconds; its flops are the same
+    analytic count as the CPU fit's on the same data."""
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.obs import device
+
+    _build.library()
+    seconds, builds = device.compile_snapshot()
+    assert builds >= 1 and seconds > 0.0
+    X = _planted(5000)
+    card = api.fit(X, psi=0.005)
+    st = card.stats
+    assert st["compile_seconds"] == 0.0 and st["achieved_gflops"] > 0
+    # peak_bytes_start is there once the process has initialized CUDA
+    assert st["peak_bytes"] >= st.get("peak_bytes_start", 0) and st["peak_bytes"] > 0
+    assert st["live_bytes_peak"] > 0
+    cpu = api.fit(X, psi=0.005, device="cpu")
+    # the same decisions (test_fit_on_card_matches_cpu) give the same count
+    assert card.book.terms == cpu.book.terms
+    assert st["flops_per_degree"] == cpu.stats["flops_per_degree"]

@@ -130,11 +130,13 @@ def test_classifier_carry_across(fitted, appc_small):
 
 
 def test_unported_classifier_parts_raise(fitted):
-    """Only the serving engine is still to port (save/load: see
-    ``tests/test_torch_checkpoint.py``)."""
+    """Only the sharded serving engine is still to port (item 12); the
+    local one attaches (``tests/test_torch_serving.py``), save/load: see
+    ``tests/test_torch_checkpoint.py``."""
     _, port = fitted
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port.attach_engine()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        port.attach_engine(mesh=object())
+    assert port.engine is None
 
 
 # ---------------------------------------------------------------------------

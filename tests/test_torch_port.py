@@ -63,17 +63,31 @@ SLICE_MODULES = [
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.launch",
+    "repro_torch.launch.obs_report",
     "repro_torch.launch.serve",
+    "repro_torch.launch.serve_vi",
     "repro_torch.models",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
     "repro_torch.models.model",
+    "repro_torch.obs",
+    "repro_torch.obs.baseline",
+    "repro_torch.obs.core",
+    "repro_torch.obs.device",
+    "repro_torch.obs.metrics",
+    "repro_torch.obs.slo",
+    "repro_torch.obs.trace",
     "repro_torch.online",
     "repro_torch.online.drift",
     "repro_torch.online.state",
     "repro_torch.online.update",
     "repro_torch.resilience",
+    "repro_torch.resilience.chaos",
     "repro_torch.resilience.integrity",
+    "repro_torch.serving",
+    "repro_torch.serving.batcher",
+    "repro_torch.serving.engine",
+    "repro_torch.serving.registry",
     "repro_torch.streaming",
     "repro_torch.streaming.fit",
     "repro_torch.streaming.scaler",

@@ -110,6 +110,24 @@ Phases, each reported on its own lines:
    ``flops_per_degree`` equal to this script's ``gram_work`` and
    ``degree_work`` at the shapes the fit dispatched, the exported trace
    validated and rendered by ``launch.obs_report``.
+12. The continuous controller (``launch.continuous_vi``, ``launch.chaos_vi``,
+   ``resilience.journal``): (a) ``continuous_vi.main`` on the card: a
+   2,097,152-row base (n = 3) and 4 arrivals of 131,072 rows (the third
+   drifted), 65,536-row chunks, 2 probe threads; 0 bitwise mismatches,
+   every arrival activated, one Gram launch a folded chunk and one
+   ``ihb_degree`` a degree on every update, the final model bit for bit the
+   card's streamed refit of every row and held against the CPU's by the
+   float64 witness; one update profiled; (b) ``chaos_vi.main(["--fast",
+   "--device", "cuda"])``: the six scenarios, resumed models bit-identical
+   to the card's uninterrupted run; (c) (a)'s journal replayed: base_fitted,
+   the ingests, each update's four transitions in order, done.
+13. Data-parallel OAVI (``core.distributed``, ``backend="sharded"``): (a) a
+   world of one over NCCL: phase 3's classes (``api.fit_classes``), class 0
+   alone and the planted stream of 2,097,152 rows at 65,536-row chunks,
+   each bit for bit the local card fit with one all_reduce and the local
+   fit's launches a degree; (b) class 0 on two ranks of the one card
+   (gloo, spawned processes): both ranks' models bit-identical, the local
+   card fit's structure, the float64-witness rule.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -2455,6 +2473,358 @@ def profile_device(tag, fn, watch=()):
                 top=[dict(ms=ms, count=count, name=key[:120]) for ms, count, key in shown])
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the continuous controller (journal, continuous_vi, chaos_vi)
+# ---------------------------------------------------------------------------
+
+# a feature store that appends 131,072-row batches (1/16 of the base each) to
+# a 2,097,152-row fit while the classifier serves; the third batch drifts
+LOOP_BASE, LOOP_INCREMENTS, LOOP_INCREMENT = 2_097_152, 4, 131_072
+LOOP_ARGS = ["--base-rows", str(LOOP_BASE), "--increments", str(LOOP_INCREMENTS),
+             "--increment-rows", str(LOOP_INCREMENT), "--shard-rows", str(LOOP_INCREMENT),
+             "--chunk-rows", "65536", "--min-update-rows", str(LOOP_INCREMENT),
+             "--drift-at-increment", "2", "--serve-threads", "2"]
+UPDATE_KINDS = ("update_start", "state_saved", "staged", "activated")
+
+
+class RowPrefix:
+    """The first ``rows`` rows of a data source."""
+
+    def __init__(self, source, rows):
+        self.source, self.num_rows, self.num_features = source, rows, source.num_features
+
+    def read(self, start, stop):
+        return self.source.read(start, min(stop, self.num_rows))
+
+
+def check_journal_order(path):
+    """12c: the run's journal, replayed: base_fitted first, done last, the
+    ingests in order, and each update's four transitions in order."""
+    from repro_torch.resilience import Journal
+
+    with Journal(path) as j:
+        records = j.replay()
+    kinds = [r["kind"] for r in records]
+    if kinds[0] != "base_fitted" or kinds[-1] != "done":
+        raise AssertionError(f"12c: journal runs {kinds[0]} .. {kinds[-1]}")
+    ingested = [r["batch"] for r in records if r["kind"] == "ingested"]
+    if ingested != list(range(LOOP_INCREMENTS)):
+        raise AssertionError(f"12c: ingested batches {ingested}")
+    by_update = {}
+    for r in records:
+        if r["kind"] in UPDATE_KINDS:
+            by_update.setdefault(r["update"], []).append(r["kind"])
+    if not by_update or any(ks != list(UPDATE_KINDS) for ks in by_update.values()):
+        raise AssertionError(f"12c: update transitions out of order: {by_update}")
+    return kinds
+
+
+def loop_on_card(tmp):
+    """12a: ``continuous_vi.main`` on the card, held against the card's and
+    the CPU's streamed refits of every row; one update profiled."""
+    import importlib
+
+    import torch
+
+    from repro_torch import api, online, streaming
+    from repro_torch.core.oavi import OAVIConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import continuous_vi
+    from repro_torch.streaming import ScaledSource, ShardDirSource
+    from repro_torch.streaming.scaler import StreamingMinMaxScaler
+
+    streaming_fit = importlib.import_module("repro_torch.streaming.fit")
+    workdir = os.path.join(tmp, "loop")
+    log(f"phase 12a: continuous_vi.main({' '.join(LOOP_ARGS)}) on the card")
+    ops.reset_launch_counts()
+    report, s = timed(lambda: continuous_vi.main(
+        LOOP_ARGS + ["--workdir", workdir, "--obs-dir", os.path.join(tmp, "loop_obs")]))
+    launches = ops.launch_counts()
+    ups, serve = report["updates"], report["serve"]
+    if serve["mismatches"] or not serve["requests"]:
+        raise AssertionError(f"12a: {serve['mismatches']} mismatches in {serve['requests']} "
+                             "requests")
+    if len(report["staleness_s"]) != LOOP_INCREMENTS or report["update_failures"]:
+        raise AssertionError(f"12a: {len(report['staleness_s'])} of {LOOP_INCREMENTS} "
+                             f"arrivals activated, failures {report['update_failures']}")
+    if report["warm_recompiles"] or not any(u["drift"]["triggered"] for u in ups):
+        raise AssertionError(f"12a: warm kernel builds {report['warm_recompiles']}, drift "
+                             f"{[u['drift']['triggered'] for u in ups]}")
+    for u in ups:
+        kl = u["kernel_launches"]
+        degrees = u["folded_degrees"] + len(u["replayed_degrees"])
+        if kl["gram_update_acc"] != u["chunks"] or kl["ihb_degree"] != degrees:
+            raise AssertionError(f"12a: update v{u['version']} launched {kl} for "
+                                 f"{u['chunks']} chunks, {degrees} degrees")
+    scaler = StreamingMinMaxScaler().fit(
+        continuous_vi.arrival_batch(-1, LOOP_BASE, 3, 0))
+    src = ScaledSource(ShardDirSource(os.path.join(workdir, "shards")), scaler)
+    final = api.load(report["final_model"])
+    cfg = OAVIConfig(psi=PSI, engine="fast")
+    (refit, card_log), refit_s = timed(lambda: recording_fit(
+        lambda: streaming.fit(src, cfg, chunk_rows=65536), streaming_fit))
+    _bit_equal_models("12a final model vs the streamed refit", [final], [refit])
+    (cpu, cpu_log), cpu_s = timed(lambda: recording_fit(
+        lambda: streaming.fit(src, cfg, chunk_rows=65536, device="cpu"), streaming_fit))
+    X = src.read(0, src.num_rows)
+    why, dist = judge_fits([refit], [cpu], card_log, cpu_log, [lstsq_coeffs(cpu, X)],
+                           FIT_DIRECT_TOL)
+    if why is not None:
+        raise AssertionError(f"12a: the card's refit against the CPU's: {why}")
+    kinds = check_journal_order(os.path.join(workdir, "journal.jsonl"))
+    # the device's view of one update: the last increment folded onto the
+    # state of the rows before it
+    before = RowPrefix(src.source, src.num_rows - LOOP_INCREMENT)
+    model0, state0 = online.fit(ScaledSource(before, scaler), cfg, chunk_rows=65536,
+                                scaler=scaler)
+    profile = profile_device("one continuous update (the last 131,072 rows)",
+                             lambda: api.update(model0, state0, src, scaler=scaler))
+    torch.cuda.synchronize()
+    per_update = [dict(version=u["version"], new_rows=u["new_rows"], s=u["time_update"],
+                       to_active_s=u["time_to_active"], folded=u["folded_degrees"],
+                       replayed=u["replayed_degrees"], chunks=u["chunks"],
+                       drift=u["drift"]["triggered"]) for u in ups]
+    log(f"  12a: {s:.3f} s in all, base fit {report['time_base_fit']:.3f} s; updates "
+        f"{per_update}; staleness mean {report['staleness_mean_s']:.3f} s max "
+        f"{report['staleness_max_s']:.3f} s; serve p50 {serve['lat_p50_ms']:.3f} ms p99 "
+        f"{serve['lat_p99_ms']:.3f} ms, {serve['requests']} requests, "
+        f"{serve['during_update_requests']} during updates, 0 mismatches; final model "
+        f"bit-identical to the streamed refit ({refit_s:.3f} s), CPU refit {cpu_s:.3f} s held "
+        f"by the float64 witness: {dist}; launches {launches}; journal {len(kinds)} records")
+    out = dict(s=s, base_fit_s=report["time_base_fit"], updates=per_update,
+               staleness_mean_s=report["staleness_mean_s"],
+               staleness_max_s=report["staleness_max_s"], lat_p50_ms=serve["lat_p50_ms"],
+               lat_p99_ms=serve["lat_p99_ms"], requests=serve["requests"],
+               during_update_requests=serve["during_update_requests"], refit_s=refit_s,
+               cpu_refit_s=cpu_s, witness=dist, journal_records=len(kinds),
+               update_profile=profile, launches=launches)
+    return out, launches
+
+
+def main_path_continuous():
+    """Phase 12: the continuous loop, the chaos harness and the journal on
+    the card."""
+    import tempfile
+
+    from repro_torch.launch import chaos_vi
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out, launches = loop_on_card(tmp)
+        log("phase 12b: chaos_vi.main(['--fast', '--device', 'cuda']): six scenarios, "
+            "controllers in subprocesses on the card")
+        report, chaos_s = timed(lambda: chaos_vi.main([
+            "--fast", "--device", "cuda", "--tmp", os.path.join(tmp, "chaos"),
+            "--trace-dir", os.path.join(tmp, "chaos_traces")]))
+        if not report["ok"] or len(report["scenarios"]) != 6:
+            raise AssertionError(f"12b: {report}")
+        kills = report["scenarios"]["kill_resume"]["kills"]
+        log(f"  12b: 6 scenarios passed in {chaos_s:.1f} s; kills "
+            f"{[(k['phase'], k['caught_up_rows'], round(k['recovery_s'], 3)) for k in kills]} "
+            f"resumed bit-identical to the card's uninterrupted run; corrupt state fell back to "
+            f"m={report['scenarios']['corrupt_state']['fallback_from_rows']}")
+        out["chaos"] = dict(s=chaos_s, kills=[{k: v for k, v in kill.items() if k != "trace"}
+                                              for kill in kills])
+        out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12: {out['seconds']:.1f} s")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: data-parallel OAVI over torch.distributed
+# ---------------------------------------------------------------------------
+
+RANK_PROGRAM = """
+import json, os, sys, time
+import numpy as np
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+rank, world, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                        rank=rank, world_size=world)
+try:
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    torch.cuda.set_device(0)  # every rank on the one card
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    X = np.load(os.path.join(work, "X0.npy"))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = api.fit(X, "oavi", psi=%r, backend="sharded", mesh=mesh)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    st = model.stats
+    np.savez(os.path.join(work, f"rank{rank}.npz"),
+             **{f"g{i}": g.coeffs for i, g in enumerate(model.generators)})
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(s=s, terms=[list(t) for t in model.book.terms],
+                       gens=[list(g.term) for g in model.generators],
+                       degrees=st["degrees"], all_reduces=st["all_reduces"],
+                       all_reduce_s=st["all_reduce_seconds"], m_padded=st["m_padded"],
+                       launches=ops.launch_counts(), device=torch.cuda.get_device_name()), f)
+finally:
+    dist.destroy_process_group()
+""" % PSI
+
+
+def _sharded_gates(tag, models, local, launches, per_degree):
+    """The world-of-one fits: the local card fit's bits, one all_reduce a
+    degree, the local fit's Gram launches a degree."""
+    _bit_equal_models(tag, models, local)
+    degrees = max(len(m.stats["degrees"]) for m in models)
+    if any(m.stats["all_reduces"] != degrees for m in models):
+        raise AssertionError(f"{tag}: all_reduces {[m.stats['all_reduces'] for m in models]} "
+                             f"for {degrees} degrees")
+    for name, want in per_degree.items():
+        if launches[name] != want:
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} times, "
+                                 f"expected {want}")
+    return degrees
+
+
+def world_of_one(classes, clf_models, tmp):
+    """13a: a world of one over NCCL: phase 3's classes, class 0 alone and the
+    planted stream, each bit for bit the local card fit."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+
+    log("phase 13a: a world of one over NCCL (init_device_mesh('cuda', (1,)))")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store1"), 1),
+                            rank=0, world_size=1)
+    out, launches = {}, {}
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        ops.reset_launch_counts()
+        models, s = timed(lambda: api.fit_classes(classes, psi=PSI, backend="sharded",
+                                                  mesh=mesh))
+        launches["classes"] = ops.launch_counts()
+        degrees = max(len(m.stats["degrees"]) for m in clf_models)
+        _sharded_gates("13a classes", models, clf_models, launches["classes"],
+                       {"gram_update_acc_batched": degrees, "ihb_degree_batched": degrees})
+        out["classes"] = dict(s=s, degrees=degrees, all_reduces=models[0].stats["all_reduces"],
+                              all_reduce_s=models[0].stats["all_reduce_seconds"])
+        local0, local0_s = timed(lambda: api.fit(classes[0], psi=PSI))
+        ops.reset_launch_counts()
+        one, s = timed(lambda: api.fit(classes[0], psi=PSI, backend="sharded", mesh=mesh))
+        launches["class0"] = ops.launch_counts()
+        d = len(local0.stats["degrees"])
+        _sharded_gates("13a class 0", [one], [local0], launches["class0"],
+                       {"gram_update_acc": d, "ihb_degree": d})
+        out["class0"] = dict(s=s, local_s=local0_s, degrees=d,
+                             all_reduce_s=one.stats["all_reduce_seconds"])
+        src = planted_stream(SCALE_ROWS[1])
+        local_st, local_st_s = timed(lambda: api.fit(src, psi=PSI, chunk_rows=65536))
+        ops.reset_launch_counts()
+        st, s = timed(lambda: api.fit(src, psi=PSI, chunk_rows=65536, backend="sharded",
+                                      mesh=mesh))
+        launches["stream"] = ops.launch_counts()
+        _sharded_gates("13a stream", [st], [local_st], launches["stream"],
+                       {"gram_update_acc": st.stats["streaming"]["num_chunks"],
+                        "ihb_degree": len(st.stats["degrees"])})
+        out["stream"] = dict(s=s, local_s=local_st_s, chunks=st.stats["streaming"]["num_chunks"],
+                             degrees=len(st.stats["degrees"]),
+                             all_reduce_s=st.stats["all_reduce_seconds"])
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    log(f"  13a: bit-identical to the local card fits, one all_reduce a degree: {out}; "
+        f"launches {launches}")
+    return out, launches
+
+
+def two_ranks_one_card(X0, local, local_s, tmp):
+    """13b: two ranks on the one card under gloo (spawned processes) fit
+    class 0 at paper scale: identical models on both ranks, the local card
+    fit's structure, the float64-witness rule."""
+    import subprocess
+
+    log("phase 13b: class 0 of the phase-3 split on two ranks of the one card (gloo, "
+        "CUDA tensors staged through the host)")
+    work = os.path.join(tmp, "ranks")
+    os.makedirs(work)
+    np.save(os.path.join(work, "X0.npy"), X0)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_PROGRAM, str(r), "2", work], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"13b: a rank failed: {[e[-2000:] for e in errs]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            info = json.load(f)
+        coeffs = np.load(os.path.join(work, f"rank{r}.npz"))
+        info["coeffs"] = [coeffs[f"g{i}"] for i in range(len(info["gens"]))]
+        ranks.append(info)
+    a, b = ranks
+    if (a["terms"], a["gens"]) != (b["terms"], b["gens"]) or not all(
+            x.tobytes() == y.tobytes() for x, y in zip(a["coeffs"], b["coeffs"])):
+        raise AssertionError("13b: the two ranks' models differ")
+    for r in ranks:
+        d = len(r["degrees"])
+        if r["all_reduces"] != d or r["launches"]["gram_update_acc"] != d:
+            raise AssertionError(f"13b: rank launches {r['launches']}, all_reduces "
+                                 f"{r['all_reduces']} for {d} degrees")
+    if [list(t) for t in local.book.terms] != a["terms"] or \
+            [list(g.term) for g in local.generators] != a["gens"]:
+        raise AssertionError("13b: structure differs from the local card fit")
+    witness = lstsq_coeffs(local, X0)
+    err_ranks = max((float(np.abs(c - w).max()) for c, w in zip(a["coeffs"], witness)),
+                    default=0.0)
+    err_local = _coeff_err([local], [witness])
+    limit = max(FIT_ERR_FACTOR * err_local, FIT_ERR_FLOOR)
+    if err_ranks > limit:
+        raise AssertionError(f"13b: coefficients {err_ranks:.3g} from the float64 witness, "
+                             f"over {limit:.3g}")
+    out = dict(wall_s=wall, rank_fit_s=[r["s"] for r in ranks], local_s=local_s,
+               all_reduce_ms=[1e3 * r["all_reduce_s"] for r in ranks],
+               all_reduces=a["all_reduces"], m_padded=a["m_padded"],
+               launches=[r["launches"] for r in ranks], err_ranks=err_ranks,
+               err_local=err_local, device=a["device"])
+    log(f"  13b: both ranks bit-identical, the local structure, witness distance "
+        f"{err_ranks:.3g} (local {err_local:.3g}, limit {limit:.3g}); rank fits "
+        f"{out['rank_fit_s']} s against the local {local_s:.3f} s, all_reduce "
+        f"{out['all_reduce_ms']} ms in all ({a['all_reduces']} a rank); {wall:.1f} s with "
+        f"process start-up")
+    return out, {f"rank{r}": ranks[r]["launches"] for r in range(2)}
+
+
+def main_path_distributed(clf, paper_data):
+    """Phase 13: data-parallel OAVI on the card."""
+    import tempfile
+
+    from repro_torch import api
+
+    t0 = time.perf_counter()
+    Xtr, ytr = paper_data[:2]
+    Xs = clf.scaler.transform(Xtr)
+    classes = [Xs[ytr == c] for c in clf.classes_]
+    with tempfile.TemporaryDirectory() as tmp:
+        one, launches = world_of_one(classes, clf.models, tmp)
+        local, local_s = timed(lambda: api.fit(classes[0], psi=PSI))
+        two, two_launches = two_ranks_one_card(classes[0], local, local_s, tmp)
+    launches.update(two_launches)
+    out = dict(world_of_one=one, two_ranks=two, seconds=time.perf_counter() - t0)
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2524,6 +2894,8 @@ def main() -> int:
     batch_launches, class_batched = main_path_class_batch(paper_data)
     stream_kernels, stream_launches, streamed = main_path_streaming(dev)
     serving = main_path_serving(paper_clf, paper_data, wide_fast)
+    continuous, loop_launches = main_path_continuous()
+    distributed, dist_launches = main_path_distributed(paper_clf, paper_data)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2591,7 +2963,18 @@ def main() -> int:
         "streaming_kernels": {"gram_chunk_65536": stream_kernels["gram_chunk_65536"]},
         "streaming": streamed,
         "serving": serving,
+        "continuous": continuous,
+        "distributed": distributed,
     }, default=str))
+    # the launches of phases 12-13's paths, each read after its own run with
+    # the counts set to 0 before it (the ranks of 13b count in their processes)
+    paths = {"12a continuous_vi": loop_launches,
+             **{f"13a {k}": v for k, v in dist_launches.items() if not k.startswith("rank")},
+             **{f"13b {k}": v for k, v in dist_launches.items() if k.startswith("rank")}}
+    for path, counts in paths.items():
+        if not (counts.get("gram_update_acc", 0) or counts.get("gram_update_acc_batched", 0)):
+            raise AssertionError(f"{path}: no Gram launch on its path")
+    log(json.dumps({"launches_by_path": paths}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

@@ -4,10 +4,14 @@
   :func:`resolve` maps a spec string (``"oavi"``, ``"oavi:cgavi-ihb"``,
   ``"abm"``, ``"vca"``, or a bare OAVI variant name such as ``"fast"``) to
   its :class:`MethodEntry` and variant, as the reference does.
-* :func:`fit` runs the local backend on ``device`` (``None`` = the CUDA
-  card; it raises without one unless the caller passes ``device="cpu"``):
-  OAVI with every variant of Section 6.1 and the ``fast`` engine, and the
-  paper's baselines ABM and VCA.  A list of per-class arrays fits one model
+* :func:`fit` runs on ``device`` (``None`` = the CUDA card; it raises
+  without one unless the caller passes ``device="cpu"``): OAVI with every
+  variant of Section 6.1 and the ``fast`` engine, and the paper's baselines
+  ABM and VCA.  ``backend="sharded"`` (OAVI only) splits the samples over
+  the data axes of a ``torch.distributed`` device mesh
+  (:mod:`repro_torch.core.distributed`); ``"auto"`` picks it when a mesh is
+  given, or when a process group of several ranks is initialised and ``m
+  >= AUTO_SHARD_MIN_M``.  A list of per-class arrays fits one model
   per class (:func:`fit_classes`): with ``class_batch="auto"``, the default
   as in the reference, eligible OAVI configurations are fitted class-batched
   (:mod:`repro_torch.core.class_batch`), everything else sequentially;
@@ -57,6 +61,7 @@ from . import streaming as streaming_mod
 from .checkpoint import store as ckpt_store
 from .core import abm as abm_mod
 from .core import class_batch as class_batch_mod
+from .core import distributed as distributed_mod
 from .core import oavi as oavi_mod
 from .core import transform as transform_mod
 from .core import vca as vca_mod
@@ -80,7 +85,10 @@ OAVI_VARIANTS: Dict[str, Tuple[str, str, bool, bool]] = {
     "fast": ("fast", "bpcg", True, False),  # beyond-paper closed-form engine
 }
 
-_SHARDED = "backend='sharded' is not ported yet: ROADMAP.md queue 1 item 12"
+# ``backend="auto"``: shard only when the sample count amortizes the
+# all_reduce a degree (the collectives are m-independent, their fixed cost
+# is not)
+AUTO_SHARD_MIN_M = 100_000
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +134,7 @@ class MethodEntry:
     fit: Callable[..., VanishingIdealModel]
     variants: Tuple[str, ...] = ()
     default_variant: Optional[str] = None
+    supports_sharded: bool = False
     description: str = ""
 
     def spec(self, variant: Optional[str]) -> str:
@@ -136,15 +145,17 @@ _REGISTRY: Dict[str, MethodEntry] = {}
 
 
 def register(name: str, *, variants: Sequence[str] = (),
-             default_variant: Optional[str] = None, description: str = ""):
-    """Decorator: register ``fn(X, *, variant, psi, config, device, **kw) ->
-    VanishingIdealModel`` under ``name``."""
+             default_variant: Optional[str] = None, supports_sharded: bool = False,
+             description: str = ""):
+    """Decorator: register ``fn(X, *, variant, psi, backend, mesh, data_axes,
+    config, device, **kw) -> VanishingIdealModel`` under ``name``."""
 
     def deco(fn):
         if name in _REGISTRY:
             raise ValueError(f"method {name!r} is already registered")
         _REGISTRY[name] = MethodEntry(name=name, fit=fn, variants=tuple(variants),
                                       default_variant=default_variant,
+                                      supports_sharded=supports_sharded,
                                       description=description)
         return fn
 
@@ -205,22 +216,78 @@ def oavi_config_for(variant: str, psi: float, **kw) -> oavi_mod.OAVIConfig:
 
 
 @register("oavi", variants=tuple(OAVI_VARIANTS), default_variant="fast",
+          supports_sharded=True,
           description="Oracle AVI (Algorithm 1); variants per Section 6.1")
-def _fit_oavi(X, *, variant, psi, config=None, device, **kw):
+def _fit_oavi(X, *, variant, psi, backend, mesh, data_axes, config=None, device, **kw):
     cfg = config if config is not None else oavi_config_for(variant or "fast", psi, **kw)
+    if backend == "sharded":
+        return distributed_mod.fit(X, cfg, mesh=mesh, data_axes=data_axes, device=device)
     return oavi_mod.fit(X, cfg, device=device)
 
 
 @register("abm", description="Approximate Buchberger-Möller (Limbeck 2013)")
-def _fit_abm(X, *, variant, psi, config=None, device, **kw):
+def _fit_abm(X, *, variant, psi, backend, mesh, data_axes, config=None, device, **kw):
     cfg = config if config is not None else abm_mod.ABMConfig(psi=psi, **kw)
     return abm_mod.fit(X, cfg, device=device)
 
 
 @register("vca", description="Vanishing Component Analysis (Livni et al. 2013)")
-def _fit_vca(X, *, variant, psi, config=None, device, **kw):
+def _fit_vca(X, *, variant, psi, backend, mesh, data_axes, config=None, device, **kw):
     cfg = config if config is not None else vca_mod.VCAConfig(psi=psi, **kw)
     return vca_mod.fit(X, cfg, device=device)
+
+
+def _world_size() -> int:
+    """The initialised process group's world size (0: none is initialised)."""
+    d = torch.distributed
+    return d.get_world_size() if d.is_available() and d.is_initialized() else 0
+
+
+def _default_mesh(data_axes: Sequence[str], device: torch.device):
+    """The reference's default mesh (one axis over every visible device) on
+    ``torch.distributed``: one axis over the initialised world, or ``None``
+    (a world of one, no collective) when no process group is initialised.
+    No process group is ever created here."""
+    axes = tuple(data_axes)
+    if len(axes) != 1:
+        raise ValueError(
+            "backend dispatch can only build a default mesh for a single data "
+            f"axis; pass mesh= explicitly for data_axes={axes!r}"
+        )
+    world = _world_size()
+    if not world:
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device.type, (world,), mesh_dim_names=axes)
+
+
+def _resolve_backend(entry: MethodEntry, backend: str, mesh, m: int) -> str:
+    """``"local"`` or ``"sharded"`` for ``backend`` (``auto`` / ``local`` /
+    ``sharded``), as in the reference."""
+    if backend not in ("auto", "local", "sharded"):
+        raise ValueError(
+            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
+        )
+    if backend == "local":
+        return "local"
+    if backend == "sharded":
+        if not entry.supports_sharded:
+            raise ValueError(f"method {entry.name!r} does not support backend='sharded'")
+        return "sharded"
+    # auto: shard when the method can, and a mesh was given or the world
+    # size and the sample count justify it
+    if entry.supports_sharded and (mesh is not None
+                                   or (_world_size() > 1 and m >= AUTO_SHARD_MIN_M)):
+        return "sharded"
+    return "local"
+
+
+def _sharded_mesh(backend: str, mesh, data_axes, dev):
+    """The mesh a resolved backend runs on (``None`` for the local fit)."""
+    if backend != "sharded":
+        return None
+    return mesh if mesh is not None else _default_mesh(data_axes, dev)
 
 
 def fit(
@@ -229,6 +296,8 @@ def fit(
     *,
     psi: float = 0.005,
     backend: str = "auto",
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
     config=None,
     class_batch: str = "auto",
     source=None,
@@ -243,9 +312,15 @@ def fit(
     (one model per class, see :func:`fit_classes`; ``class_batch`` applies
     there), or a :class:`repro_torch.streaming.DataSource` (as ``source=``).
     ``method`` is a spec of :func:`available_methods`.  ``backend`` is
-    ``"auto"`` or ``"local"`` (both run the local fit).  ``config`` is a
-    pre-built ``OAVIConfig`` / ``ABMConfig`` / ``VCAConfig`` and overrides
-    ``psi`` and ``method_kw``.  ``device=None`` means the CUDA card.
+    ``"auto"``, ``"local"`` or ``"sharded"`` (OAVI only: the data-parallel
+    fit over ``mesh``'s ``data_axes``, :mod:`repro_torch.core.distributed`;
+    every rank calls with the same ``X``).  ``"auto"`` shards when ``mesh``
+    is given, or when an initialised process group has several ranks and
+    ``m >= AUTO_SHARD_MIN_M``; a sharded fit without ``mesh`` runs on a
+    one-axis mesh over the initialised world, or as a world of one when no
+    process group is initialised.  ``config`` is a pre-built
+    ``OAVIConfig`` / ``ABMConfig`` / ``VCAConfig`` and overrides ``psi``
+    and ``method_kw``.  ``device=None`` means the CUDA card.
     ``**method_kw`` goes to the method's config (e.g. ``cap_terms=64``, or
     ``solver_kw={"tau": 50.0}`` for an OAVI variant's oracle).
 
@@ -254,8 +329,8 @@ def fit(
     (default :data:`repro_torch.streaming.DEFAULT_CHUNK_ROWS`) and folded
     into Gram statistics, bit for bit the in-memory fit at matched capacity.
     The source must be scaled to ``[0, 1]^n`` already.  ``chunk_rows`` with
-    an array streams through the array.  ``capture_state`` (streamed fits
-    only) also keeps the :class:`repro_torch.online.FitState`, as
+    an array streams through the array.  ``capture_state`` (streamed local
+    fits only) also keeps the :class:`repro_torch.online.FitState`, as
     ``model.fit_state``, for :func:`update`.
     """
     if source is None and streaming_mod.is_source(X):
@@ -263,60 +338,61 @@ def fit(
     if source is None and chunk_rows is not None and not isinstance(X, (list, tuple)):
         source, X = streaming_mod.as_source(np.asarray(X)), None
     if source is not None:
-        return _fit_streaming(source, method, psi=psi, backend=backend, config=config,
-                              chunk_rows=chunk_rows, capture_state=capture_state,
-                              device=device, **method_kw)
+        return _fit_streaming(source, method, psi=psi, backend=backend, mesh=mesh,
+                              data_axes=data_axes, config=config, chunk_rows=chunk_rows,
+                              capture_state=capture_state, device=device, **method_kw)
     if capture_state:
         raise ValueError(
             "capture_state=True needs the streaming fit path: pass source= "
             "(or an in-memory X together with chunk_rows=)"
         )
     if isinstance(X, (list, tuple)):
-        return fit_classes(X, method, psi=psi, backend=backend, config=config,
-                           class_batch=class_batch, chunk_rows=chunk_rows, device=device,
-                           **method_kw)
+        return fit_classes(X, method, psi=psi, backend=backend, mesh=mesh,
+                           data_axes=data_axes, config=config, class_batch=class_batch,
+                           chunk_rows=chunk_rows, device=device, **method_kw)
     _check_class_batch(class_batch)
     entry, variant = resolve(method)
-    _check_backend(entry, backend)
+    X = np.asarray(X)
+    backend_r = _resolve_backend(entry, backend, mesh, X.shape[0])
     dev = _device.resolve(device)
-    model = entry.fit(np.asarray(X), variant=variant, psi=psi, config=config,
-                      device=dev, **method_kw)
-    model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
+    model = entry.fit(X, variant=variant, psi=psi, backend=backend_r,
+                      mesh=_sharded_mesh(backend_r, mesh, data_axes, dev),
+                      data_axes=tuple(data_axes), config=config, device=dev, **method_kw)
+    model.stats["api"] = {"method": entry.spec(variant), "backend": backend_r,
                           "device": str(dev)}
     return model
 
 
-def _check_backend(entry: MethodEntry, backend: str) -> None:
-    if backend == "sharded":
-        if entry.name != "oavi":
-            raise ValueError(f"method {entry.name!r} does not support backend='sharded'")
-        raise NotImplementedError(_SHARDED)
-    if backend not in ("auto", "local"):
-        raise ValueError(
-            f"unknown backend {backend!r}; expected 'auto', 'local' or 'sharded'"
-        )
-
-
-def _fit_streaming(source, method: str, *, psi: float, backend: str, config,
-                   chunk_rows: Optional[int], capture_state: bool, device, **method_kw):
-    """Out-of-core dispatch: an OAVI spec to :func:`repro_torch.streaming.fit`,
-    or with ``capture_state`` to :func:`repro_torch.online.fit` (the same
-    fold, plus the persisted accumulators)."""
+def _fit_streaming(source, method: str, *, psi: float, backend: str, mesh, data_axes,
+                   config, chunk_rows: Optional[int], capture_state: bool, device,
+                   **method_kw):
+    """Out-of-core dispatch: an OAVI spec to :func:`repro_torch.streaming.fit`
+    (sharded over ``mesh`` when the backend resolves to ``"sharded"``), or
+    with ``capture_state`` to :func:`repro_torch.online.fit` (the same
+    fold, plus the persisted accumulators; local only)."""
     entry, variant = resolve(method)
     if entry.name != "oavi":
         raise ValueError(f"streaming fit (source=) supports OAVI only, got method {method!r}")
-    _check_backend(entry, backend)
     cfg = config if config is not None else oavi_config_for(variant or "fast", psi, **method_kw)
+    source = streaming_mod.as_source(source)
+    backend_r = _resolve_backend(entry, backend, mesh, source.num_rows)
     dev = _device.resolve(device)
     chunk_rows = chunk_rows or streaming_mod.DEFAULT_CHUNK_ROWS
-    api_stats = {"method": entry.spec(variant), "backend": "local", "device": str(dev),
+    api_stats = {"method": entry.spec(variant), "backend": backend_r, "device": str(dev),
                  "streaming": True}
     if capture_state:
+        if backend_r == "sharded":
+            raise ValueError(
+                "capture_state=True is local-only (an incremental update is "
+                "O(new rows); run full sharded refits without it)"
+            )
         model, fit_state = online_mod.fit(source, cfg, chunk_rows=chunk_rows, device=dev)
         model.fit_state = fit_state
         api_stats["online"] = True
     else:
-        model = streaming_mod.fit(source, cfg, chunk_rows=chunk_rows, device=dev)
+        model = streaming_mod.fit(source, cfg, chunk_rows=chunk_rows, device=dev,
+                                  mesh=_sharded_mesh(backend_r, mesh, data_axes, dev),
+                                  data_axes=tuple(data_axes))
     model.stats["api"] = api_stats
     return model
 
@@ -328,9 +404,16 @@ def update(model, state, source, **kw):
     refit of the grown source bit for bit at matched capacity.  Returns the
     :class:`repro_torch.online.UpdateResult`, whose ``.model`` carries the
     next ``fit_state``.  Keywords go to :func:`repro_torch.online.update`
-    (``chunk_rows``, ``scaler``, ``prefetch``, ``device``, ...)."""
-    result = online_mod.update(model, state, source, **kw)
+    (``chunk_rows``, ``scaler``, ``prefetch``, ``device``, ...).  A model of
+    the sharded backend has no incremental state and is refused, as
+    ``capture_state`` is on that backend."""
     api_stats = dict(getattr(model, "stats", {}).get("api") or {})
+    if api_stats.get("backend") == "sharded":
+        raise ValueError(
+            "update() is local-only: a sharded fit keeps no FitState (an "
+            "incremental update is O(new rows); run full sharded refits)"
+        )
+    result = online_mod.update(model, state, source, **kw)
     api_stats.update({"backend": "local", "device": str(result.model.device),
                       "streaming": True, "online": True})
     result.model.stats["api"] = api_stats
@@ -349,6 +432,8 @@ def fit_classes(
     *,
     psi: float = 0.005,
     backend: str = "auto",
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
     config=None,
     class_batch: str = "auto",
     chunk_rows: Optional[int] = None,
@@ -370,9 +455,11 @@ def fit_classes(
     group paid.  With ``chunk_rows`` every OAVI class streams out-of-core:
     batchable configs through :func:`repro_torch.streaming.fit_classes` (one
     statistics step per degree for the group, no row padding), the others
-    one streamed fit after another.  ``backend="sharded"`` is not ported
-    (ROADMAP.md queue 1 item 12).  Returns the models in class order; count
-    group-shared stats with :func:`aggregate_fit_stats`.
+    one streamed fit after another.  When ``backend`` resolves to
+    ``"sharded"`` (see :func:`fit`), every path splits the samples over
+    ``mesh``'s ``data_axes``: batched groups issue one all_reduce a degree
+    for the group.  Returns the models in class order; count group-shared
+    stats with :func:`aggregate_fit_stats`.
     """
     _check_class_batch(class_batch)
     entry, variant = resolve(method)
@@ -381,8 +468,9 @@ def fit_classes(
     stream = chunk_rows is not None and entry.name == "oavi"
 
     def seq_fit(X):
-        return fit(X, method, psi=psi, backend=backend, config=config, device=dev,
-                   chunk_rows=chunk_rows if stream else None, **method_kw)
+        return fit(X, method, psi=psi, backend=backend, mesh=mesh, data_axes=data_axes,
+                   config=config, device=dev, chunk_rows=chunk_rows if stream else None,
+                   **method_kw)
 
     if class_batch == "off" or entry.name != "oavi" or len(Xs) < 2:
         return [seq_fit(X) for X in Xs]
@@ -390,11 +478,13 @@ def fit_classes(
                                                             **dict(method_kw))
     if not oavi_mod.class_batchable(cfg):
         return [seq_fit(X) for X in Xs]  # the Cholesky engine: sequential
-    _check_backend(entry, backend)
+    backend_r = _resolve_backend(entry, backend, mesh, max(X.shape[0] for X in Xs))
+    mesh_r = _sharded_mesh(backend_r, mesh, data_axes, dev)
     if stream:
-        fitted = streaming_mod.fit_classes(Xs, cfg, chunk_rows=chunk_rows, device=dev)
+        fitted = streaming_mod.fit_classes(Xs, cfg, chunk_rows=chunk_rows, device=dev,
+                                           mesh=mesh_r, data_axes=tuple(data_axes))
         for model in fitted:
-            model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
+            model.stats["api"] = {"method": entry.spec(variant), "backend": backend_r,
                                   "device": str(dev), "streaming": True, "class_batch": True}
         return fitted
 
@@ -402,12 +492,13 @@ def fit_classes(
     sizes = [X.shape[0] for X in Xs]
     for cap, idxs in class_batch_mod.plan_class_groups(sizes):
         fitted = class_batch_mod.fit_classes([Xs[i] for i in idxs], cfg, m_cap=cap,
+                                             mesh=mesh_r, data_axes=tuple(data_axes),
                                              device=dev)
         mc = int(fitted[0].stats["class_batch"]["m_cap"])
         group_rows = sum(sizes[i] for i in idxs)
         group_padded = mc * len(idxs) - group_rows
         for i, model in zip(idxs, fitted):
-            model.stats["api"] = {"method": entry.spec(variant), "backend": "local",
+            model.stats["api"] = {"method": entry.spec(variant), "backend": backend_r,
                                   "device": str(dev), "class_batch": True}
             model.stats["class_batch_padding"] = {
                 "m_cap": mc,

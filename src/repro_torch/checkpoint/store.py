@@ -36,7 +36,7 @@ directory as ``path``: corrupt-after-commit faults), emits the
 ``checkpoint/committed`` event and counts ``checkpoint.saves``; a restore
 runs in ``checkpoint/restore``.  Not ported yet: the reference's
 ``shardings`` (re-sharding onto a device mesh on restore; ROADMAP.md queue 1
-item 12 — ``restore`` accepts and ignores it).
+item 12b — ``restore`` accepts and ignores it).
 """
 
 from __future__ import annotations

@@ -45,9 +45,18 @@ The host planner (:func:`class_buckets`, :func:`plan_class_groups`) is a copy
 of the reference's (stdlib and numpy only).  Class-batched streaming is
 :func:`repro_torch.streaming.fit_classes`.  The group's degree loop runs in
 one :class:`~repro_torch.core.oavi.FitScope` (backend ``class_batch``), whose
-timing fields every class's stats share.  Not ported: the sharded
-composition (ROADMAP queue 1 item 12); the reference's ``recompiles`` count
-jit traces, which the eager port has none of.
+timing fields every class's stats share.  The reference's ``recompiles``
+count jit traces, which the eager port has none of.
+
+**Data-parallel composition** (``mesh=``, the reference's vmap inside
+``shard_map``): the class axis is replicated and the sample axis split over
+the mesh's data axes as in :mod:`repro_torch.core.distributed`.  Each rank
+holds every class's contiguous span of the ``(k, m_rows, .)`` blocks
+(``m_rows`` the bucket rounded up to ``shards * GRAM_BLOCK``), runs the
+batched Gram on its spans, and issues ONE all_reduce of ``(k, Lcap, Kcap) +
+(k, Kcap, Kcap)`` a degree; the candidate loop then runs on the reduced
+blocks, replicated on every rank.  A world of one is the local batched fit
+bit for bit.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 
 from .. import _device
 from ..kernels import ops as kernel_ops
+from . import distributed as distributed_mod
 from . import ihb as ihb_mod
 from . import oavi as oavi_mod
 from . import oracles
@@ -97,14 +107,19 @@ def fit_classes(
     config: OAVIConfig = OAVIConfig(),
     *,
     m_cap: Optional[int] = None,
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
     device=None,
 ) -> List[OAVIModel]:
     """Fit one OAVI model per class, every degree once for all classes.
 
     The same models as ``[oavi.fit(X, config) for X in Xs]``, bit for bit at
     matched capacity (see the module docstring).  ``m_cap`` overrides the
-    shared row bucket (default ``pow2_bucket(max m_c)``).  ``device=None``
-    means the CUDA card.  Every model's stats carry a ``"class_batch"`` dict
+    shared row bucket (default ``pow2_bucket(max m_c)``).  ``mesh`` (a
+    ``DeviceMesh``) splits the sample axis over its ``data_axes``; every
+    rank calls with the same ``Xs`` and gets the same models, whose stats
+    then also carry ``mesh``, ``m_padded`` and ``all_reduces``.
+    ``device=None`` means the CUDA card.  Every model's stats carry a ``"class_batch"`` dict
     (``group``, ``size``, ``index``, ``m_cap``, ``regrowths``); the group's
     shared counters (``regrowths``, ``kernel_launches``, ``host_reads``,
     ``solver_escalations``) must be counted once per group, not once per
@@ -130,13 +145,16 @@ def fit_classes(
     # set of launches and host reads serve all k classes
     batch: Dict = {"group": group, "size": k, "m_cap": 0, "regrowths": 0,
                    "degree_times": [], "flops_per_degree": [], "m": int(sum(ms)), "n": n}
+    lay = None if mesh is None else distributed_mod.layout(mesh, data_axes)
     scope = FitScope(batch, backend="class_batch", device=dev)
     with scope:
-        return _fit_group(Xs, config, m_cap, dev, scope)
+        return _fit_group(Xs, config, m_cap, dev, scope, lay)
 
 
-def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope) -> List[OAVIModel]:
-    """The body of :func:`fit_classes`, inside the group's scope."""
+def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope,
+               lay: Optional[distributed_mod.ShardLayout]) -> List[OAVIModel]:
+    """The body of :func:`fit_classes`, inside the group's scope; ``lay``
+    is this rank's data shard (``None``: the local fit)."""
     batch = scope.stats
     group, k, n = batch["group"], batch["size"], batch["n"]
     ms = [int(X.shape[0]) for X in Xs]
@@ -146,14 +164,20 @@ def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope) -> List[OAVI
 
     mc = max(int(m_cap) if m_cap is not None else pow2_bucket(max(ms)), max(ms))
     batch["m_cap"] = int(mc)
-    # rows held on the device: the bucket rounded to the Gram block (zeros)
-    m_rows = kernel_ops.round_up(mc, kernel_ops.GRAM_BLOCK)
+    # rows held on the device: this rank's span of the bucket rounded to
+    # shards * GRAM_BLOCK (the local fit, a world of one: the bucket rounded
+    # to the Gram block), padded with zeros
+    shard = lay or distributed_mod.layout()
+    lo, m_rows, _ = shard.rows(mc)
+    collective = shard.stats(mc)
+    reduce = shard.reducer(collective)
     Xd = torch.zeros((k, m_rows, n), dtype=dtype, device=dev)
     Lcap = pow2_bucket(config.cap_terms)
     A = torch.zeros((k, m_rows, Lcap), dtype=dtype, device=dev)
     for c, X in enumerate(Xp):
-        Xd[c, : ms[c]] = _device.tensor(X, dtype, dev)
-        A[c, : ms[c], 0] = 1.0  # the constant column is the class's row mask
+        lo_c, hi_c = shard.span(ms[c])
+        Xd[c, : hi_c - lo_c] = _device.tensor(X[lo_c:hi_c], dtype, dev)
+        A[c, : hi_c - lo_c, 0] = 1.0  # the constant column is the class's row mask
     # normalized Gram convention: AtA[0, 0] = ||mask_c||^2 / m_c = 1 per class
     state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(),
                                device=dev, classes=k)
@@ -213,7 +237,7 @@ def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope) -> List[OAVI
             v_t = torch.as_tensor(vars_, device=dev)
             valid_t = torch.as_tensor(valid, device=dev)
             # all O(m) work: one launch of the hand-written kernel for the group
-            QL_raw, C_raw = kernel_ops.gram_accumulate_batched(A, Xd, p_t, v_t)
+            QL_raw, C_raw = reduce(*kernel_ops.gram_accumulate_batched(A, Xd, p_t, v_t))
             res, state, schedule, escalated = escalating_step(
                 config, QL_raw, C_raw, state, ells, Ks, ms, valid_t, schedule)
             escalations += escalated
@@ -247,6 +271,8 @@ def _fit_group(Xs, config: OAVIConfig, m_cap, dev, scope: FitScope) -> List[OAVI
         stats["solver_escalations"] = escalations
         stats["class_batch"] = {"group": group, "size": k, "index": c, "m_cap": int(mc),
                                 "regrowths": batch["regrowths"]}
+        if lay is not None:
+            stats.update(collective)
         scope.finalize(books[c], generators[c], Lcap, config, stats=stats)
         models.append(OAVIModel(n=n, psi=config.psi, book=books[c], generators=generators[c],
                                 feature_perm=perms[c], stats=stats, dtype=config.dtype,

@@ -508,18 +508,23 @@ def _candidate_loop(cfg: OAVIConfig, QL, C, state: ihb_mod.IHBState,
 
 
 def degree_step(cfg: OAVIConfig, A, X, state, ell0: int, parents, vars_, K: int,
-                m_total: int):
+                m_total: int, reduce=None):
     """One degree in memory: the fused Gram op, the candidate loop
     (:func:`stats_step`), and the appended columns written into ``A``.
 
     ``A`` is updated in place (the JAX package donates it to the same end).
-    Returns ``(DegreeResult, new IHB state)``.
+    ``reduce`` (the data-parallel fit, :mod:`repro_torch.core.distributed`)
+    maps the raw local ``(QL, C)`` to their sum over every row shard; the
+    candidate loop then runs on the reduced blocks.  Returns
+    ``(DegreeResult, new IHB state)``.
     """
     dev = A.device
     p_t = torch.as_tensor(parents, device=dev)
     v_t = torch.as_tensor(vars_, device=dev)
     # all O(m) work: the hand-written kernel on the card
     QL_raw, C_raw = kernel_ops.gram_accumulate(A, X, p_t, v_t)
+    if reduce is not None:
+        QL_raw, C_raw = reduce(QL_raw, C_raw)
     res, state = stats_step(cfg, QL_raw, C_raw, state, ell0, K, m_total)
     Lcap = A.shape[1]
     idx = np.nonzero((~res.accepted) & (res.slots < Lcap))[0]
@@ -855,60 +860,17 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
     card (and raises without one); pass ``device="cpu"`` for the CPU."""
     check_config(config)
     dev = _device.resolve(device)
-    dtype = config.torch_dtype()
     X = np.asarray(X)
     m, n = X.shape
     stats = init_fit_stats(m, n, device=dev)
 
     with FitScope(stats, backend="local", device=dev) as scope:
         X, perm = order_features(X, config.ordering)
-
         # rows padded once to the Gram block with zeros (bitwise no-ops)
-        m_pad = kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK)
-        Xd = torch.zeros((m_pad, n), dtype=dtype, device=dev)
-        Xd[:m] = _device.tensor(X, dtype, dev)
-        book = terms_mod.TermBook(n=n)
-        generators: List[Generator] = []
-
-        Lcap = pow2_bucket(config.cap_terms)
-        A = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
-        A[:m, 0] = 1.0
-        # normalized Gram convention: AtA[0,0] = ||1||^2 / m = 1
-        state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(),
-                                   device=dev)
-        ell = 1
-
-        d = 0
-        while True:
-            d += 1
-            if d > config.max_degree:
-                stats["termination"] = f"max_degree={config.max_degree}"
-                break
-            border = book.border(d)
-            if not border:
-                stats["termination"] = "empty_border"
-                break
-            K = len(border)
-            stats["border_sizes"].append(K)
-            stats["degrees"].append(d)
-
-            # capacity management: regrowth into the next pow2 bucket
-            while ell + K > Lcap:
-                Lcap *= 2
-                scope.regrowth(Lcap)
-                grown = torch.zeros((m_pad, Lcap), dtype=dtype, device=dev)
-                grown[:, : A.shape[1]] = A
-                A = grown
-                state = ihb_mod.grow_state(state, Lcap)
-
-            Kcap = max(config.cap_border, pow2_bucket(K))
-            parents, vars_, _ = border_index_arrays(book, border, Kcap)
-            with scope.degree(d, K=K):
-                res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m)
-            stats["solver_iters"].append(int(res.iters.sum()))
-            ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs,
-                                 generators)
-
+        Xd = torch.zeros((kernel_ops.round_up(m, kernel_ops.GRAM_BLOCK), n),
+                         dtype=config.torch_dtype(), device=dev)
+        Xd[:m] = _device.tensor(X, config.torch_dtype(), dev)
+        book, generators, Lcap = fit_rows(Xd, m, m, config, scope)
         scope.finalize(book, generators, Lcap, config)
     return OAVIModel(
         n=n,
@@ -920,3 +882,58 @@ def fit(X, config: OAVIConfig = OAVIConfig(), *, device=None) -> OAVIModel:
         dtype=config.dtype,
         device=dev,
     )
+
+
+def fit_rows(Xd: torch.Tensor, valid: int, m_total: int, config: OAVIConfig,
+             scope: FitScope, reduce=None):
+    """The in-memory degree loop over the rows ``Xd`` (already ordered, on
+    the device, a whole number of Gram blocks), whose first ``valid`` rows
+    are real and the rest zeros.  ``m_total`` is the sample count of the
+    fit (``valid`` itself for the local fit; every shard's rows together for
+    the data-parallel fit, whose ``reduce`` sums the raw Gram blocks over
+    the shards).  Returns ``(book, generators, Lcap)``; each degree runs in
+    ``scope``'s timing window."""
+    stats = scope.stats
+    dev, dtype = Xd.device, Xd.dtype
+    m_rows, n = Xd.shape
+    book = terms_mod.TermBook(n=n)
+    generators: List[Generator] = []
+
+    Lcap = pow2_bucket(config.cap_terms)
+    A = torch.zeros((m_rows, Lcap), dtype=dtype, device=dev)
+    A[:valid, 0] = 1.0  # the constant column is the row mask
+    # normalized Gram convention: AtA[0,0] = ||1||^2 / m = 1
+    state = ihb_mod.init_state(Lcap, 1.0, dtype, factors=config.ihb_factors(), device=dev)
+    ell = 1
+
+    d = 0
+    while True:
+        d += 1
+        if d > config.max_degree:
+            stats["termination"] = f"max_degree={config.max_degree}"
+            break
+        border = book.border(d)
+        if not border:
+            stats["termination"] = "empty_border"
+            break
+        K = len(border)
+        stats["border_sizes"].append(K)
+        stats["degrees"].append(d)
+
+        # capacity management: regrowth into the next pow2 bucket
+        while ell + K > Lcap:
+            Lcap *= 2
+            scope.regrowth(Lcap)
+            grown = torch.zeros((m_rows, Lcap), dtype=dtype, device=dev)
+            grown[:, : A.shape[1]] = A
+            A = grown
+            state = ihb_mod.grow_state(state, Lcap)
+
+        Kcap = max(config.cap_border, pow2_bucket(K))
+        parents, vars_, _ = border_index_arrays(book, border, Kcap)
+        with scope.degree(d, K=K):
+            res, state = degree_step(config, A, Xd, state, ell, parents, vars_, K, m_total,
+                                     reduce=reduce)
+        stats["solver_iters"].append(int(res.iters.sum()))
+        ell = collect_degree(book, border, res.accepted, res.mses, res.coeffs, generators)
+    return book, generators, Lcap

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,14 +41,16 @@ CLASSIFIER_FORMAT = "repro.vanishing_ideal_classifier.v1"
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The reference's ``PipelineConfig`` less the field of the unported
-    sharded path (``mesh``)."""
+    """The reference's ``PipelineConfig``: ``backend="sharded"`` (or
+    ``"auto"`` with a ``mesh``) fits the per-class generators data-parallel
+    over the ``DeviceMesh`` (:mod:`repro_torch.core.distributed`)."""
 
     method: str = "fast"  # repro_torch.api method spec (or bare OAVI variant)
     psi: float = 0.005
     svm: LinearSVMConfig = dataclasses.field(default_factory=LinearSVMConfig)
     oavi_kw: Optional[Dict] = None  # forwarded to the method config
-    backend: str = "auto"  # 'auto' | 'local' (both run the local fit)
+    backend: str = "auto"  # repro_torch.api backend: 'auto' | 'local' | 'sharded'
+    mesh: Optional[Any] = None  # torch DeviceMesh for the sharded backend
     batch_size: Optional[int] = None  # fused-transform chunking (rows)
     # 'auto': eligible per-class OAVI fits run class-batched, grouped into
     # shared row buckets (repro_torch.core.class_batch); 'off': sequential
@@ -86,7 +88,7 @@ class VanishingIdealClassifier:
 
         cfg = self.config
         self.fit_states = []
-        kw = dict(method=cfg.method, psi=cfg.psi, backend=cfg.backend,
+        kw = dict(method=cfg.method, psi=cfg.psi, backend=cfg.backend, mesh=cfg.mesh,
                   chunk_rows=cfg.chunk_rows, device=self.device, **dict(cfg.oavi_kw or {}))
         if not cfg.capture_fit_state:
             return api.fit_classes(Xcs, class_batch=cfg.class_batch, **kw)
@@ -119,7 +121,7 @@ class VanishingIdealClassifier:
         Builds one over ``self.models`` when ``engine`` is omitted.  Model
         sets without a fused term-book plan (VCA) keep the per-model path:
         the engine stays ``None`` and ``None`` is returned.  ``mesh`` (the
-        sharded engine) raises, naming ROADMAP.md queue 1 item 12.
+        sharded engine) raises, naming ROADMAP.md queue 1 item 12b.
         """
         from ..serving.engine import EngineConfig, TransformEngine, UnsupportedModelError
 

@@ -11,7 +11,7 @@ request trace against it, reporting tail latency and throughput.
 2. **engine** — :class:`~repro_torch.serving.engine.TransformEngine` on
    ``--device`` (default: the CUDA card; ``cpu`` is for tests).  Every row
    bucket is warmed before the trace starts.  ``--sharded`` raises
-   (ROADMAP.md queue 1 item 12).
+   (ROADMAP.md queue 1 item 12b).
 3. **traffic** — ``--requests`` synthetic mixed-size requests (log-normal
    row counts around ``--mean-rows``), or a file trace (``--trace``: one
    request size per line).  ``--concurrency`` closed-loop clients submit
@@ -153,7 +153,7 @@ def main(argv=None, *, replies: Optional[list] = None) -> Dict:
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: the CUDA card; 'cpu' only when asked)")
     ap.add_argument("--sharded", action="store_true",
-                    help="the sharded engine (not ported: ROADMAP.md queue 1 item 12)")
+                    help="the sharded engine (not ported: ROADMAP.md queue 1 item 12b)")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--mean-rows", type=int, default=128)
     ap.add_argument("--trace", type=str, default=None,
@@ -171,7 +171,7 @@ def main(argv=None, *, replies: Optional[list] = None) -> Dict:
     args = ap.parse_args(argv)
     if args.sharded:
         raise NotImplementedError(
-            "serve_vi --sharded is not ported yet: ROADMAP.md queue 1 item 12")
+            "serve_vi --sharded is not ported yet: ROADMAP.md queue 1 item 12b")
 
     registry = ModelRegistry(
         device=args.device,

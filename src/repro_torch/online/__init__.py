@@ -6,8 +6,8 @@ data is a fold: persist the per-degree accumulators (:class:`FitState`),
 fold new chunks into them (:func:`update`, bit-identical to a full streamed
 refit of the grown data), re-run the degree steps that do not depend on m,
 and decide when to refit from one-pass drift signals
-(:class:`DriftMonitor`).  The reference's serving loop
-(``launch/continuous_vi.py``) is not ported: ROADMAP.md queue 1 item 13e.
+(:class:`DriftMonitor`).  The continuous loop that serves while it folds
+is :mod:`repro_torch.launch.continuous_vi`.
 """
 
 from .drift import DriftConfig, DriftMonitor

@@ -1,9 +1,9 @@
 """Failure survival of the port: content checksums for persisted payloads
-(:mod:`~repro_torch.resilience.integrity`) and seeded fault injection
-through fixed sites (:mod:`~repro_torch.resilience.chaos`: the serving
-engine, the registry, the checkpoint store and the shard writer).  The
-reference's journal (``resilience/journal.py``) is ROADMAP.md queue 1 item
-13d."""
+(:mod:`~repro_torch.resilience.integrity`), seeded fault injection through
+fixed sites (:mod:`~repro_torch.resilience.chaos`: the serving engine, the
+registry, the checkpoint store, the shard writer and the continuous
+controller), and the controller's fsync'd journal
+(:mod:`~repro_torch.resilience.journal`)."""
 
 from .chaos import (
     POISON_SENTINEL,
@@ -25,12 +25,15 @@ from .integrity import (
     truncate_file,
     verify_file,
 )
+from .journal import Journal, JournalError
 
 __all__ = [
     "Fault",
     "FaultPlan",
     "InjectedFault",
     "IntegrityError",
+    "Journal",
+    "JournalError",
     "POISON_SENTINEL",
     "PoisonRequestError",
     "TransientEngineError",

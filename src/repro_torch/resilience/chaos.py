@@ -7,7 +7,7 @@ package.
 Production failure modes — a transient device error, a hung accelerator, a
 corrupted checkpoint leaf, an operator SIGKILL mid-update — are injected
 through named **sites** instrumented in the store / source / engine /
-registry.  Each site calls :func:`fire` with a little context;
+registry / controller.  Each site calls :func:`fire` with a little context;
 when no plan is installed that is one global ``is None`` check, so the happy
 path pays nothing measurable.
 
@@ -29,11 +29,13 @@ Instrumented sites (context keys in parentheses):
 ``shards.committed``    every :func:`write_shards` meta commit (``path``)
 ``shards.shard_written``each shard file written, BEFORE the meta commit
                         (``path`` — a SIGKILL here is a torn shard write)
+``controller.*``        the continuous loop's phase transitions
+                        (:mod:`repro_torch.launch.continuous_vi`):
+                        ``update_start``, ``state_saved``, ``staged`` and
+                        ``activated`` (``update``), each fired AFTER its
+                        journal append, so a ``sigkill`` there is a crash
+                        between durable transitions
 ====================== ====================================================
-
-The reference's ``controller.*`` sites belong to its continuous loop
-(``launch/continuous_vi.py``), which the port does not have yet (ROADMAP.md
-queue 1 item 13e).
 
 Actions: ``raise`` (a :class:`InjectedFault`), ``raise_transient``
 (:class:`TransientEngineError` — the batcher's retry path), ``poison``

@@ -18,7 +18,7 @@ polynomial evaluation.  This package turns the fused transform of
   and hot-swaps versions.
 
 ``python -m repro_torch.launch.serve_vi`` stands the whole stack up and
-replays a request trace.  The sharded engine is ROADMAP.md queue 1 item 12.
+replays a request trace.  The sharded engine is ROADMAP.md queue 1 item 12b.
 """
 
 from .batcher import BatcherConfig, DeadlineExceeded, MicroBatcher, ShutdownError

@@ -29,7 +29,7 @@ hand-written kernel, so it stays 0.
 Device calls are made with the engine's explicit device (its index fixed at
 construction), so a worker thread needs no current-device setup; the copy
 back to the host (``.cpu()``) is the synchronization before results reach
-the caller.  The sharded engine (``mesh=``) is ROADMAP.md queue 1 item 12.
+the caller.  The sharded engine (``mesh=``) is ROADMAP.md queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from .. import _device, obs
 from ..core.oavi import pow2_bucket
 from ..resilience import chaos
 
-_SHARDED = "the sharded serving engine (mesh=) is not ported yet: ROADMAP.md queue 1 item 12"
+_SHARDED = "the sharded serving engine (mesh=) is not ported yet: ROADMAP.md queue 1 item 12b"
 
 
 class UnsupportedModelError(TypeError):
@@ -100,7 +100,7 @@ class TransformEngine:
     device : where the constants live and every call runs; ``None`` means
         the CUDA card (and raises without one), ``"cpu"`` only when asked.
     mesh : the reference's sharded engine; raises
-        :class:`NotImplementedError` (ROADMAP.md queue 1 item 12).
+        :class:`NotImplementedError` (ROADMAP.md queue 1 item 12b).
     config : row-bucket policy (:class:`EngineConfig`).
     """
 

@@ -3,7 +3,7 @@
 Counterpart of ``src/repro/serving/registry.py``, on one explicit device
 (``device=None``: the CUDA card; ``"cpu"`` only when asked): servables are
 loaded onto it and their engines evaluate there.  The sharded registry
-(``mesh=``) is ROADMAP.md queue 1 item 12.
+(``mesh=``) is ROADMAP.md queue 1 item 12b.
 
 A serving process holds one registry.  Each ``register``/``load`` call
 builds a :class:`~repro_torch.serving.engine.TransformEngine` for the servable's

@@ -31,10 +31,17 @@ whatever ``m`` is.
 
 Each fit runs in a :class:`~repro_torch.core.oavi.FitScope` (backend
 ``streaming``, ``streaming_class_batch`` or ``online``) with a
-``streaming/accumulate`` span around each degree's fold.  Not ported: the
-sharded streaming fit (``mesh=``, ROADMAP.md queue 1 item 12); the
-reference's recompile accounting has no counterpart, as eager PyTorch
-compiles nothing.
+``streaming/accumulate`` span around each degree's fold.  The reference's
+recompile accounting has no counterpart, as eager PyTorch compiles nothing.
+
+**Sharded streaming** (``mesh=``): each rank folds only the chunks of its
+own contiguous row span, the in-memory data-parallel fit's span
+(:class:`repro_torch.core.distributed.ShardLayout`: ``m`` padded to a
+multiple of ``shards * GRAM_BLOCK``, so every span starts on a Gram block
+boundary), and issues one all_reduce of its accumulators a degree.  Under
+the carry-in contract a span's folded chunks equal the in-memory rank's one
+Gram call, so the streamed sharded fit equals the in-memory sharded fit bit
+for bit at the same world size.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _device, obs
+from ..core import distributed as distributed_mod
 from ..core import ihb as ihb_mod
 from ..core import oracles
 from ..core import terms as terms_mod
@@ -70,7 +78,6 @@ from ..kernels import ops as kernel_ops
 from .source import DataSource, as_source, iter_chunks
 
 DEFAULT_CHUNK_ROWS = 4096
-_SHARDED = "sharded streaming (mesh=) is not ported yet: ROADMAP.md queue 1 item 12"
 
 
 def _check_chunk_rows(chunk_rows: int) -> int:
@@ -233,7 +240,8 @@ def new_stats(m: int, n: int, chunk_rows: int, device=None, **extra) -> Dict:
 
 def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
                 perm: Optional[np.ndarray], device: torch.device, prefetch: bool,
-                scope: FitScope, *, base=None, capture: bool = False):
+                scope: FitScope, *, base=None, capture: bool = False,
+                lay: Optional[distributed_mod.ShardLayout] = None):
     """The degree loop of a streamed fit: per degree, fold the source into
     fresh ``(Lcap, Kcap)`` / ``(Kcap, Kcap)`` accumulators, then run
     :func:`~repro_torch.core.oavi.stats_step` on them, each degree in
@@ -247,8 +255,17 @@ def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
     ``base.aligned_rows``, and counts folded and replayed degrees in
     ``stats["online"]``.  Returns ``(book, generators, Lcap, snapshots)``,
     each snapshot the fields of a :class:`repro_torch.online.DegreeRecord`.
+
+    ``lay`` (the sharded streaming fit; not with ``capture``) folds only this
+    rank's row span and sums the accumulators over the shards with one
+    all_reduce a degree (``scope.stats`` then carries its counters).
     """
     stats = scope.stats
+    if lay is not None and (capture or base is not None):
+        raise ValueError("an online fit (capture / base) is local-only")
+    shard = lay or distributed_mod.layout()
+    span_lo, span_hi = shard.span(source.num_rows)
+    reduce = shard.reducer(stats)
     dtype = config.torch_dtype()
     np_dtype = np.dtype(config.dtype)
     m, n = source.num_rows, source.num_features
@@ -316,7 +333,7 @@ def fit_degrees(source: DataSource, config: OAVIConfig, chunk_rows: int,
                                       accC=acc[1].cpu().numpy().copy()))
                 acc = fold(acc, aligned, m)
             else:
-                acc = fold(acc, 0, m)
+                acc = reduce(*fold(acc, span_lo, span_hi))
             stats["streaming"]["passes"] += 1
 
             res, state = stats_step(config, acc[0], acc[1], state, ell, K, m)
@@ -333,6 +350,7 @@ def fit(
     prefetch: bool = True,
     device=None,
     mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OAVIModel:
     """Run OAVI over a chunked :class:`~repro_torch.streaming.source.
     DataSource` (or an array) without ever holding the evaluation matrix.
@@ -343,23 +361,27 @@ def fit(
     ``prefetch`` on or off.  ``source`` must yield data in ``[0, 1]^n``
     (compose with :class:`~repro_torch.streaming.source.ScaledSource`).
     ``device=None`` means the CUDA card; the chunks are staged on the host
-    and copied there.  ``mesh`` (the sharded streaming fit) is not ported.
+    and copied there.  ``mesh`` (a ``DeviceMesh``) splits the rows over its
+    ``data_axes``: every rank calls with the same source, folds its own
+    span and gets the same model, the in-memory sharded fit's
+    (:func:`repro_torch.core.distributed.fit`) bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(_SHARDED)
     check_config(config)
     source = as_source(source)
     chunk_rows = _check_chunk_rows(chunk_rows)
     dev = _device.resolve(device)
+    lay = None if mesh is None else distributed_mod.layout(mesh, data_axes)
     m, n = source.num_rows, source.num_features
-    stats = new_stats(m, n, chunk_rows, device=dev)
-    with FitScope(stats, backend="streaming", device=dev) as scope:
+    stats = new_stats(m, n, chunk_rows, device=dev,
+                      **({} if lay is None else lay.stats(m)))
+    with FitScope(stats, backend="streaming" if lay is None else "streaming_sharded",
+                  device=dev) as scope:
         perm = None
         if config.ordering in ("pearson", "reverse_pearson"):
             perm = streaming_pearson_order(
                 source, chunk_rows, reverse=(config.ordering == "reverse_pearson"))
         book, generators, Lcap, _ = fit_degrees(source, config, chunk_rows, perm, dev,
-                                                prefetch, scope)
+                                                prefetch, scope, lay=lay)
         scope.finalize(book, generators, Lcap, config)
     return OAVIModel(n=n, psi=config.psi, book=book, generators=generators,
                      feature_perm=perm, stats=stats, dtype=config.dtype, device=dev)
@@ -377,6 +399,8 @@ def fit_classes(
     chunk_rows: int = DEFAULT_CHUNK_ROWS,
     prefetch: bool = True,
     device=None,
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> List[OAVIModel]:
     """Fit one OAVI model per class out-of-core, every class's decisions of
     a degree in ONE :func:`~repro_torch.core.oavi.stats_step_batched`.
@@ -393,7 +417,9 @@ def fit_classes(
 
     Each model equals its class's :func:`fit` bit for bit at matched
     capacity (the shared ``Lcap`` growth).  ``device=None`` means the CUDA
-    card.
+    card.  ``mesh`` splits each class's rows over the ``data_axes`` as
+    :func:`fit` does (each class folds its own span), with ONE all_reduce of
+    the stacked ``(k, Lcap, Kcap) + (k, Kcap, Kcap)`` accumulators a degree.
     """
     from ..core import class_batch as class_batch_mod
 
@@ -410,7 +436,8 @@ def fit_classes(
     if len(sources) == 1:
         # a lone class rides with a discarded duplicate, as in the reference
         return fit_classes([sources[0], sources[0]], config, chunk_rows=chunk_rows,
-                           prefetch=prefetch, device=device)[:1]
+                           prefetch=prefetch, device=device, mesh=mesh,
+                           data_axes=data_axes)[:1]
     k = len(sources)
     n = sources[0].num_features
     if any(s.num_features != n for s in sources):
@@ -420,13 +447,15 @@ def fit_classes(
     group = next(class_batch_mod._GROUP_IDS)
     batch: Dict = {"group": group, "size": k, "regrowths": 0, "degree_times": [],
                    "flops_per_degree": [], "m": int(sum(ms)), "n": n}
+    lay = None if mesh is None else distributed_mod.layout(mesh, data_axes)
     with FitScope(batch, backend="streaming_class_batch", device=dev) as scope:
-        return _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev, scope)
+        return _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev, scope, lay)
 
 
-def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
-                          scope: FitScope) -> List[OAVIModel]:
-    """The body of :func:`fit_classes`, inside the group's scope."""
+def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev, scope: FitScope,
+                          lay: Optional[distributed_mod.ShardLayout]) -> List[OAVIModel]:
+    """The body of :func:`fit_classes`, inside the group's scope; ``lay``
+    is this rank's data shard (``None``: the local fit)."""
     from ..core import class_batch as class_batch_mod
 
     batch = scope.stats
@@ -450,6 +479,10 @@ def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
     schedule = (oracles.schedule_budget(config.solver)
                 if class_batch_mod.needs_solver_schedule(config) else None)
     escalations = 0
+    shard = lay or distributed_mod.layout()
+    spans = [shard.span(m) for m in ms]
+    collective = {"all_reduces": 0, "all_reduce_seconds": 0.0}
+    reduce = shard.reducer(collective)
 
     d = 0
     while any(active):
@@ -491,8 +524,8 @@ def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
                                                                       Kcap)
                     with obs.span("streaming/accumulate", d=d, rows=ms[c], c=c):
                         ql, cc, chunks = accumulate_source_range(
-                            ChunkAccumulator(books[c], Lcap, chunk_rows, dev), sources[c], 0,
-                            ms[c], chunk_rows, acc, torch.as_tensor(parents_c, device=dev),
+                            ChunkAccumulator(books[c], Lcap, chunk_rows, dev), sources[c],
+                            *spans[c], chunk_rows, acc, torch.as_tensor(parents_c, device=dev),
                             torch.as_tensor(vars_c, device=dev), perm=perms[c],
                             np_dtype=np_dtype, prefetch=prefetch)
                     acc = (ql, cc)
@@ -500,8 +533,7 @@ def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
                     per_class[c]["streaming"]["passes"] += 1
                 QLs.append(acc[0])
                 Cs.append(acc[1])
-            QL_b = torch.stack(QLs)
-            C_b = torch.stack(Cs)
+            QL_b, C_b = reduce(torch.stack(QLs), torch.stack(Cs))
             res, state, schedule, escalated = class_batch_mod.escalating_step(
                 config, QL_b, C_b, state, ells, Ks, ms, torch.as_tensor(valid, device=dev),
                 schedule)
@@ -527,6 +559,8 @@ def _fit_classes_streamed(sources, config, chunk_rows, prefetch, dev,
         stats["class_batch"] = {"group": group, "size": k, "index": c,
                                 "m_cap": None,  # no shared row bucket, no padding
                                 "streaming": True, "regrowths": batch["regrowths"]}
+        if lay is not None:
+            stats.update(lay.stats(ms[c]), **collective)
         scope.finalize(books[c], generators[c], Lcap, config, stats=stats)
         models.append(OAVIModel(n=n, psi=config.psi, book=books[c], generators=generators[c],
                                 feature_perm=perms[c], stats=stats, dtype=config.dtype,

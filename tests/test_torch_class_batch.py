@@ -410,8 +410,8 @@ def test_api_routes_and_padding_stats():
 def test_api_sequential_routes():
     """``class_batch="off"``, a single class, ABM, VCA and the Cholesky engine
     fit one class after another (no group stats); ``chunk_rows`` streams the
-    classes to the in-memory bits; the sharded backend still raises, naming
-    its ROADMAP item."""
+    classes to the in-memory bits; the sharded backend without a process
+    group is a world of one, the local batched fit's bits."""
     Xs = _classes(k=2, m=128, seed=3)
     auto = api.fit_classes(Xs, "oavi:fast", psi=PSI, device="cpu")
     off = api.fit_classes(Xs, "oavi:fast", psi=PSI, class_batch="off", device="cpu")
@@ -431,8 +431,12 @@ def test_api_sequential_routes():
     assert all(m.stats["class_batch"]["streaming"] for m in streamed)
     for s, b in zip(streamed, off):
         _assert_bit_exact(s, b)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        api.fit_classes(Xs, "oavi:fast", backend="sharded", device="cpu")
+    # the sharded backend without a process group: a world of one, the
+    # local batched fit's bits
+    sharded = api.fit_classes(Xs, "oavi:fast", psi=PSI, backend="sharded", device="cpu")
+    assert all(m.stats["api"]["backend"] == "sharded" for m in sharded)
+    for s, a in zip(sharded, auto):
+        _assert_bit_exact(s, a)
 
 
 @pytest.fixture(scope="module")

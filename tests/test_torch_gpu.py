@@ -982,3 +982,58 @@ def test_fit_device_fields_on_card(cuda):
     # the same decisions (test_fit_on_card_matches_cpu) give the same count
     assert card.book.terms == cpu.book.terms
     assert st["flops_per_degree"] == cpu.stats["flops_per_degree"]
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda, tmp_path):
+    """A one-rank NCCL process group and its mesh, destroyed after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_fit_world_of_one_nccl_equals_local_on_card(nccl_world_of_one):
+    """A world of one over NCCL: the in-memory, class-batched and streamed
+    sharded fits are the local card fits bit for bit, with one all_reduce
+    and the local fit's kernel launches a degree."""
+    from repro_torch import api
+    from repro_torch.data.synthetic import _planted_class
+
+    rng = np.random.default_rng(0)
+    Xs = [np.clip(_planted_class(rng, m, 4), 0, 1).astype(np.float32) for m in (20_000, 9_000)]
+    mesh = nccl_world_of_one
+    local = api.fit(Xs[0], psi=PSI)
+    sharded = api.fit(Xs[0], psi=PSI, backend="sharded", mesh=mesh)
+    _bit_equal_models(sharded, local)
+    assert sharded.stats["all_reduces"] == len(local.stats["degrees"])
+    assert sharded.stats["kernel_launches"] == local.stats["kernel_launches"]
+    batched = api.fit_classes(Xs, psi=PSI)
+    degrees = max(len(m.stats["degrees"]) for m in batched)
+    for a, b in zip(api.fit_classes(Xs, psi=PSI, backend="sharded", mesh=mesh), batched):
+        _bit_equal_models(a, b)
+        assert a.stats["all_reduces"] == degrees
+    streamed = api.fit(Xs[0], psi=PSI, chunk_rows=4096, backend="sharded", mesh=mesh)
+    _bit_equal_models(streamed, local)
+    assert streamed.stats["kernel_launches"]["gram_update_acc"] == \
+        streamed.stats["streaming"]["num_chunks"]
+
+
+def test_kill_resume_on_card_bit_identical(cuda, tmp_path):
+    """The controller SIGKILL'd on the card after a state was saved, then
+    resumed: the final model is the card's uninterrupted run's bit for bit."""
+    from repro_torch.launch import chaos_vi
+
+    ref_dir = str(tmp_path / "reference")
+    proc = chaos_vi._run_controller(ref_dir, device="cuda")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    reference = chaos_vi._final_leaves(ref_dir, "cuda")
+    out = chaos_vi.scenario_kill_resume(str(tmp_path), reference, [("state_saved", 1)],
+                                        device="cuda")
+    assert out["ok"] and out["kills"][0]["caught_up_rows"] == 4096

@@ -130,11 +130,11 @@ def test_classifier_carry_across(fitted, appc_small):
 
 
 def test_unported_classifier_parts_raise(fitted):
-    """Only the sharded serving engine is still to port (item 12); the
+    """Only the sharded serving engine is still to port (item 12b); the
     local one attaches (``tests/test_torch_serving.py``), save/load: see
     ``tests/test_torch_checkpoint.py``."""
     _, port = fitted
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         port.attach_engine(mesh=object())
     assert port.engine is None
 

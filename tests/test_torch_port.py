@@ -44,6 +44,7 @@ SLICE_MODULES = [
     "repro_torch.core",
     "repro_torch.core.abm",
     "repro_torch.core.class_batch",
+    "repro_torch.core.distributed",
     "repro_torch.core.ihb",
     "repro_torch.core.oavi",
     "repro_torch.core.oracles",
@@ -63,6 +64,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.ops",
     "repro_torch.kernels.ref",
     "repro_torch.launch",
+    "repro_torch.launch.chaos_vi",
+    "repro_torch.launch.continuous_vi",
     "repro_torch.launch.obs_report",
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_vi",
@@ -84,6 +87,7 @@ SLICE_MODULES = [
     "repro_torch.resilience",
     "repro_torch.resilience.chaos",
     "repro_torch.resilience.integrity",
+    "repro_torch.resilience.journal",
     "repro_torch.serving",
     "repro_torch.serving.batcher",
     "repro_torch.serving.engine",
@@ -148,12 +152,18 @@ def test_unported_methods_raise(spec):
 
 
 def test_unported_options_raise():
-    """Only the sharded backend (item 12) still raises; out-of-core fits
-    (item 11) stream, one class or a class-batched list, and equal the
+    """Every fit option is ported: the sharded backend (item 12a) runs as a
+    world of one without a process group, the local fit's bits; out-of-core
+    fits (item 11) stream, one class or a class-batched list, and equal the
     in-memory fits bit for bit."""
     X = np.random.default_rng(0).uniform(0, 1, (64, 3))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        api.fit(X, backend="sharded", device="cpu")
+    sharded = api.fit(X, backend="sharded", device="cpu")
+    assert sharded.stats["api"]["backend"] == "sharded"
+    assert sharded.stats["all_reduces"] == 0  # no process group: no collective
+    local = api.fit(X, backend="local", device="cpu")
+    assert sharded.book.terms == local.book.terms
+    assert all(np.array_equal(a.coeffs, b.coeffs)
+               for a, b in zip(sharded.generators, local.generators))
     streamed = api.fit(X, chunk_rows=1024, device="cpu")
     in_memory = api.fit(X, device="cpu")
     assert streamed.stats["api"]["streaming"] is True

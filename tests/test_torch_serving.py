@@ -2,7 +2,7 @@
 the CPU.
 
 The cases of the reference's ``tests/test_serving.py`` except its two
-sharded ones (ROADMAP.md queue 1 item 12), on the port: the engine against
+sharded ones (ROADMAP.md queue 1 item 12b), on the port: the engine against
 the port's own direct transform **bit for bit** (buckets, chunked requests,
 the empty request, wrong widths), the batcher, classifier save/load and
 ``attach_engine``, the registry, and ``serve_vi`` in process.  Then parity
@@ -166,7 +166,7 @@ def test_engine_rejects_vca_and_mesh(planted, models):
     vca = api.fit(planted, "vca", psi=0.005, device=CPU)
     with pytest.raises(UnsupportedModelError, match="term-book"):
         TransformEngine([vca], device=CPU, config=CFG)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         TransformEngine(models, device=CPU, mesh=object())
 
 
@@ -406,7 +406,7 @@ def test_registry_hot_swap_versions(classifier):
         reg.activate("default", 99)
     with pytest.raises(ValueError, match="already registered"):
         reg.register("default", classifier, version=1)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         ModelRegistry(device=CPU, mesh=object())
 
 
@@ -457,7 +457,7 @@ def test_serve_vi_cli_in_process(tmp_path):
                                       serve_vi.synth_trace(8, 32, 0), 0)
     for p, r in zip(payloads, replies2):
         assert np.array_equal(r, _direct(clf.models, p))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         serve_vi.main(["--device", "cpu", "--sharded"])
 
 

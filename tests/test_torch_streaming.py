@@ -292,8 +292,10 @@ def test_streamed_fit_rejects_bad_chunk_rows(planted, bad):
 
 def test_streamed_fit_rejections(planted):
     source, _, scaler, _ = planted
-    with pytest.raises(NotImplementedError, match="item 12"):
-        streaming.fit(ScaledSource(source, scaler), OAVIConfig(), mesh=object(),
+    # a mesh must carry the data axes the fit splits the rows over
+    no_data_axis = type("Mesh", (), {"mesh_dim_names": ("model",)})()
+    with pytest.raises(ValueError, match="data_axes"):
+        streaming.fit(ScaledSource(source, scaler), OAVIConfig(), mesh=no_data_axis,
                       device="cpu")
     with pytest.raises(ValueError, match="GRAM_BLOCK|Gram block"):
         streaming.accumulate_source_range(None, source, 100, 200, 256, (None, None),
@@ -383,8 +385,13 @@ def test_api_fit_source_rejections(planted):
     source, _, scaler, X = planted
     with pytest.raises(ValueError, match="OAVI only"):
         api.fit(ScaledSource(source, scaler), "vca", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        api.fit(X, "oavi", chunk_rows=1024, backend="sharded", device="cpu")
+    with pytest.raises(ValueError, match="local-only"):
+        api.fit(X, "oavi", chunk_rows=1024, backend="sharded", capture_state=True,
+                device="cpu")
+    # the sharded streamed fit without a process group: a world of one
+    sharded = api.fit(X, "oavi", chunk_rows=1024, backend="sharded", device="cpu")
+    assert sharded.stats["api"]["backend"] == "sharded"
+    _assert_bit_equal(sharded, api.fit(X, "oavi", chunk_rows=1024, device="cpu"))
 
 
 def test_api_fit_classes_streaming_route():

@@ -109,7 +109,11 @@ Phases, each reported on its own lines:
    window) against obs off: identical bits, the timing contract to 1e-9 s,
    ``flops_per_degree`` equal to this script's ``gram_work`` and
    ``degree_work`` at the shapes the fit dispatched, the exported trace
-   validated and rendered by ``launch.obs_report``.
+   validated and rendered by ``launch.obs_report``; (f) the sharded engine
+   (``TransformEngine(mesh=[cuda:0] * k)``, k = 2 and 4, and one span a card
+   where there are several) over the phase-3 classifier, 256 requests
+   bit-equal to the local engine's, then ``serve_vi --sharded --mesh-shape
+   k`` replays beside the local one.
 12. The continuous controller (``launch.continuous_vi``, ``launch.chaos_vi``,
    ``resilience.journal``): (a) ``continuous_vi.main`` on the card: a
    2,097,152-row base (n = 3) and 4 arrivals of 131,072 rows (the third
@@ -128,6 +132,19 @@ Phases, each reported on its own lines:
    fit's launches a degree; (b) class 0 on two ranks of the one card
    (gloo, spawned processes): both ranks' models bit-identical, the local
    card fit's structure, the float64-witness rule.
+14. LM training (``launch.train``, Qwen2-1.5B, hf:Qwen/Qwen2-1.5B): (a) 8
+   steps at full width (28 layers, batch 4 x 1,024 tokens, AdamW with fp32
+   moments, remat full): the median step time over steps 2-8, tokens/s,
+   peak memory, the idle share of one profiled step, and the
+   ``flash_attention`` launches of the run, which must be two a layer a
+   step (the forward and its remat recompute: a plain-attention fallback
+   would make none); then three steps on one batch that descend; (b) at full
+   width cut to 2 periods, the loss and every gradient through the kernel
+   and with ``use_kernel=False``, each leaf no further from an fp32 copy's
+   than twice the plain path's, every attention weight's gradient non-zero;
+   (c) 8-bit moments: 6 steps checkpointed every 3, a resume to step 9, its
+   losses against an uninterrupted run's; (d) the chunked CE against the
+   plain one at full vocabulary, each with its peak memory.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -2428,6 +2445,73 @@ def fit_observed(paper_data, tmp):
                 top_spans={k: v for k, v in top})
 
 
+SHARDED_REQUESTS = 256
+
+
+def serve_sharded(clf, tmp):
+    """11f: phase 3's classifier through the sharded engine: k spans of the
+    one card (k = 2, 4; with several cards, one span a card too), every
+    reply held against the local engine's bit for bit; then a
+    ``serve_vi --sharded`` replay of 256 requests beside the local one."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_vi
+    from repro_torch.serving import EngineConfig, TransformEngine
+
+    path = os.path.join(tmp, "clf")  # saved by 11a
+    sizes = serve_vi.synth_trace(SHARDED_REQUESTS, 128, 0)
+    payloads = serve_vi.make_payloads(clf.scaler.transform, sizes, 0)
+    cfg = EngineConfig(min_bucket=64, max_bucket=16_384)
+    local = TransformEngine(clf.models, config=cfg)
+    local.warmup()
+    want = [local.transform(p) for p in payloads]
+    dev = local.device
+    meshes = {f"{k} spans of {dev}": [dev] * k for k in (2, 4)}
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        meshes[f"{cards} cards"] = [torch.device("cuda", i) for i in range(cards)]
+    log(f"phase 11f: the sharded engine over phase 3's classifier ({len(clf.models)} models, "
+        f"{local.terms} terms), {SHARDED_REQUESTS} requests of synth_trace(mean_rows=128, "
+        f"seed=0) on {', '.join(meshes)}; {cards} visible card(s)")
+    launches0 = ops.launch_counts()
+    out = {"meshes": {}}
+    for tag, mesh in meshes.items():
+        eng = TransformEngine(clf.models, mesh=mesh, config=cfg)
+        eng.warmup()
+        for i, p in enumerate(payloads):
+            if not np.array_equal(eng.transform(p), want[i]):
+                raise AssertionError(f"11f {tag}: reply {i} differs from the local engine's")
+        st = eng.stats
+        out["meshes"][tag] = dict(shards=eng.shards, buckets=list(eng.buckets()),
+                                  device_calls=st["device_calls"],
+                                  padded_rows=st["padded_rows"],
+                                  lat_p50_ms=st["latency"]["p50"] * 1e3,
+                                  lat_p99_ms=st["latency"]["p99"] * 1e3)
+        log(f"  {tag}: {SHARDED_REQUESTS} replies bit-equal to the local engine's; "
+            f"{st['device_calls']} device calls, {st['padded_rows']} padded rows (local "
+            f"{local.stats['padded_rows']}), engine p50 {st['latency']['p50'] * 1e3:.3f} ms "
+            f"p99 {st['latency']['p99'] * 1e3:.3f} ms (local p50 "
+            f"{local.stats['latency']['p50'] * 1e3:.3f} p99 "
+            f"{local.stats['latency']['p99'] * 1e3:.3f} ms)")
+    args = ["--model-dir", path, "--kind", "transform", "--requests", str(SHARDED_REQUESTS),
+            "--mean-rows", "128", "--concurrency", "8", "--max-delay-ms", "2",
+            "--max-batch-rows", "8192"]
+    shapes = [("local", [])] + [(f"--sharded --mesh-shape {k}", ["--sharded", "--mesh-shape",
+                                                                  str(k)]) for k in (2, 4)]
+    for tag, extra in shapes:
+        replies = []
+        rep = serve_vi.main(args + extra, replies=replies)
+        for i, r in enumerate(replies):
+            if not np.array_equal(r, want[i]):
+                raise AssertionError(f"11f serve_vi {tag}: reply {i} differs from local")
+        out[tag] = serve_summary(f"serve_vi {tag} ({rep['shards']} spans)", rep, local.terms)
+        out[tag]["shards"] = rep["shards"]
+    if ops.launch_counts() != launches0:
+        raise AssertionError("11f: serving launched a hand-written kernel")
+    return out
+
+
 def main_path_serving(clf, paper_data, wide_fast):
     import tempfile
 
@@ -2436,6 +2520,7 @@ def main_path_serving(clf, paper_data, wide_fast):
         out = serve_paper_scale(clf, paper_data[2], tmp)
         out["wide"] = serve_wide(wide_fast, tmp)
         out["fit_obs"] = fit_observed(paper_data, tmp)
+        out["sharded"] = serve_sharded(clf, tmp)
         out["seconds"] = time.perf_counter() - t0
     log(f"  phase 11: {out['seconds']:.1f} s")
     return out
@@ -2825,6 +2910,352 @@ def main_path_distributed(clf, paper_data):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 1024
+# 14b: the kernel path and the plain path differ only in attention's forward
+# roundings (the kernel keeps the scores in fp32, the plain version rounds
+# them to bf16 before the softmax); the backward is the same plain function.
+# How far bf16 moves a gradient at this depth is measured in the run: the
+# plain bf16 path's distance from an fp32 copy of the same weights (relative
+# Frobenius norm, leaf by leaf).  The kernel path may be no further from
+# the fp32 copy than GRAD_FACTOR times that, plus GRAD_FLOOR for leaves
+# whose gradient is mostly rounding
+GRAD_FACTOR, GRAD_FLOOR = 2.0, 1e-2
+# 14c: a resumed run against an uninterrupted one: the embedding's backward
+# (index_put with accumulate) adds with atomics in no fixed order, so the
+# two runs differ by rounding, carried through Adam steps and int8 moments
+RESUME_RTOL = 1e-2
+# 14d: chunked against plain CE at full vocabulary: the same bf16 logits
+# (each chunk's product tiled anew by cuBLAS, so a logit may move by a bf16
+# ulp) reduced in fp32; the loss is ~ln(V) = 11.9
+CE_ATOL = 1e-2
+
+
+def _train_batch(cfg, step=0, seq=TRAIN_SEQ):
+    from repro_torch.data import lm as lm_data
+
+    pipe = lm_data.PipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq + 1,
+                                  global_batch=TRAIN_BATCH, seed=0)
+    return {"tokens": lm_data.batch_for_device(pipe, step, "cuda")}
+
+
+def _param_count(cfg) -> int:
+    from repro_torch.models.model import Transformer
+
+    return sum(p.numel() for p in Transformer(cfg, device="meta", seed=None).parameters())
+
+
+def train_full_width(dev):
+    """14a: ``launch.train.train`` of Qwen2-1.5B at full width, then three
+    steps on one batch (one profiled)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import Transformer, make_train_step
+    from repro_torch.optim import AdamW
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    n_params = _param_count(cfg)
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    log(f"phase 14a: launch.train.train({cfg.name} at full width: {cfg.n_periods} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}, {n_params:,} parameters; remat {cfg.remat_policy}, "
+        f"ce {cfg.ce_impl}), {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        "AdamW with fp32 moments, no checkpoint")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                device="cuda", log_every=1)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(rep["step_seconds"][1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs of a step: 6 N a token for the products (the tied
+    # embedding's unembedding included, its gather not), causal attention's
+    # two products 3 x 2 x 2 x S/2 x H x dh a token a layer; the remat
+    # recompute is not counted
+    attn = 6.0 * 2 * 2 * (TRAIN_SEQ / 2) * cfg.n_heads * cfg.d_head * n_attn
+    flops = (6.0 * n_params + attn) * tokens
+    log(f"  {TRAIN_STEPS} steps in {wall:.3f} s (model init included); step seconds "
+        f"{[round(s, 4) for s in rep['step_seconds']]}; median over steps 2-{TRAIN_STEPS} "
+        f"{step_s:.4f} s, {tokens / step_s:.1f} tokens/s, model FLOPs "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s ({100 * flops / step_s / PEAK_BF16_FLOPS:.1f}% of "
+        f"the bf16 peak); peak memory {peak_gb:.2f} GB; losses "
+        f"{[round(x, 4) for x in rep['losses']]}; kernel launches {launches}")
+    expected = 2 * n_attn * TRAIN_STEPS  # forward + remat recompute, every layer
+    if launches["flash_attention"] <= 0 or launches["flash_attention"] != expected:
+        raise AssertionError(f"training launched flash_attention {launches['flash_attention']} "
+                             f"times, expected {expected}: attention left the kernel")
+    if not np.isfinite(rep["losses"]).all():
+        raise AssertionError(f"14a: losses not finite: {rep['losses']}")
+
+    log("  three steps on one batch (the second profiled), AdamW(peak_lr=3e-4, "
+        "warmup_steps=1)")
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=dev, seed=0)
+    opt = AdamW(peak_lr=3e-4, warmup_steps=1, total_steps=10)
+    state = [opt.init(dict(model.named_parameters()))]
+    step = make_train_step(opt)
+    batch = _train_batch(cfg)
+    losses = []
+
+    def one():
+        loss, state[0] = step(model, state[0], batch)
+        losses.append(float(loss))
+
+    prof = profile_device(f"train step ({cfg.name}, {TRAIN_BATCH} x {TRAIN_SEQ})", one,
+                          watch=("flash",))
+    one()
+    # the profiler slows the host's launches, so its wall time overstates
+    # the idle share; the busy time against an unprofiled step's is the other
+    # reading
+    idle_unprofiled = 1 - prof["busy_ms"] / (step_s * 1e3)
+    log(f"  losses {losses}; device busy {prof['busy_ms']:.3f} ms of the profiled step's "
+        f"{prof['wall_ms']:.3f} ms (idle {100 * (1 - prof['busy_ms'] / prof['wall_ms']):.1f}%) "
+        f"and of an unprofiled step's {step_s * 1e3:.3f} ms (idle "
+        f"{100 * idle_unprofiled:.1f}%); {prof['launches']} kernel launches a step")
+    if not losses[2] < losses[0]:
+        raise AssertionError(f"14a: three steps on one batch did not descend: {losses}")
+    parts = train_step_parts(model, opt, state[0], batch)
+    del model, state
+    torch.cuda.empty_cache()
+    return launches, dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          params=n_params, step_seconds=rep["step_seconds"],
+                          median_step_s=step_s, tokens_per_s=tokens / step_s,
+                          model_tflops=flops / step_s / 1e12, peak_memory_gb=peak_gb,
+                          losses=rep["losses"], one_batch_losses=losses,
+                          idle_share=1 - prof["busy_ms"] / prof["wall_ms"],
+                          idle_share_unprofiled=idle_unprofiled, profile=prof, parts=parts,
+                          flash_attention_launches=launches["flash_attention"])
+
+
+def train_step_parts(model, opt, state, batch):
+    """The step's parts timed apart with CUDA events: the loss forward (with
+    autograd recording), the loss with every gradient, and the optimizer's
+    update on those gradients."""
+    import torch
+
+    from repro_torch.models.model import loss_fn
+
+    params = dict(model.named_parameters())
+    held = {}
+
+    def forward():
+        loss_fn(model, batch)
+
+    def forward_backward():
+        held["grads"] = torch.autograd.grad(loss_fn(model, batch), list(params.values()))
+
+    fwd_ms = time_ms(forward, reps=2, warmup=1)
+    fb_ms = time_ms(forward_backward, reps=2, warmup=1)
+    grads = dict(zip(params, held.pop("grads")))
+    opt_ms = time_ms(lambda: opt.update(params, grads, state), reps=2, warmup=1)
+    log(f"  the step's parts (CUDA events): loss forward {fwd_ms:.3f} ms, loss + gradients "
+        f"{fb_ms:.3f} ms (backward with remat recompute {fb_ms - fwd_ms:.3f} ms), AdamW update "
+        f"{opt_ms:.3f} ms ({len(params)} parameters, one at a time)")
+    return dict(forward_ms=fwd_ms, forward_backward_ms=fb_ms, optimizer_ms=opt_ms)
+
+
+def _loss_and_grads(model, batch, use_kernel=None, cfg=None):
+    import torch
+
+    from repro_torch.models.model import loss_fn
+
+    params = dict(model.named_parameters())
+    loss = loss_fn(model, batch, cfg, use_kernel=use_kernel)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def train_kernel_vs_plain(dev):
+    """14b: loss and every gradient at full width, 2 periods, through the
+    kernel and with ``use_kernel=False``, beside an fp32 copy."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.model import Transformer
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_periods=2)
+    log(f"phase 14b: loss and gradients of {cfg.name} at full width cut to "
+        f"{cfg.n_periods} periods, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: kernel path against "
+        "use_kernel=False, beside an fp32 copy of the weights")
+    model = Transformer(cfg, device=dev, seed=0)
+    batch = _train_batch(cfg)
+    ops.reset_launch_counts()
+    lk, gk = _loss_and_grads(model, batch)
+    launched = ops.launch_counts()["flash_attention"]
+    lp, gp = _loss_and_grads(model, batch, use_kernel=False)
+    if ops.launch_counts()["flash_attention"] != launched or launched != 2 * cfg.n_periods:
+        raise AssertionError(f"14b: {launched} kernel launches, expected {2 * cfg.n_periods}")
+    model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                      model.state_dict(), device=dev)
+    l32, g32 = _loss_and_grads(model32, batch, use_kernel=False)
+    del model32
+    torch.cuda.empty_cache()
+    worst = dict(ratio=0.0)
+    for name in gk:
+        ref32 = g32[name].float()
+        scale = float(torch.linalg.vector_norm(ref32)) + 1e-30
+        dk = float(torch.linalg.vector_norm(gk[name].float() - ref32)) / scale
+        dp = float(torch.linalg.vector_norm(gp[name].float() - ref32)) / scale
+        dkp = float(torch.linalg.vector_norm(gk[name].float() - gp[name].float())) / scale
+        if dk > GRAD_FACTOR * dp + GRAD_FLOOR:
+            raise AssertionError(f"14b: {name}: kernel path {dk:.4g} from fp32, plain "
+                                 f"{dp:.4g}")
+        if dk / (dp + GRAD_FLOOR) >= worst["ratio"]:
+            worst = dict(name=name, kernel_vs_fp32=dk, plain_vs_fp32=dp, kernel_vs_plain=dkp,
+                         ratio=dk / (dp + GRAD_FLOOR))
+    attn_leaves = 0
+    for i, blk in enumerate(model.blocks):
+        if isinstance(blk, Attention):
+            for leaf in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+                g = gk[f"blocks.{i}.{leaf}"]
+                if g is None or not bool(torch.any(g != 0)):
+                    raise AssertionError(f"14b: blocks.{i}.{leaf} got no gradient")
+                attn_leaves += 1
+    if not abs(lk - l32) <= GRAD_FACTOR * abs(lp - l32) + GRAD_FLOOR:
+        raise AssertionError(f"14b: losses kernel {lk}, plain {lp}, fp32 {l32}")
+    log(f"  losses: kernel {lk:.6f}, plain {lp:.6f}, fp32 {l32:.6f}; {launched} kernel "
+        f"launches (forward + remat recompute); {attn_leaves} attention weights all with "
+        f"non-zero gradients; worst leaf {worst['name']}: kernel {worst['kernel_vs_fp32']:.4g} "
+        f"and plain {worst['plain_vs_fp32']:.4g} from fp32, kernel vs plain "
+        f"{worst['kernel_vs_plain']:.4g} (relative norm; limit {GRAD_FACTOR} x plain + "
+        f"{GRAD_FLOOR})")
+    return model, dict(loss_kernel=lk, loss_plain=lp, loss_fp32=l32, launches=launched,
+                       attention_leaves=attn_leaves, worst_leaf=worst)
+
+
+def train_quantized_resume(tmp):
+    """14c: 8-bit moments, checkpoints every 3 steps, a resume to step 9
+    against an uninterrupted run."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_periods=2)
+    opt = AdamW(peak_lr=3e-4, warmup_steps=2, total_steps=9, quantize_states=True)
+    d = os.path.join(tmp, "ckpt")
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, opt=opt, device="cuda",
+              log_every=100)
+    log(f"phase 14c: {cfg.name} at full width cut to {cfg.n_periods} periods, "
+        "quantize_states=True: 6 steps checkpointed every 3, a resume to step 9, against "
+        "an uninterrupted 9-step run")
+    t0 = time.perf_counter()
+    first = train(cfg, steps=6, ckpt_dir=d, ckpt_every=3, **kw)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = train(cfg, steps=3, ckpt_dir=d, ckpt_every=3, **kw)
+    t_resumed = time.perf_counter() - t0
+    latest = store.latest_step(d)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f"step_{latest:08d}", f))
+                     for f in os.listdir(os.path.join(d, f"step_{latest:08d}")))
+    whole = train(cfg, steps=9, **kw)
+    if latest != 9 or resumed["final_step"] != 9:
+        raise AssertionError(f"14c: latest step {latest}, final {resumed['final_step']}")
+    got, want = np.array(resumed["losses"]), np.array(whole["losses"][6:])
+    if not np.allclose(got, want, rtol=RESUME_RTOL, atol=0.0):
+        raise AssertionError(f"14c: resumed losses {got} against uninterrupted {want}")
+    log(f"  first run {t_first:.2f} s (6 steps, saves at 3 and 6), resume {t_resumed:.2f} s "
+        f"(restore + 3 steps + save); checkpoint of step 9 {ckpt_bytes / 1e9:.3f} GB; "
+        f"losses 7-9 resumed {got.tolist()} against uninterrupted {want.tolist()} "
+        f"(rtol {RESUME_RTOL}); first run {first['losses']}")
+    return dict(latest=latest, resumed_losses=got.tolist(), whole_losses=want.tolist(),
+                max_rel_diff=float(np.max(np.abs(got - want) / np.abs(want))),
+                checkpoint_gb=ckpt_bytes / 1e9, first_s=t_first, resume_s=t_resumed)
+
+
+def train_chunked_ce(model):
+    """14d: one loss and gradient with the chunked CE (``ce_chunk=8192``)
+    against the plain CE at full vocabulary, each with its peak memory."""
+    import torch
+
+    cfg = model.cfg
+    batch = _train_batch(cfg)
+    log(f"phase 14d: {cfg.name} ({cfg.n_periods} periods), ce_impl chunked (ce_chunk=8192) "
+        f"against plain at vocab {cfg.vocab_size}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    out = {}
+    for impl in ("plain", "chunked"):
+        c = dataclasses.replace(cfg, ce_impl=impl, ce_chunk=8192)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = _loss_and_grads(model, batch, cfg=c)
+        torch.cuda.synchronize()
+        out[impl] = dict(loss=loss, seconds=time.perf_counter() - t0,
+                         peak_above_start_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                         grads=grads)
+    gp, gc = out["plain"].pop("grads"), out["chunked"].pop("grads")
+    # the chunked CE sums each chunk's bf16 gradient of the hidden state in
+    # bf16 (as the reference's scan does), the plain CE's one product
+    # accumulates in fp32: reported, not gated
+    dist = {k: float(torch.linalg.vector_norm(gc[k].float() - gp[k].float()))
+            / (float(torch.linalg.vector_norm(gp[k].float())) + 1e-30) for k in gp}
+    worst = max(dist, key=dist.get)
+    diff = abs(out["chunked"]["loss"] - out["plain"]["loss"])
+    log(f"  loss plain {out['plain']['loss']:.6f}, chunked {out['chunked']['loss']:.6f} "
+        f"(|diff| {diff:.3g}, limit {CE_ATOL}); gradients' relative distance: median "
+        f"{float(np.median(list(dist.values()))):.4g}, largest {dist[worst]:.4g} "
+        f"({worst}); peak memory above the start: plain "
+        f"{out['plain']['peak_above_start_gb']:.3f} GB, chunked "
+        f"{out['chunked']['peak_above_start_gb']:.3f} GB; seconds plain "
+        f"{out['plain']['seconds']:.4f}, chunked {out['chunked']['seconds']:.4f}")
+    if diff > CE_ATOL:
+        raise AssertionError("14d: the chunked CE's loss is off")
+    out["grad_rel_distance"] = dict(largest=dist[worst], leaf=worst,
+                                    median=float(np.median(list(dist.values()))))
+    return out
+
+
+def main_path_train(dev):
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    launches, full = train_full_width(dev)
+    model, kvp = train_kernel_vs_plain(dev)
+    moments = model_moment_bytes(model)
+    ce = train_chunked_ce(model)
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = train_quantized_resume(tmp)
+    resume["moment_bytes"] = moments
+    out = dict(full_width=full, kernel_vs_plain=kvp, quantized_resume=resume, chunked_ce=ce,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return out, launches
+
+
+def model_moment_bytes(model):
+    """The optimizer's moments for ``model`` with int8 blocks against fp32."""
+    from repro_torch.optim import AdamW
+
+    params = dict(model.named_parameters())
+    q = AdamW(quantize_states=True).init(params)
+    int8 = sum(t.numel() * t.element_size() for m in (q.mu, q.nu) for pair in m.values()
+               for t in pair)
+    fp32 = 2 * 4 * sum(p.numel() for p in params.values())
+    del q
+    log(f"  moments of the {model.cfg.n_periods}-period model: int8 blocks + scales "
+        f"{int8 / 1e9:.4f} GB against fp32 {fp32 / 1e9:.4f} GB ({fp32 / int8:.2f}x)")
+    return dict(int8=int8, fp32=fp32)
+
+
 def main() -> int:
     import torch
 
@@ -2896,6 +3327,7 @@ def main() -> int:
     serving = main_path_serving(paper_clf, paper_data, wide_fast)
     continuous, loop_launches = main_path_continuous()
     distributed, dist_launches = main_path_distributed(paper_clf, paper_data)
+    training, train_launches = main_path_train(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2936,13 +3368,16 @@ def main() -> int:
              launches=stream_launches["paper"]["ihb_degree"], entry="ihb_degree (fast path)",
              **stream_kernels["degree"],
              ihb_update=dict(launches=stream_launches["cgavi-ihb"]["ihb_update"], **ihb[64])),
+        # launches: phase 6's serve (prefill); train_launches: phase 14a's
+        # training run (each layer's forward and its remat recompute)
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
-             launches=serve_launches["flash_attention"], **flash["serve"]),
+             launches=serve_launches["flash_attention"],
+             train_launches=train_launches["flash_attention"], **flash["serve"]),
     ]
     for entry in kernels:
         nested = [v["launches"] for v in entry.values() if isinstance(v, dict) and "launches" in v]
-        if min([entry["launches"]] + nested) <= 0:
+        if min([entry["launches"], entry.get("train_launches", 1)] + nested) <= 0:
             raise AssertionError(f"{entry['name']}: no launch on its main path")
     log("wide shapes: " + json.dumps({
         "gram_update_acc_m2M": gacc,
@@ -2965,6 +3400,7 @@ def main() -> int:
         "serving": serving,
         "continuous": continuous,
         "distributed": distributed,
+        "training": training,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

@@ -34,9 +34,12 @@ As in the reference, a save runs in an ``obs.span("checkpoint/save")``, a
 committed save fires the chaos site ``store.committed`` (with the committed
 directory as ``path``: corrupt-after-commit faults), emits the
 ``checkpoint/committed`` event and counts ``checkpoint.saves``; a restore
-runs in ``checkpoint/restore``.  Not ported yet: the reference's
-``shardings`` (re-sharding onto a device mesh on restore; ROADMAP.md queue 1
-item 12b — ``restore`` accepts and ignores it).
+runs in ``checkpoint/restore``.
+
+The reference's ``shardings`` (a restored tree put under a mesh's
+shardings) is a placement here: one device for the whole tree, or a tree of
+devices matching ``like`` (:func:`place`); each leaf then comes back as a
+tensor on its device.
 """
 
 from __future__ import annotations
@@ -98,12 +101,44 @@ def _unflatten(like, leaves: list):
             out = {k: build(node[k]) for k in sorted(node)}
             return {k: out[k] for k in node}
         if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
+            items = [build(v) for v in node]
+            return type(node)(*items) if hasattr(node, "_fields") else type(node)(items)
         if node is None:
             return None
         return next(it)
 
     return build(like)
+
+
+def _is_device(x) -> bool:
+    return isinstance(x, (str, torch.device))
+
+
+def place(tree, shardings):
+    """``tree`` with its leaves as tensors on the devices of ``shardings``:
+    one device (a ``torch.device`` or its name) for every leaf below it, a
+    dict, list or tuple of those matching ``tree``'s structure, or ``None``
+    to leave that part of the tree as it is.  A numpy leaf becomes a tensor
+    of its type, a tensor moves; the values are not changed."""
+    if shardings is None or tree is None:
+        return tree
+    one = _is_device(shardings)
+    if isinstance(tree, dict):
+        if not one and (not isinstance(shardings, dict) or set(shardings) != set(tree)):
+            raise ValueError("shardings do not match the tree's dict keys")
+        return {k: place(v, shardings if one else shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if not one and (not isinstance(shardings, (list, tuple))
+                        or len(shardings) != len(tree)):
+            raise ValueError("shardings do not match the tree's sequence")
+        subs = [shardings] * len(tree) if one else shardings
+        items = [place(v, sh) for v, sh in zip(tree, subs)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    if not one:
+        raise ValueError(f"no device for a leaf: shardings {shardings!r}")
+    if torch.is_tensor(tree):
+        return tree.to(torch.device(shardings))
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(tree))).to(torch.device(shardings))
 
 
 def _host(leaf) -> Tuple[np.ndarray, Optional[str]]:
@@ -312,17 +347,17 @@ def read_metadata(directory: str, step: Optional[int] = None) -> Tuple[Dict, int
 def restore(directory: str, step: int, like, shardings: Any = None, *,
             verify_integrity: bool = True):
     """Restore the step's tree, shaped like ``like``.  Returns ``(tree,
-    metadata)`` with numpy leaves.
+    metadata)``: numpy leaves (torch tensors for bf16 and fp8 leaves), or,
+    with ``shardings``, each leaf a tensor on its device (:func:`place`).
 
     ``verify_integrity`` (default on) checks every leaf file against its
-    manifest checksum before deserializing.  ``shardings`` is accepted for
-    the reference's signature and ignored (one device)."""
-    del shardings
+    manifest checksum before deserializing."""
     path = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, _MARKER)):
         raise FileNotFoundError(f"no committed checkpoint at {path}")
     with obs.span("checkpoint/restore", step=step):
-        return _restore_committed(directory, step, path, like, verify_integrity)
+        tree, metadata = _restore_committed(directory, step, path, like, verify_integrity)
+    return place(tree, shardings), metadata
 
 
 def _restore_committed(directory: str, step: int, path: str, like, verify_integrity: bool):

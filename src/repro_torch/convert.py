@@ -4,7 +4,8 @@ The JAX package's models serialize to a flat dict of numpy arrays plus JSON
 metadata (``OAVIModel.to_state_dict`` -- also ABM's models --,
 ``VCAModel.to_state_dict`` and ``VanishingIdealClassifier.to_state_dict`` in
 ``repro``), and its LM keeps
-its parameters in a pytree of arrays.  The functions here build the port's
+its parameters, and its optimizer its moments, in pytrees of arrays.  The
+functions here build the port's
 objects from that output, so both packages compute the same thing from the
 same parameters.  They read plain numpy and dicts only.
 """
@@ -56,23 +57,66 @@ def lm_params_from_reference(params: Dict[str, Any], cfg) -> Dict[str, torch.Ten
     port holds one module per sub-block, sub-block ``i * len(period) + j``
     being period ``i``'s position ``j``.
     """
-    def tensor(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
-            return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
-        return torch.from_numpy(a.copy())
+    return {k: _tensor(v) for k, v in _unstack(params, cfg).items()}
 
-    state = {"embed": tensor(params["embed"]),
-             "final_norm": tensor(params["final_norm"])}
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _unstack(tree: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
+    """The port's parameter names -> arrays of a pytree shaped like the JAX
+    package's params (period axis unstacked)."""
+    out = {"embed": np.asarray(tree["embed"]), "final_norm": np.asarray(tree["final_norm"])}
     if not cfg.tie_embeddings:
-        state["head"] = tensor(params["head"])
+        out["head"] = np.asarray(tree["head"])
     n_pos = len(cfg.period)
     for j, btype in enumerate(cfg.period):
-        for leaf, stacked in params["blocks"][f"{j:02d}_{btype}"].items():
+        for leaf, stacked in tree["blocks"][f"{j:02d}_{btype}"].items():
             stacked = np.asarray(stacked)
             if stacked.shape[0] != cfg.n_periods:
                 raise ValueError(f"{btype}.{leaf}: leading axis {stacked.shape[0]}, "
                                  f"expected n_periods={cfg.n_periods}")
             for i in range(cfg.n_periods):
-                state[f"blocks.{i * n_pos + j}.{leaf}"] = tensor(stacked[i])
-    return state
+                out[f"blocks.{i * n_pos + j}.{leaf}"] = stacked[i]
+    return out
+
+
+def adamw_state_from_reference(state, cfg):
+    """The port's :class:`~repro_torch.optim.AdamWState` (CPU tensors, keyed
+    by the port's parameter names) from the JAX package's ``AdamWState``
+    for the model of ``cfg``, its leaves as numpy arrays.
+
+    fp32 moments are unstacked as :func:`lm_params_from_reference` unstacks
+    the weights.  Quantized moments, ``(int8 blocks, scale)`` over a whole
+    stacked leaf, are dequantized, unstacked and quantized again per
+    parameter: the codes and scales are the reference's wherever a period's
+    share of a leaf is a whole number of 256-value blocks, and within one
+    quantization step elsewhere.
+    """
+    from .models.model import Transformer
+    from .optim.adamw import AdamWState, _dequantize, _quantize
+
+    shapes = {k: tuple(v.shape) for k, v in
+              Transformer(cfg, device="meta", seed=None).state_dict().items()}
+
+    def dequantized(pair, shape):
+        q, scale = (torch.from_numpy(np.array(a)) for a in pair)
+        return _dequantize(q, scale, shape).numpy()
+
+    def moments(tree):
+        if not isinstance(tree["embed"], (tuple, list)):  # fp32 leaves
+            return {k: _tensor(v) for k, v in _unstack(tree, cfg).items()}
+        full = {k: dequantized(v, shapes[k]) for k, v in tree.items() if k != "blocks"}
+        full["blocks"] = {
+            key: {leaf: dequantized(pair, (cfg.n_periods,)
+                                    + shapes[f"blocks.{int(key[:2])}.{leaf}"])
+                  for leaf, pair in block.items()}
+            for key, block in tree["blocks"].items()}
+        return {k: _quantize(torch.from_numpy(v)) for k, v in _unstack(full, cfg).items()}
+
+    return AdamWState(step=int(np.asarray(state.step)), mu=moments(state.mu),
+                      nu=moments(state.nu))

@@ -118,10 +118,10 @@ class VanishingIdealClassifier:
         :class:`~repro_torch.serving.engine.TransformEngine` on the
         classifier's device (row buckets warmed before traffic).
 
-        Builds one over ``self.models`` when ``engine`` is omitted.  Model
-        sets without a fused term-book plan (VCA) keep the per-model path:
-        the engine stays ``None`` and ``None`` is returned.  ``mesh`` (the
-        sharded engine) raises, naming ROADMAP.md queue 1 item 12b.
+        Builds one over ``self.models`` when ``engine`` is omitted, sharded
+        over ``mesh`` (a sequence of devices) when given.  Model sets
+        without a fused term-book plan (VCA) keep the per-model path: the
+        engine stays ``None`` and ``None`` is returned.
         """
         from ..serving.engine import EngineConfig, TransformEngine, UnsupportedModelError
 

@@ -9,13 +9,18 @@ masks the ragged edges itself, so nothing is padded here.  bf16 head sizes
 other bf16 head sizes up to 256, run the scalar variant.  The
 plain PyTorch version is :func:`repro_torch.kernels.ref.attention_ref`;
 dispatch lives in :mod:`repro_torch.kernels.ops`.
+
+:class:`FlashAttention` is the differentiable form: its forward is this
+kernel and its backward the plain version's vector-Jacobian product.  The
+Pallas kernel has no backward (no VJP is defined for it), so no backward
+kernel is written here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 # kernel launches made through this wrapper, by Pallas kernel name
 launches = {"flash_attention": 0}
@@ -78,3 +83,31 @@ def flash_attention(q, k, v, *, causal: bool = True, q_heads_per_kv: int = 1):
     _build.check(err, "flash_attention")
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward launches the
+    kernel and saves q, k and v; the backward recomputes
+    :func:`repro_torch.kernels.ref.attention_ref` on them under autograd and
+    returns its vector-Jacobian product.
+
+    The recompute holds a (B*Hq, Sq, Sk) fp32 score tensor, and its softmax,
+    for each layer while that layer's backward runs: 0.2 GB a tensor at
+    4 x 12 heads x 1024^2.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_heads_per_kv: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.group = causal, q_heads_per_kv
+        return flash_attention(q, k, v, causal=causal, q_heads_per_kv=q_heads_per_kv)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        q, k, v = (t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need))
+        with torch.enable_grad():
+            out = ref.attention_ref(q, k, v, causal=ctx.causal, q_heads_per_kv=ctx.group)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip((q, k, v), need) if n], grad_out))
+        return tuple(next(grads) if n else None for n in need) + (None, None)

@@ -224,6 +224,11 @@ def multihead_attention(q, k, v, *, causal=True, use_kernel=None):
     Unlike the JAX package's op, nothing is padded and no shape goes to the
     plain version on the card: the kernel masks ragged edges itself.  Causal
     attention needs ``Sq == Sk`` on both paths.
+
+    On the card, while grad mode is on and an input requires a gradient, the
+    kernel runs inside :class:`.flash_attention.FlashAttention`, so the
+    output has a ``grad_fn`` (the backward is the plain version's: the JAX
+    package has no backward kernel).
     """
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -235,7 +240,10 @@ def multihead_attention(q, k, v, *, causal=True, use_kernel=None):
     kf = k.reshape(B * Hkv, Sk, d)
     vf = v.reshape(B * Hkv, Sk, dv)
     if _kernel_path(q, use_kernel):
-        out = _flash.flash_attention(qf, kf, vf, causal=causal, q_heads_per_kv=group)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            out = _flash.FlashAttention.apply(qf, kf, vf, causal, group)
+        else:
+            out = _flash.flash_attention(qf, kf, vf, causal=causal, q_heads_per_kv=group)
     else:
         out = ref.attention_ref(qf, kf, vf, causal=causal, q_heads_per_kv=group)
     return out.reshape(B, Hq, Sq, dv)

@@ -9,9 +9,11 @@ request trace against it, reporting tail latency and throughput.
    classifier on the paper's Appendix C data and, when ``--model-dir`` is
    given, save it there first (so the next run exercises the load path).
 2. **engine** — :class:`~repro_torch.serving.engine.TransformEngine` on
-   ``--device`` (default: the CUDA card; ``cpu`` is for tests).  Every row
-   bucket is warmed before the trace starts.  ``--sharded`` raises
-   (ROADMAP.md queue 1 item 12b).
+   ``--device`` (default: the CUDA card; ``cpu`` is for tests), or with
+   ``--sharded`` row-sharded over every visible card (``--mesh-shape`` picks
+   how many spans; with more spans than cards the cards take them in turn,
+   and ``--device cpu`` puts every span on the CPU).  Every row bucket is
+   warmed before the trace starts.
 3. **traffic** — ``--requests`` synthetic mixed-size requests (log-normal
    row counts around ``--mean-rows``), or a file trace (``--trace``: one
    request size per line).  ``--concurrency`` closed-loop clients submit
@@ -28,6 +30,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve_vi --device cpu --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve_vi --kind predict \\
         --model-dir runs/served-clf --requests 512 --concurrency 16     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve_vi --sharded --mesh-shape 4  # 4 spans
 """
 
 from __future__ import annotations
@@ -40,6 +43,32 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .. import obs
+
+
+def build_mesh(data_axes, mesh_shape: Optional[List[int]] = None, device=None):
+    """The sharded engine's devices: one span a device of every visible card
+    (``device=None`` or ``"cuda"``), or ``prod(mesh_shape)`` spans taking the
+    cards in turn; ``device="cpu"`` puts every span on the CPU.  The
+    reference's ``build_mesh`` over one data axis (the engine's rows are
+    split over one axis; more raise)."""
+    import torch
+
+    from .. import _device
+
+    axes = tuple(data_axes)
+    if len(axes) != 1:
+        raise ValueError(f"--data-axes {axes}: the sharded engine splits rows over one axis")
+    dev = _device.resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        cards = [dev]
+    if mesh_shape is None:
+        mesh_shape = [len(cards)]
+    if len(mesh_shape) != len(axes):
+        raise ValueError(f"--mesh-shape {mesh_shape} does not match axes {axes}")
+    spans = int(np.prod(mesh_shape))
+    return [cards[i % len(cards)] for i in range(spans)]
 
 
 def demo_classifier(m: int, psi: float, seed: int, device=None):
@@ -153,7 +182,11 @@ def main(argv=None, *, replies: Optional[list] = None) -> Dict:
     ap.add_argument("--device", type=str, default=None,
                     help="torch device (default: the CUDA card; 'cpu' only when asked)")
     ap.add_argument("--sharded", action="store_true",
-                    help="the sharded engine (not ported: ROADMAP.md queue 1 item 12b)")
+                    help="row-shard every call over the visible cards")
+    ap.add_argument("--data-axes", type=str, default="data",
+                    help="mesh axis the rows are split over (one axis)")
+    ap.add_argument("--mesh-shape", type=str, default=None,
+                    help="spans along the data axis (default: one a visible card)")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--mean-rows", type=int, default=128)
     ap.add_argument("--trace", type=str, default=None,
@@ -169,12 +202,12 @@ def main(argv=None, *, replies: Optional[list] = None) -> Dict:
     ap.add_argument("--psi", type=float, default=0.005)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "serve_vi --sharded is not ported yet: ROADMAP.md queue 1 item 12b")
+    axes = tuple(a for a in args.data_axes.split(",") if a)
+    mesh_shape = [int(s) for s in args.mesh_shape.split(",")] if args.mesh_shape else None
+    mesh = build_mesh(axes, mesh_shape, args.device) if args.sharded else None
 
     registry = ModelRegistry(
-        device=args.device,
+        device=args.device, mesh=mesh,
         engine_config=EngineConfig(min_bucket=args.min_bucket, max_bucket=args.max_bucket),
     )
     t0 = time.perf_counter()
@@ -221,6 +254,7 @@ def main(argv=None, *, replies: Optional[list] = None) -> Dict:
         batches=bs["batches"],
         coalesced_max=bs["coalesced_max"],
         requests_per_batch=bs["requests"] / max(bs["batches"], 1),
+        shards=engine.shards,
     )
     if window.prof is not None:
         busy_s, by_kernel = obs.device.profile_kernels(window.prof)

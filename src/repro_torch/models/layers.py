@@ -77,8 +77,10 @@ def init_rms_scale(d: int, dtype, device) -> torch.Tensor:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A weight of the serving path (training is ROADMAP queue 1 item 14b)."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable weight.  The serving paths run under ``torch.no_grad()``
+    (``Transformer.prefill``/``decode_step``), so they keep no autograd
+    state for it."""
+    return nn.Parameter(t)
 
 
 def dense_param(gen: Optional[torch.Generator], shape: Sequence[int], dtype,

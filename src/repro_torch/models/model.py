@@ -8,15 +8,25 @@ package stacks each period position over a scan axis, and
 :func:`repro_torch.convert.lm_params_from_reference` unstacks one into the
 other.  Block types, frontends and options of other families raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
+
+Training: :func:`loss_fn` (the next-token cross-entropy, plain or chunked
+over the vocabulary) and :func:`make_train_step`.  With ``cfg.remat`` each
+period is a checkpointed region of ``forward``: ``remat_policy="full"``
+recomputes all of it in the backward, ``"dots"`` saves the weight products'
+outputs (the counterpart of ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest.  The serving paths (``prefill``, ``decode_step``) run
+under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from . import attention, layers
 
@@ -191,24 +201,53 @@ class Transformer(nn.Module):
 
     # -- step functions ------------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor,
-                use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence logits (B, S, V) and the MoE aux loss (0 here)."""
-        x = self.embed[tokens]
-        B, S, _ = x.shape
-        positions = self._positions(B, S, x.device)
-        for blk in self.blocks:
+    def _period(self, i: int, x: torch.Tensor, positions: torch.Tensor,
+                use_kernel: Optional[bool]) -> torch.Tensor:
+        P = len(self.cfg.period)
+        for blk in self.blocks[i * P:(i + 1) * P]:
             if isinstance(blk, attention.Attention):
                 x = blk(x, positions, use_kernel)
             else:
                 x = blk(x)
-        return self._unembed(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return x
+
+    def hidden(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
+               cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The last period's output (B, S, d_model), before the final norm,
+        and the MoE aux loss (0 here).  ``cfg`` (default ``self.cfg``)
+        supplies ``remat`` and ``remat_policy``; remat applies only while
+        autograd records."""
+        cfg = cfg or self.cfg
+        x = self.embed[tokens]
+        B, S, _ = x.shape
+        positions = self._positions(B, S, x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = _ckpt.noop_context_fn
+        if remat and cfg.remat_policy == "dots":
+            context_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                           _save_dots)
+        elif remat and cfg.remat_policy != "full":
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        for i in range(cfg.n_periods):
+            if remat:
+                x = _ckpt.checkpoint(self._period, i, x, positions, use_kernel,
+                                     use_reentrant=False, context_fn=context_fn)
+            else:
+                x = self._period(i, x, positions, use_kernel)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
+                cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence logits (B, S, V) and the MoE aux loss (0 here)."""
+        x, aux = self.hidden(tokens, use_kernel, cfg)
+        return self._unembed(x), aux
 
     def init_cache(self, B: int, S_max: int) -> Cache:
         return [attention.init_cache(B, S_max, blk.dims, self.embed.dtype, self.embed.device)
                 if isinstance(blk, attention.Attention) else None
                 for blk in self.blocks]
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Cache]:
         """Forward over the prompt, filling the caches: (last logits (B, 1, V),
@@ -225,6 +264,7 @@ class Transformer(nn.Module):
             cache.append(c)
         return self._unembed(x[:, -1:, :]), cache
 
+    @torch.no_grad()
     def decode_step(self, cache: Cache, token: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  token, pos: (B,).  Returns (logits (B, 1, V),
@@ -236,3 +276,107 @@ class Transformer(nn.Module):
             else:
                 x = blk(x)
         return self._unembed(x), cache
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep the
+    outputs of products without a batch dimension (the weight products,
+    ``aten.mm``/``addmm``), recompute everything else (attention's batched
+    products included), as ``dots_with_no_batch_dims_saveable`` does."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# ---------------------------------------------------------------------------
+# Loss / train step
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: Optional[ModelConfig] = None, *,
+            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S + 1): inputs
+    ``tokens[:, :-1]``, labels ``tokens[:, 1:]``; a scalar fp32 tensor.
+
+    ``cfg`` (default ``model.cfg``) supplies the numerics options --
+    ``ce_impl``, ``ce_chunk``, ``remat``, ``remat_policy`` -- as the JAX
+    package's ``cfg`` argument does.  The plain CE is written as the JAX
+    package writes it, as reductions over the vocabulary: the max (without
+    gradient), the sum of exponentials and the one-hot sum of the gold
+    logits.
+    """
+    cfg = cfg or model.cfg
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    if cfg.ce_impl == "chunked":
+        return _chunked_ce(model, inputs, labels, cfg, use_kernel)
+    if cfg.ce_impl != "plain":
+        raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
+    logits, aux = model(inputs, use_kernel, cfg)
+    logits = logits.float()
+    mx = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - mx), dim=-1)) + mx[..., 0]
+    onehot = labels[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    return torch.mean(lse - gold) + aux
+
+
+def _ce_chunk(m_run, s_run, gold, x, head_c, labels, start: int):
+    """One vocabulary chunk of :func:`_chunked_ce`: the running max, sum of
+    exponentials and gold logit after the chunk's logits."""
+    logit_c = (x @ head_c).float()  # (B, S, ck)
+    m_new = torch.maximum(m_run, torch.amax(logit_c, dim=-1))
+    s_run = s_run * torch.exp(m_run - m_new) + torch.sum(
+        torch.exp(logit_c - m_new[..., None]), dim=-1)
+    ids = start + torch.arange(head_c.shape[1], device=x.device)
+    hit = labels[..., None] == ids
+    gold = gold + torch.sum(torch.where(hit, logit_c, 0.0), dim=-1)
+    return m_new, s_run, gold
+
+
+def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel):
+    """Cross-entropy without a (B, S, V) logits tensor: the unembedding is
+    streamed over ``cfg.ce_chunk``-column slices of the head, carrying the
+    running (max, sum-exp, gold) as the JAX package's scan does.  Each
+    chunk is a checkpointed region, so the backward recomputes its logits
+    instead of keeping them: (B, S, ce_chunk) live at a time either way.
+
+    The JAX package pads the head to a multiple of the chunk and masks the
+    padded logits with -1e30; the port's last chunk is a shorter slice,
+    which adds the same exact zeros to the running sum.
+    """
+    x, aux = model.hidden(inputs, use_kernel, cfg)
+    x = layers.rms_norm(x, model.final_norm)
+    head = model.embed.T if cfg.tie_embeddings else model.head  # (d, V)
+    B, S, _ = x.shape
+    m_run = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
+    s_run = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for start in range(0, head.shape[1], cfg.ce_chunk):
+        head_c = head[:, start:start + cfg.ce_chunk]
+        if torch.is_grad_enabled():
+            m_run, s_run, gold = _ckpt.checkpoint(
+                _ce_chunk, m_run, s_run, gold, x, head_c, labels, start,
+                use_reentrant=False)
+        else:
+            m_run, s_run, gold = _ce_chunk(m_run, s_run, gold, x, head_c, labels, start)
+    lse = m_run + torch.log(torch.clamp(s_run, min=1e-30))
+    return torch.mean(lse - gold) + aux
+
+
+def make_train_step(optimizer, *, use_kernel: Optional[bool] = None) -> Callable:
+    """``train_step(model, opt_state, batch) -> (loss, opt_state)``: the loss
+    and every parameter's gradient (``torch.autograd.grad``; nothing is left
+    in ``.grad``), then ``optimizer.update``, which writes the new
+    parameters into the model in place.  ``loss`` is a detached scalar
+    tensor on the model's device."""
+
+    def train_step(model: Transformer, opt_state, batch: Dict[str, torch.Tensor]):
+        params = dict(model.named_parameters())
+        loss = loss_fn(model, batch, use_kernel=use_kernel)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _, opt_state = optimizer.update(params, dict(zip(params, grads)), opt_state)
+        return loss.detach(), opt_state
+
+    return train_step

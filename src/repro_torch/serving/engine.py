@@ -1,4 +1,4 @@
-"""TransformEngine: shape-bucketed (FT) serving on one device.
+"""TransformEngine: shape-bucketed, optionally sharded (FT) serving.
 
 Counterpart of ``src/repro/serving/engine.py``.  One engine owns one model
 set (the per-class models of a classifier, or a single model) and the
@@ -29,7 +29,19 @@ hand-written kernel, so it stays 0.
 Device calls are made with the engine's explicit device (its index fixed at
 construction), so a worker thread needs no current-device setup; the copy
 back to the host (``.cpu()``) is the synchronization before results reach
-the caller.  The sharded engine (``mesh=``) is ROADMAP.md queue 1 item 12b.
+the caller.
+
+**Sharded** (``mesh=``, a sequence of devices, repeats allowed): one
+process drives every device, as the reference's ``shard_map`` over the
+mesh's data axes does: the constants go to each distinct device once, a
+bucket is cut into ``shards = len(mesh)`` equal row spans, span ``i`` is
+evaluated on ``mesh[i]``, and the spans are gathered to the first device
+and on to the host.  There are no collectives.  Buckets are rounded to the
+shard count with at least 2 rows a shard (the reference's rule).  Each row's
+bits are independent of the rows beside it on every device, so the sharded
+output equals the local output bit for bit by construction.  A
+``DeviceMesh`` of world 1 serves as its one device; a larger one is a set
+of SPMD ranks, which this one-process engine does not take.
 """
 
 from __future__ import annotations
@@ -46,7 +58,30 @@ from .. import _device, obs
 from ..core.oavi import pow2_bucket
 from ..resilience import chaos
 
-_SHARDED = "the sharded serving engine (mesh=) is not ported yet: ROADMAP.md queue 1 item 12b"
+
+def mesh_devices(mesh) -> Tuple[torch.device, ...]:
+    """The devices of an engine's ``mesh``: a sequence of devices (or their
+    names; repeats allowed, so one card can hold several spans), or a
+    ``DeviceMesh`` of world 1 (its one device).  CUDA devices get an index."""
+    if hasattr(mesh, "device_type") and hasattr(mesh, "size"):  # a DeviceMesh
+        if mesh.size() > 1:
+            raise ValueError(
+                f"a DeviceMesh of world {mesh.size()} is a set of SPMD ranks; the sharded "
+                "engine is one process that drives every device: pass mesh= as a "
+                "sequence of devices (e.g. [torch.device('cuda', i) for i in range(n)])")
+        mesh = [mesh.device_type]
+    devices = tuple(_fixed(_device.resolve(d)) for d in mesh)
+    if not devices:
+        raise ValueError("mesh= needs at least one device")
+    return devices
+
+
+def _fixed(dev: torch.device) -> torch.device:
+    """``dev`` with its CUDA index fixed now: a worker thread's current
+    device is not ours."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 class UnsupportedModelError(TypeError):
@@ -99,8 +134,9 @@ class TransformEngine:
     models : the per-class model set (term-book models only — OAVI / ABM).
     device : where the constants live and every call runs; ``None`` means
         the CUDA card (and raises without one), ``"cpu"`` only when asked.
-    mesh : the reference's sharded engine; raises
-        :class:`NotImplementedError` (ROADMAP.md queue 1 item 12b).
+        Ignored with ``mesh``.
+    mesh : a sequence of devices (:func:`mesh_devices`): every call's rows
+        are split over them in equal spans.  ``None`` runs locally.
     config : row-bucket policy (:class:`EngineConfig`).
     """
 
@@ -114,13 +150,10 @@ class TransformEngine:
     ):
         from .. import api
 
-        if mesh is not None:
-            raise NotImplementedError(_SHARDED)
-        dev = _device.resolve(device)
-        if dev.type == "cuda" and dev.index is None:
-            # fix the index now: a worker thread's current device is not ours
-            dev = torch.device("cuda", torch.cuda.current_device())
-        self.device = dev
+        self.mesh = None if mesh is None else mesh_devices(mesh)
+        self.devices = self.mesh or (_fixed(_device.resolve(device)),)
+        self.device = self.devices[0]  # where the spans are gathered
+        self.shards = len(self.devices)
         self.models: Tuple = tuple(models)
         self._model_key = tuple(id(m) for m in self.models)
         plan = api._fuse(self.models)
@@ -131,14 +164,22 @@ class TransformEngine:
                 "use repro_torch.api.feature_transform's per-model fallback"
             )
         self.plan = plan
-        self.consts = api.plan_constants(plan, dev)
+        # the constants once on each distinct device
+        self._consts = {d: api.plan_constants(plan, d) for d in dict.fromkeys(self.devices)}
+        self.consts = self._consts[self.device]
         self.terms = int(plan.parents.shape[0])  # L: the fused book, constant included
         self.config = config
-        self.min_bucket = pow2_bucket(config.min_bucket)
-        self.max_bucket = max(pow2_bucket(config.max_bucket), self.min_bucket)
+        # every bucket splits evenly over the shards and leaves each >= 2
+        # rows: the reference's rule (there a 1-row shard takes XLA's gemv
+        # lowering); the port's rows are row-stable at any span, so it only
+        # keeps the two engines' buckets equal
+        self.min_bucket = self._round_to_shards(
+            max(pow2_bucket(config.min_bucket), 2 * self.shards))
+        self.max_bucket = self._round_to_shards(
+            max(pow2_bucket(config.max_bucket), self.min_bucket))
         self._seen_buckets: set = set()
         self._lock = threading.Lock()
-        self.backend = "local"
+        self.backend = "local" if self.mesh is None else "sharded"
         # obs metric primitives (always live — ``stats`` is a view over them;
         # the span/trace layer is what OBS_ENABLED gates)
         self._requests = obs.Counter()
@@ -186,9 +227,13 @@ class TransformEngine:
         """True when this engine serves exactly ``models`` (by identity)."""
         return tuple(id(m) for m in models) == self._model_key
 
+    def _round_to_shards(self, b: int) -> int:
+        return ((b + self.shards - 1) // self.shards) * self.shards
+
     def bucket_for(self, q: int) -> int:
-        """Row bucket a ``q``-row request pads to (pow2, clamped)."""
-        return min(max(pow2_bucket(max(q, 1)), self.min_bucket), self.max_bucket)
+        """Row bucket a ``q``-row request pads to (pow2, clamped, shard-even)."""
+        b = min(max(pow2_bucket(max(q, 1)), self.min_bucket), self.max_bucket)
+        return self._round_to_shards(b)
 
     def buckets(self) -> Tuple[int, ...]:
         """Every bucket this engine can dispatch (smallest to largest)."""
@@ -196,7 +241,7 @@ class TransformEngine:
         b = self.min_bucket
         while b < self.max_bucket:
             out.append(b)
-            b = pow2_bucket(b + 1)
+            b = self._round_to_shards(pow2_bucket(b + 1))
         out.append(self.max_bucket)
         return tuple(out)
 
@@ -208,11 +253,19 @@ class TransformEngine:
                            self.plan.dtype.itemsize)["flops"]
 
     def _call(self, Zp: np.ndarray) -> np.ndarray:
-        """One padded device call: copy in, evaluate, copy back (the sync)."""
+        """One padded device call: copy in, evaluate, copy back (the sync).
+        Sharded: span ``i`` of the bucket on ``devices[i]``, every span
+        launched before any is gathered."""
         from .. import api
 
-        Zt = torch.from_numpy(Zp).to(self.device)
-        return api.eval_with_constants(self.consts, Zt).cpu().numpy()
+        if self.shards == 1:
+            Zt = torch.from_numpy(Zp).to(self.device)
+            return api.eval_with_constants(self.consts, Zt).cpu().numpy()
+        span = Zp.shape[0] // self.shards
+        outs = [api.eval_with_constants(self._consts[d],
+                                        torch.from_numpy(Zp[i * span:(i + 1) * span]).to(d))
+                for i, d in enumerate(self.devices)]
+        return torch.cat([o.to(self.device) for o in outs]).cpu().numpy()
 
     def warmup(self, max_rows: Optional[int] = None) -> int:
         """One call at every bucket up to ``max_rows`` (default: all), so the
@@ -307,8 +360,10 @@ class TransformEngine:
         return out
 
     def __repr__(self) -> str:
+        where = (f"device={self.device}" if self.mesh is None else
+                 f"sharded(shards={self.shards}, devices={[str(d) for d in self.devices]})")
         return (
             f"TransformEngine(models={len(self.models)}, "
             f"features={self.consts.num_features}, terms={self.terms}, "
-            f"device={self.device}, buckets=[{self.min_bucket}..{self.max_bucket}])"
+            f"{where}, buckets=[{self.min_bucket}..{self.max_bucket}])"
         )

@@ -2,8 +2,10 @@
 
 Counterpart of ``src/repro/serving/registry.py``, on one explicit device
 (``device=None``: the CUDA card; ``"cpu"`` only when asked): servables are
-loaded onto it and their engines evaluate there.  The sharded registry
-(``mesh=``) is ROADMAP.md queue 1 item 12b.
+loaded onto it and their engines evaluate there.  With ``mesh=`` (a
+sequence of devices) every engine is sharded over them
+(:class:`~repro_torch.serving.engine.TransformEngine`) and servables load
+onto the first.
 
 A serving process holds one registry.  Each ``register``/``load`` call
 builds a :class:`~repro_torch.serving.engine.TransformEngine` for the servable's
@@ -31,7 +33,7 @@ import numpy as np
 from .. import _device
 from ..checkpoint import store as ckpt_store
 from ..resilience import chaos
-from .engine import _SHARDED, EngineConfig, TransformEngine, UnsupportedModelError
+from .engine import EngineConfig, TransformEngine, UnsupportedModelError, mesh_devices
 
 
 def load_servable(path: str, *, device=None):
@@ -111,9 +113,8 @@ class ModelRegistry:
         warmup: bool = True,
         warmup_rows: Optional[int] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_SHARDED)
-        self.device = _device.resolve(device)
+        self.mesh = None if mesh is None else mesh_devices(mesh)
+        self.device = self.mesh[0] if self.mesh else _device.resolve(device)
         self.engine_config = engine_config
         self.warmup = warmup
         self.warmup_rows = warmup_rows
@@ -150,7 +151,8 @@ class ModelRegistry:
                     raise ValueError(f"{name!r} v{version} is already registered")
         models, head, scaler = self._model_set(servable)
         try:
-            engine = TransformEngine(models, device=self.device, config=self.engine_config)
+            engine = TransformEngine(models, device=self.device, mesh=self.mesh,
+                                     config=self.engine_config)
             if self.warmup:
                 engine.warmup(self.warmup_rows)
         except UnsupportedModelError:

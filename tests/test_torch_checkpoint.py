@@ -325,3 +325,41 @@ def test_port_classifier_loads_in_reference(tmp_path, data, classifiers):
     clear = (top2[:, 1] - top2[:, 0]) > 1e-4
     assert np.array_equal(ref.predict(Xte)[clear], port.predict(Xte)[clear])
     assert ref.config.method == "cgavi-ihb"
+
+
+def test_restore_shardings_places_leaves(tmp_path):
+    """``restore(shardings=)``: one device places every leaf, a tree of
+    devices each leaf (``None`` leaves that part as it is); without it the
+    leaves stay numpy.  The values are the saved ones bit for bit, bf16
+    leaves included, and ``load_latest`` places as ``restore`` does."""
+    tree = {"w": np.arange(12.0, dtype=np.float32).reshape(3, 4),
+            "b": torch.arange(5, dtype=torch.bfloat16),
+            "opt": (np.int32(3), [np.ones(2, np.int8)])}
+    store.save(str(tmp_path), 1, tree)
+    host, _ = store.restore(str(tmp_path), 1, tree)
+    assert isinstance(host["w"], np.ndarray) and isinstance(host["opt"][1][0], np.ndarray)
+    placed, _ = store.restore(str(tmp_path), 1, tree, shardings="cpu")
+    assert all(torch.is_tensor(x) for x in (placed["w"], placed["b"], placed["opt"][0],
+                                            placed["opt"][1][0]))
+    assert torch.equal(placed["w"], torch.from_numpy(tree["w"]))
+    assert placed["b"].dtype == torch.bfloat16 and torch.equal(placed["b"], tree["b"])
+    assert placed["opt"][1][0].dtype == torch.int8 and int(placed["opt"][0]) == 3
+    cpu = torch.device("cpu")
+    part, _, step = store.load_latest(str(tmp_path), tree,
+                                      {"w": cpu, "b": None, "opt": (cpu, None)})
+    assert step == 1 and torch.is_tensor(part["w"]) and torch.is_tensor(part["opt"][0])
+    assert isinstance(part["opt"][1][0], np.ndarray) and part["b"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="dict keys"):
+        store.restore(str(tmp_path), 1, tree, shardings={"w": cpu})
+
+
+def test_restore_rebuilds_named_tuples(tmp_path):
+    """A NamedTuple in the tree (the optimizer's state) comes back as itself."""
+    from repro_torch.optim import AdamWState
+
+    state = {"opt": AdamWState(step=2, mu={"w": np.ones(3, np.float32)},
+                               nu={"w": np.full(3, 2.0, np.float32)})}
+    store.save(str(tmp_path), 2, state)
+    got, _ = store.restore(str(tmp_path), 2, state, shardings="cpu")
+    assert isinstance(got["opt"], AdamWState) and int(got["opt"].step) == 2
+    assert torch.equal(got["opt"].nu["w"], torch.full((3,), 2.0))

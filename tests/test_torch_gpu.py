@@ -1037,3 +1037,128 @@ def test_kill_resume_on_card_bit_identical(cuda, tmp_path):
     out = chaos_vi.scenario_kill_resume(str(tmp_path), reference, [("state_saved", 1)],
                                         device="cuda")
     assert out["ok"] and out["kills"][0]["caught_up_rows"] == 4096
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_engine_on_card_bit_equal_local(served, k):
+    """k spans of the one card (and, with several cards, one span a card):
+    every row count's reply equals the local engine's bit for bit, with no
+    recompile after warm-up."""
+    from repro_torch.serving import EngineConfig, TransformEngine
+
+    clf, eng, Xs = served
+    meshes = [[eng.device] * k]
+    if torch.cuda.device_count() > 1:
+        meshes.append([torch.device("cuda", i % torch.cuda.device_count()) for i in range(k)])
+    for mesh in meshes:
+        sharded = TransformEngine(clf.models, mesh=mesh,
+                                  config=EngineConfig(min_bucket=64, max_bucket=16_384))
+        sharded.warmup()
+        for q in (1, 2, 63, 64, 65, 200, 1000, 4097, 16_384, 20_000):
+            assert np.array_equal(sharded.transform(Xs[:q]), eng.transform(Xs[:q])), (mesh, q)
+        assert sharded.stats["recompiles"] == 0 and sharded.backend == "sharded"
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (flash attention's autograd, the train step)
+# ---------------------------------------------------------------------------
+
+# bf16 attention: the kernel's output against the plain version's at the
+# flash tolerance of tests/test_kernels.py
+FLASH_TOL = 2e-2
+
+
+def test_flash_attention_gradient_kernel_vs_plain(cuda):
+    """On CUDA tensors that need gradients, attention runs the kernel inside
+    ``FlashAttention`` (its output has a ``grad_fn``, one launch) and its
+    backward is the plain version's vector-Jacobian product at the same
+    q, k, v: the gradients equal the plain path's, at a mid shape in bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, Hq, Hkv, S, d = 2, 8, 2, 512, 128
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16)
+               for s in ((B, Hq, S, d), (B, Hkv, S, d), (B, Hkv, S, d)))
+    w = torch.randn((B, Hq, S, d), generator=gen, device=cuda)
+    grads = {}
+    for use_kernel in (None, False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = ops.launch_counts()["flash_attention"]
+        out = ops.multihead_attention(*leaves, causal=True, use_kernel=use_kernel)
+        launched = ops.launch_counts()["flash_attention"] - before
+        assert launched == (1 if use_kernel is None else 0)
+        assert out.grad_fn is not None
+        (out.float() * w).sum().backward()
+        grads[use_kernel] = (out.detach(), [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    (ko, kg), (po, pg) = grads[None], grads[False]
+    torch.testing.assert_close(ko.float(), po.float(), rtol=FLASH_TOL, atol=FLASH_TOL)
+    for a, b in zip(kg, pg):
+        assert a is not None and a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=FLASH_TOL, atol=FLASH_TOL)
+    with torch.no_grad():  # no gradient needed: the bare kernel, no grad_fn
+        assert ops.multihead_attention(q, k, v).grad_fn is None
+
+
+def test_train_step_on_card_grads_every_attention_weight(cuda):
+    """A bf16 model on the card (head size 128: the wgmma variant): the loss
+    and its gradients through the kernel path, every attention weight's
+    gradient present and non-zero, the gradients within reach of the plain
+    path's (no further from an fp32 copy's than twice the plain bf16 path's,
+    leaf by leaf, in relative Frobenius norm), and three steps of
+    ``make_train_step`` on one batch that launch the kernel and descend."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.model import Transformer, loss_fn, make_train_step
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(configs.get_reduced("qwen2-1.5b"), dtype="bfloat16",
+                              d_model=256, n_heads=4, n_kv_heads=2, d_head=128, d_ff=512,
+                              vocab_size=1024)
+    model = Transformer(cfg, device=cuda, seed=0)
+    model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                      model.state_dict(), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 1024, (2, 257))).to(cuda)
+    batch = {"tokens": toks}
+
+    def grads(m, use_kernel):
+        params = dict(m.named_parameters())
+        loss = loss_fn(m, batch, use_kernel=use_kernel)
+        return float(loss.detach()), dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    before = ops.launch_counts()["flash_attention"]
+    lk, gk = grads(model, None)
+    # forward and the remat recompute: two launches a layer
+    assert ops.launch_counts()["flash_attention"] - before == 2 * cfg.n_periods
+    lp, gp = grads(model, False)
+    l32, g32 = grads(model32, False)
+    assert abs(lk - l32) <= 2 * abs(lp - l32) + 1e-2
+    for i, blk in enumerate(model.blocks):
+        if isinstance(blk, Attention):
+            for leaf in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
+                g = gk[f"blocks.{i}.{leaf}"]
+                assert g is not None and bool(torch.any(g != 0)), (i, leaf)
+    for name in gk:
+        ref32 = g32[name].float()
+        scale = float(torch.linalg.vector_norm(ref32)) + 1e-12
+        dk = float(torch.linalg.vector_norm(gk[name].float() - ref32)) / scale
+        dp = float(torch.linalg.vector_norm(gp[name].float() - ref32)) / scale
+        assert dk <= 2 * dp + 1e-2, (name, dk, dp)
+    # remat "dots" (selective checkpointing around the kernel's autograd
+    # function) gives remat "full"'s gradients; the embedding's backward
+    # adds with atomics, so within 1e-2 in relative norm, not bit for bit
+    params = dict(model.named_parameters())
+    loss_d = loss_fn(model, batch, dataclasses.replace(cfg, remat_policy="dots"))
+    gd = dict(zip(params, torch.autograd.grad(loss_d, list(params.values()))))
+    assert abs(float(loss_d.detach()) - lk) <= 1e-3
+    for name in gk:
+        ref = gk[name].float()
+        dist = float(torch.linalg.vector_norm(gd[name].float() - ref))
+        assert dist <= 1e-2 * (float(torch.linalg.vector_norm(ref)) + 1e-12), name
+    opt = AdamW(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    st, step, losses = opt.init(dict(model.named_parameters())), make_train_step(opt), []
+    for _ in range(3):
+        loss, st = step(model, st, batch)
+        losses.append(float(loss))
+    assert losses[2] < losses[0] and np.isfinite(losses).all()

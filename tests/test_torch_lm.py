@@ -209,7 +209,27 @@ def test_convert_carries_bf16_bits():
     jcfg, jp, model = _reference("qwen3-8b", dtype="bfloat16")
     assert model.embed.dtype == torch.bfloat16
     want = np.asarray(jp["blocks"]["01_mlp"]["w_in"][1].astype(jnp.float32))
-    np.testing.assert_array_equal(model.blocks[3].w_in.float().numpy(), want)
+    np.testing.assert_array_equal(model.blocks[3].w_in.detach().float().numpy(), want)
+
+
+def test_serving_paths_keep_no_autograd_state():
+    """The weights are trainable (``requires_grad``), yet prefill, decode and
+    the serve driver record no graph: their logits and caches have no
+    ``grad_fn``; a forward under grad mode does."""
+    cfg = configs.get_reduced("qwen2-1.5b")
+    model = Transformer(cfg, device="cpu", seed=0)
+    assert all(p.requires_grad for p in model.parameters())
+    toks = torch.from_numpy(_tokens(cfg, (2, 9)))
+    logits, cache = model.prefill(toks[:, :8], S_max=10)
+    assert logits.grad_fn is None and not logits.requires_grad
+    assert all(c.k.grad_fn is None and c.v.grad_fn is None for c in cache if c is not None)
+    step, cache = model.decode_step(cache, toks[:, 8], torch.full((2,), 8))
+    assert step.grad_fn is None and not step.requires_grad
+    assert all(c.k.grad_fn is None for c in cache if c is not None)
+    full, _ = model(toks)
+    assert full.grad_fn is not None
+    out = serve(cfg, batch=2, prompt_len=4, gen_tokens=3, seed=0, device="cpu")
+    assert out["generated"].shape == (2, 3)
 
 
 def test_serve_without_device_raises_without_card(monkeypatch):

@@ -129,14 +129,21 @@ def test_classifier_carry_across(fitted, appc_small):
     _assert_predictions(port.predict(Xte), ref.predict(Xte), scores_ref)
 
 
-def test_unported_classifier_parts_raise(fitted):
-    """Only the sharded serving engine is still to port (item 12b); the
-    local one attaches (``tests/test_torch_serving.py``), save/load: see
-    ``tests/test_torch_checkpoint.py``."""
+def test_unported_classifier_parts_raise(fitted, appc_small):
+    """Every part of the classifier is ported: the sharded engine (item
+    12b) attaches over a mesh of devices and predicts as the direct path,
+    bit for bit; the local engine: ``tests/test_torch_serving.py``,
+    save/load: ``tests/test_torch_checkpoint.py``."""
     _, port = fitted
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        port.attach_engine(mesh=object())
-    assert port.engine is None
+    Xte = appc_small[2][:500]
+    want_feats, want = port.transform(Xte), port.predict(Xte)
+    engine = port.attach_engine(mesh=["cpu"] * 2, warmup=False)
+    try:
+        assert engine.shards == 2 and engine.backend == "sharded"
+        assert np.array_equal(port.transform(Xte), want_feats)
+        assert np.array_equal(port.predict(Xte), want)
+    finally:
+        port.engine = None
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,7 @@ SLICE_MODULES = [
     "repro_torch.core.transform",
     "repro_torch.core.vca",
     "repro_torch.data",
+    "repro_torch.data.lm",
     "repro_torch.data.synthetic",
     "repro_torch.kernels",
     "repro_torch.kernels._build",
@@ -69,6 +70,7 @@ SLICE_MODULES = [
     "repro_torch.launch.obs_report",
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_vi",
+    "repro_torch.launch.train",
     "repro_torch.models",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
@@ -84,10 +86,14 @@ SLICE_MODULES = [
     "repro_torch.online.drift",
     "repro_torch.online.state",
     "repro_torch.online.update",
+    "repro_torch.optim",
+    "repro_torch.optim.adamw",
     "repro_torch.resilience",
     "repro_torch.resilience.chaos",
     "repro_torch.resilience.integrity",
     "repro_torch.resilience.journal",
+    "repro_torch.runtime",
+    "repro_torch.runtime.fault_tolerance",
     "repro_torch.serving",
     "repro_torch.serving.batcher",
     "repro_torch.serving.engine",

@@ -1,15 +1,16 @@
 """The port's serving stack (``repro_torch.serving``, ``launch/serve_vi``) on
 the CPU.
 
-The cases of the reference's ``tests/test_serving.py`` except its two
-sharded ones (ROADMAP.md queue 1 item 12b), on the port: the engine against
-the port's own direct transform **bit for bit** (buckets, chunked requests,
-the empty request, wrong widths), the batcher, classifier save/load and
-``attach_engine``, the registry, and ``serve_vi`` in process.  Then parity
-with the JAX package's engine on a classifier carried across, and the chaos
-paths (transient fault, poison request, expired deadline, failed
-activation, and the checkpoint store's and shard writer's sites), each
-against a fault-free run, bit for bit.
+The cases of the reference's ``tests/test_serving.py`` on the port: the
+engine against the port's own direct transform **bit for bit** (buckets,
+chunked requests, the empty request, wrong widths), the batcher, classifier
+save/load and ``attach_engine``, the registry, and ``serve_vi`` in process.
+The sharded engine (``mesh=``, k spans on k ``cpu`` devices here) against
+the local engine bit for bit, and its buckets against the reference
+engine's rule.  Then parity with the JAX package's engine on a classifier
+carried across, and the chaos paths (transient fault, poison request,
+expired deadline, failed activation, and the checkpoint store's and shard
+writer's sites), each against a fault-free run, bit for bit.
 """
 
 import os
@@ -162,12 +163,87 @@ def test_engine_empty_request_and_wrong_width(models):
         EngineConfig(min_bucket=64, max_bucket=32)
 
 
+class _WorldMesh:
+    """The two methods of a ``DeviceMesh`` the engine reads."""
+
+    def __init__(self, world, device_type="cpu"):
+        self.world, self.device_type = world, device_type
+
+    def size(self):
+        return self.world
+
+
 def test_engine_rejects_vca_and_mesh(planted, models):
+    """VCA has no fused plan; a mesh is a sequence of devices (a
+    ``DeviceMesh`` of world 1 is its one device, a larger one raises)."""
     vca = api.fit(planted, "vca", psi=0.005, device=CPU)
     with pytest.raises(UnsupportedModelError, match="term-book"):
         TransformEngine([vca], device=CPU, config=CFG)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TransformEngine(models, device=CPU, mesh=object())
+    with pytest.raises(UnsupportedModelError, match="term-book"):
+        TransformEngine([vca], mesh=[CPU, CPU], config=CFG)
+    with pytest.raises(ValueError, match="SPMD"):
+        TransformEngine(models, mesh=_WorldMesh(2), config=CFG)
+    with pytest.raises(ValueError, match="at least one"):
+        TransformEngine(models, mesh=[], config=CFG)
+    one = TransformEngine(models, mesh=_WorldMesh(1), config=CFG)
+    assert one.shards == 1 and one.backend == "sharded"
+    two = TransformEngine(models, mesh=[CPU, "cpu"], config=CFG)
+    assert two.shards == 2 and two.backend == "sharded"
+    assert "sharded(shards=2" in repr(two)
+    Z = _queries(77)
+    local = TransformEngine(models, device=CPU, config=CFG).transform(Z)
+    assert np.array_equal(one.transform(Z), local)
+    assert np.array_equal(two.transform(Z), local)
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
+def test_sharded_buckets_match_reference(shards):
+    """``bucket_for`` and ``buckets`` are the reference engine's rule
+    (``src/repro/serving/engine.py``): its methods read only ``shards``,
+    ``min_bucket`` and ``max_bucket``, set here as its constructor sets
+    them for a mesh of ``shards`` data shards."""
+    from repro.core.oavi import pow2_bucket as jpow2
+    from repro.serving.engine import TransformEngine as JEngine
+    from repro_torch.serving.engine import TransformEngine as Engine
+
+    for cfg in (EngineConfig(), EngineConfig(min_bucket=1, max_bucket=256),
+                EngineConfig(min_bucket=5, max_bucket=100), CFG):
+        ref = object.__new__(JEngine)
+        ref.shards = shards
+        ref.min_bucket = ref._round_to_shards(max(jpow2(cfg.min_bucket), 2 * shards))
+        ref.max_bucket = ref._round_to_shards(max(jpow2(cfg.max_bucket), ref.min_bucket))
+        eng = object.__new__(Engine)
+        eng.shards = shards
+        eng.min_bucket = eng._round_to_shards(max(jpow2(cfg.min_bucket), 2 * shards))
+        eng.max_bucket = eng._round_to_shards(max(jpow2(cfg.max_bucket), eng.min_bucket))
+        assert eng.buckets() == ref.buckets()
+        for q in list(range(1, 300)) + [511, 512, 513, 4097, 20_000]:
+            assert eng.bucket_for(q) == ref.bucket_for(q), (cfg, q)
+
+
+def test_sharded_engine_constructor_buckets(models):
+    """The constructor sets ``min_bucket``/``max_bucket`` by that rule."""
+    for k in (1, 2, 3, 4, 8):
+        for cfg in (EngineConfig(), EngineConfig(min_bucket=1, max_bucket=256), CFG):
+            eng = TransformEngine(models, mesh=[CPU] * k, config=cfg)
+            lo = -(-max(max(2, 1 << (cfg.min_bucket - 1).bit_length()), 2 * k) // k) * k
+            assert eng.min_bucket == lo and eng.max_bucket % k == 0
+            assert all(b % k == 0 and b // k >= 2 for b in eng.buckets())
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_sharded_engine_bits_equal_local(models, k):
+    """k spans on k ``cpu`` devices give the local engine's bits for every
+    row count from 1 to 300, and for a request beyond ``max_bucket``."""
+    cfg = EngineConfig(min_bucket=8, max_bucket=128)
+    local = TransformEngine(models, device=CPU, config=cfg)
+    sharded = TransformEngine(models, mesh=[CPU] * k, config=cfg)
+    Z = _queries(700, seed=k)
+    for q in range(1, 301):
+        assert np.array_equal(sharded.transform(Z[:q]), local.transform(Z[:q])), q
+    assert np.array_equal(sharded.transform(Z), _direct(models, Z))
+    st = sharded.stats
+    assert st["requests"] == 301 and st["device_calls"] >= 301
 
 
 def test_engine_device_rule(models, monkeypatch):
@@ -406,8 +482,14 @@ def test_registry_hot_swap_versions(classifier):
         reg.activate("default", 99)
     with pytest.raises(ValueError, match="already registered"):
         reg.register("default", classifier, version=1)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ModelRegistry(device=CPU, mesh=object())
+    # a sharded registry: every engine over the mesh, the local replies
+    sharded = ModelRegistry(mesh=[CPU] * 3, engine_config=CFG, warmup=False)
+    entry = sharded.register("default", classifier)
+    assert entry.engine.shards == 3 and sharded.device.type == "cpu"
+    Z = _queries(50)
+    assert np.array_equal(entry.transform(Z, scaled=True), e1.transform(Z, scaled=True))
+    assert np.array_equal(entry.predict(Z, scaled=True), classifier.head(_direct(
+        classifier.models, Z)))
 
 
 def test_registry_remove_repoints_active(classifier):
@@ -457,8 +539,17 @@ def test_serve_vi_cli_in_process(tmp_path):
                                       serve_vi.synth_trace(8, 32, 0), 0)
     for p, r in zip(payloads, replies2):
         assert np.array_equal(r, _direct(clf.models, p))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        serve_vi.main(["--device", "cpu", "--sharded"])
+    # --sharded: three spans on the CPU, the same replies bit for bit
+    replies3 = []
+    report3 = serve_vi.main([
+        "--device", "cpu", "--sharded", "--mesh-shape", "3", "--requests", "8",
+        "--mean-rows", "32", "--concurrency", "2", "--min-bucket", "32",
+        "--max-bucket", "512", "--kind", "transform", "--model-dir", str(tmp_path / "ckpt"),
+    ], replies=replies3)
+    assert report3["shards"] == 3 and report3["recompiles"] == 0
+    assert all(np.array_equal(a, b) for a, b in zip(replies3, replies2))
+    with pytest.raises(ValueError, match="one axis"):
+        serve_vi.main(["--device", "cpu", "--sharded", "--data-axes", "pod,data"])
 
 
 def test_synth_trace_matches_reference():

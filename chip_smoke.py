@@ -146,6 +146,28 @@ Phases, each reported on its own lines:
    losses against an uninterrupted run's; (d) the chunked CE against the
    plain one at full vocabulary, each with its peak memory.
 
+15. MLA and MoE (``models/mla.py``, ``models/moe.py``): (a) ``launch.serve.serve``
+   of DeepSeek-V2-Lite at full width and depth (27 x (mla, moe), bf16, random
+   weights from seed 0), batch 4 x 2,048 prompt tokens, 32 generated: the
+   prefill must launch ``flash_attention`` 27 times, on the wgmma variant at
+   d = 192 / dv = 128; the same weights rebuilt give the same first tokens,
+   a second prefill the same bits; one prefill and one decode step profiled,
+   device time grouped as the flash kernel, the router, dispatch/combine, the
+   expert ``bmm`` and the rest; (b) the kernel run's logits against
+   ``use_kernel=False`` with the routes pinned to the kernel run's (a test
+   harness at ``moe.route``: with random weights the router is near-uniform
+   and the two bf16 runs pick other experts for some tokens): at full depth
+   the gap is printed, at full width cut to 4 periods the ``LM_FACTOR`` rule
+   of phase 6 against an fp32 copy is applied; the unpinned share of tokens
+   routed elsewhere is printed by layer; (c) Kimi-K2 at full width cut to one
+   period of 61 (1.04 T parameters do not fit one card), batch 4 x 2,048,
+   8 generated: one ``flash_attention`` launch (GQA 64/8, wgmma), finite
+   logits, every kept (token, choice) pair in a slot of its own, the dropped
+   share and peak memory; (d) three ``make_train_step`` steps of
+   DeepSeek-V2-Lite at full width and 2 periods on one batch of 4 x 1,024,
+   remat full: finite losses that fall, aux > 0, two ``flash_attention``
+   launches a layer a step.
+
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
 lines are the kernels' JSON record, the ``nvidia-smi`` name and power limit,
@@ -247,27 +269,37 @@ def time_ms(fn, reps: int, warmup: int = 2, groups: int = 3) -> float:
     return float(np.median(per_call))
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
+def device_ms(fn, kernel: str, reps: int, traces: int = 3) -> float:
     """Milliseconds of device time per launch of the kernel whose name
     contains ``kernel``, over ``reps`` calls of ``fn`` under
     ``torch.profiler``: what the card spends, where a host-bound loop's
-    CUDA-event time measures the host."""
+    CUDA-event time measures the host.  A trace must hold exactly ``reps``
+    launches.  The profiler's activity buffers can lose an event of a
+    microsecond-long kernel (one trace held 49 of 50), so a trace short of
+    launches is taken again, up to ``traces`` times, and never used."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and kernel in ev.key]
-    count = sum(ev.count for ev in rows)
-    if count != reps:
-        raise AssertionError(f"profiled {count} launches of {kernel}, expected {reps}")
-    return sum(ev.self_device_time_total for ev in rows) / 1e3 / count
+    counts = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [ev for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+        count = sum(ev.count for ev in rows)
+        if count == reps:
+            if counts:
+                log(f"  device_ms({kernel}): traces held {counts} launches of {reps} before "
+                    "this one; those traces were discarded")
+            return sum(ev.self_device_time_total for ev in rows) / 1e3 / count
+        counts.append(count)
+    raise AssertionError(f"profiled {counts} launches of {kernel} in {traces} traces, "
+                         f"expected {reps}")
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -3256,6 +3288,446 @@ def model_moment_bytes(model):
     return dict(int8=int8, fp32=fp32)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: MLA/MoE serving and training (DeepSeek-V2-Lite, Kimi-K2's block)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, KIMI_ARCH = "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"
+MOE_BATCH, MOE_PROMPT, MOE_GEN, KIMI_GEN = 4, 2048, 32, 8
+# 15b: the fp32 witness at full width cut to this many periods (the fp32
+# copy of all 27 is 65 GB and does not fit beside the bf16 model)
+WITNESS_PERIODS = 4
+MOE_STEPS = ("route", "aux_loss", "dispatch_plan", "dispatch", "experts", "combine")
+# device-time groups of a profiled MoE-model call: the MoE steps' ranges
+MOE_GROUPS = {"router": ("route", "aux_loss"), "dispatch/combine":
+              ("dispatch_plan", "dispatch", "combine"), "expert bmm": ("experts",)}
+
+
+class MoEProbe:
+    """A test harness around the MoE block's steps (``repro_torch.models.moe``
+    ``route`` ... ``combine``), not a knob of any entry point: while entered,
+    it records every ``route`` call's expert ids in ``ids`` or, given
+    ``replay`` (another run's ``ids``), replays them in order with this run's
+    gates at those ids; ``plans=True`` keeps every dispatch plan; and
+    ``ranges=True`` runs each step inside a ``record_function`` range, so a
+    profile can group device time by step."""
+
+    def __init__(self, replay=None, plans=False, ranges=False):
+        self.ids, self.plans = [], [] if plans else None
+        self.replay = None if replay is None else iter(list(replay))
+        self.ranges = ranges
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe = moe
+        self._orig = {name: getattr(moe, name) for name in MOE_STEPS}
+        for name, fn in self._orig.items():
+            setattr(moe, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self._moe, name, fn)
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def call(*args):
+            scope = (torch.profiler.record_function(f"moe.{name}") if self.ranges
+                     else contextlib.nullcontext())
+            with scope:
+                out = fn(*args)
+                if name == "route":
+                    if self.replay is not None:
+                        probs, _, eidx = out
+                        eidx = next(self.replay)
+                        out = (probs, self._moe.gates_at(probs, eidx), eidx)
+                    self.ids.append(out[2])
+                elif name == "dispatch_plan" and self.plans is not None:
+                    self.plans.append(out)
+            return out
+
+        return call
+
+
+def profile_moe(tag, fn):
+    """``fn`` (after a warm-up call) under ``torch.profiler`` with the MoE
+    steps in ranges: wall time, device busy and idle share, and device time
+    grouped as the flash kernel, each MoE group and the rest.  The profiler
+    and the ranges add host time, so the idle share is also given against
+    the wall time of a call with neither (``idle_share_unprofiled``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with MoEProbe(ranges=True):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [ev for ev in avgs if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0 and not ev.key.startswith("moe.")]
+    busy_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    launches = sum(ev.count for ev in kernels)
+    ranges = {ev.key[4:]: ev.device_time_total / 1e3 for ev in avgs
+              if ev.device_type == DeviceType.CPU and ev.key.startswith("moe.")}
+    groups = {"attention kernel": sum(ev.self_device_time_total for ev in kernels
+                                      if "flash" in ev.key) / 1e3}
+    for group, steps in MOE_GROUPS.items():
+        groups[group] = sum(ranges.get(s, 0.0) for s in steps)
+    groups["rest"] = busy_ms - sum(groups.values())
+    idle = 1 - busy_ms / wall_ms
+    idle_plain = 1 - busy_ms / plain_wall_ms
+    log(f"  profiled {tag}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+        f"{100 * idle:.1f}% ({100 * idle_plain:.1f}% of an unprofiled call's wall "
+        f"{plain_wall_ms:.3f} ms), {launches} kernel launches; device ms by group: "
+        + ", ".join(f"{g} {ms:.3f} ({100 * ms / max(busy_ms, 1e-9):.1f}%)"
+                    for g, ms in groups.items()))
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]
+    for ev in top:
+        log(f"    {ev.self_device_time_total / 1e3:9.3f} ms x{ev.count:<5d} {ev.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=idle, launches=launches,
+                unprofiled_wall_ms=plain_wall_ms, idle_share_unprofiled=idle_plain,
+                groups=groups, step_ranges_ms=ranges)
+
+
+def _prompts(cfg, dev):
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)), dtype=torch.long, device=dev)
+
+
+def _flip_shares(ids_a, ids_b):
+    """Per layer, the share of tokens whose set of experts differs."""
+    import torch
+
+    return [float((torch.sort(a, -1).values != torch.sort(b, -1).values).any(-1)
+                  .float().mean()) for a, b in zip(ids_a, ids_b)]
+
+
+def mla_serve_full(dev):
+    """15a-15b at full depth: ``serve`` of DeepSeek-V2-Lite, then the same
+    weights rebuilt: a repeated prefill's bits, profiles, and the kernel run
+    against the plain one with routes pinned (the gap printed) and unpinned
+    (the flip share printed)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_config(MLA_ARCH)
+    m = cfg.mla
+    n_mla = cfg.n_periods * cfg.period.count("mla")
+    d, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    kind = variant(torch.bfloat16, d, dv)
+    log(f"phase 15a: serve {cfg.name} at full width and depth ({cfg.n_periods} x (mla, moe), "
+        f"d_model {cfg.d_model}, {m.n_heads} heads, kv_lora {m.kv_lora_rank}, d {d} / dv {dv}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared, "
+        f"d_ff {cfg.moe.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, {_param_count(cfg):,} "
+        f"parameters), batch {MOE_BATCH}, prompt {MOE_PROMPT}, {MOE_GEN} generated, seed 0; "
+        f"flash variant at ({d}, {dv}): {kind}")
+    if kind != "wgmma":
+        raise AssertionError(f"15a: MLA's prefill takes the {kind} variant, not wgmma")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve(cfg, batch=MOE_BATCH, prompt_len=MOE_PROMPT, gen_tokens=MOE_GEN, seed=0)
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen = out["generated"]
+    tokens = MOE_BATCH * MOE_PROMPT
+    log(f"  serve: {serve_s:.3f} s in all (init included); prefill {out['prefill_s']:.4f} s "
+        f"({tokens / out['prefill_s']:.1f} prompt tokens/s); decode {out['decode_s']:.4f} s "
+        f"for {MOE_GEN - 1} steps, {out['tokens_per_s']:.2f} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB; kernel launches {launches}")
+    if launches["flash_attention"] != n_mla:
+        raise AssertionError(f"15a: prefill launched flash_attention "
+                             f"{launches['flash_attention']} times, expected {n_mla}")
+    if gen.shape != (MOE_BATCH, MOE_GEN) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"15a: generated tokens {gen.shape} out of range")
+
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _prompts(cfg, dev)
+    S_max = MOE_PROMPT + MOE_GEN
+    pos = torch.full((MOE_BATCH,), MOE_PROMPT, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        with MoEProbe(plans=True) as kernel_run:
+            lk, ck = model.prefill(prompts, S_max)
+            tok = lk[:, -1].argmax(-1)
+            dk, _ = model.decode_step(ck, tok, pos)
+        n_moe = cfg.n_periods * cfg.period.count("moe")
+        dropped = [1 - float(p.keep.float().mean()) for p in kernel_run.plans[:n_moe]]
+        C = kernel_run.plans[0].src.numel() // cfg.moe.num_experts
+        log(f"  prefill's dropped pairs by layer (C = {C}): {[round(x, 4) for x in dropped]}")
+        if tok.tolist() != gen[:, 0].tolist():
+            raise AssertionError(f"15a: rebuilt weights give first tokens {tok.tolist()}, "
+                                 f"serve gave {gen[:, 0].tolist()}")
+        l2, c2 = model.prefill(prompts, S_max)
+        same = torch.equal(l2, lk) and all(
+            torch.equal(a.c_kv[:, :MOE_PROMPT], b.c_kv[:, :MOE_PROMPT])
+            and torch.equal(a.k_pe[:, :MOE_PROMPT], b.k_pe[:, :MOE_PROMPT])
+            for a, b in zip(c2, ck) if a is not None)
+        del c2, l2
+        log(f"  a second prefill gives the same bits (logits and every latent cache): {same}")
+        if not same:
+            raise AssertionError("15a: two prefills of the same prompts differ")
+        prof = {"prefill": profile_moe("prefill", lambda: model.prefill(prompts, S_max)),
+                "decode": profile_moe("decode step", lambda: model.decode_step(ck, tok, pos))}
+        del ck
+        with MoEProbe(replay=kernel_run.ids):
+            lp, cp = model.prefill(prompts, S_max, use_kernel=False)
+            dp, _ = model.decode_step(cp, tok, pos)
+        del cp
+        with MoEProbe() as plain_run:
+            model.prefill(prompts, S_max, use_kernel=False)
+    flips = _flip_shares(kernel_run.ids[:n_moe], plain_run.ids)
+    gap = dict(prefill=float((lk[:, -1].float() - lp[:, -1].float()).abs().max()),
+               decode=float((dk[:, 0].float() - dp[:, 0].float()).abs().max()))
+    for tag, t in (("prefill last-token", lk), ("teacher-forced decode", dk)):
+        if t.shape[-1] != cfg.vocab_size or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"15a: {tag} logits not finite of width {cfg.vocab_size}")
+    log(f"  15b at full depth, routes pinned to the kernel run: max |logit| gap kernel vs "
+        f"plain, prefill {gap['prefill']:.6g}, decode {gap['decode']:.6g} (not gated); "
+        f"unpinned, the plain run's share of tokens routed to another expert set, by layer: "
+        f"{[round(f, 4) for f in flips]} (mean {float(np.mean(flips)):.4f}; not gated)")
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(prefill_s=out["prefill_s"], prompt_tokens_per_s=tokens / out["prefill_s"],
+                          decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+                          serve_s=serve_s, peak_memory_gb=peak_gb, variant=kind,
+                          dropped_pair_share=dropped,
+                          profile=prof, pinned_gap=gap, unpinned_flip_share=flips)
+
+
+def mla_witness(dev):
+    """15b at full width cut to WITNESS_PERIODS periods: the kernel model
+    against the plain-attention model and an fp32 copy, routes pinned to the
+    kernel run's, by phase 6's ``LM_FACTOR`` rule."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import Transformer
+
+    cfg = dataclasses.replace(configs.get_config(MLA_ARCH), n_periods=WITNESS_PERIODS)
+    log(f"phase 15b: {cfg.name} at full width cut to {cfg.n_periods} periods (the fp32 copy "
+        f"of all 27 is 65 GB), batch {MOE_BATCH} x {MOE_PROMPT}: kernel against "
+        "use_kernel=False and an fp32 copy, routes pinned to the kernel run's")
+    model = Transformer(cfg, device=dev, seed=0)
+    model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                      model.state_dict(), device=dev)
+    prompts = _prompts(cfg, dev)
+    S_max = MOE_PROMPT + MOE_GEN
+    pos = torch.full((MOE_BATCH,), MOE_PROMPT, dtype=torch.long, device=dev)
+    runs = {}
+    with torch.inference_mode():
+        with MoEProbe() as kernel_run:
+            lk, ck = model.prefill(prompts, S_max)
+            tok = lk[:, -1].argmax(-1)
+            runs["kernel"] = (lk, model.decode_step(ck, tok, pos)[0])
+        del ck
+        for name, mdl in (("plain", model), ("fp32", model32)):
+            with MoEProbe(replay=kernel_run.ids):
+                lo, c = mdl.prefill(prompts, S_max, use_kernel=False)
+                runs[name] = (lo, mdl.decode_step(c, tok, pos)[0])
+            del c
+        with MoEProbe() as plain_run:
+            model.prefill(prompts, S_max, use_kernel=False)
+    del model, model32
+    torch.cuda.empty_cache()
+    (lk, dk), (lp, dp), (l32, d32) = runs["kernel"], runs["plain"], runs["fp32"]
+    pre = _logit_dists(lk[:, -1], lp[:, -1], l32[:, -1])
+    dec = _logit_dists(dk[:, 0], dp[:, 0], d32[:, 0])
+    for tag, dists in (("15b prefill last-token logits", pre),
+                       ("15b teacher-forced decode logits", dec)):
+        judge_logits(tag, dists)
+    flips = _flip_shares(kernel_run.ids[:cfg.n_periods], plain_run.ids)
+    log(f"  unpinned flip share by layer: {[round(f, 4) for f in flips]}")
+    return dict(periods=cfg.n_periods, prefill_logits=pre, decode_logits=dec,
+                unpinned_flip_share=flips)
+
+
+def kimi_period(dev):
+    """15c: Kimi-K2 at full width, one period of 61, through ``serve``; then
+    the same weights rebuilt, outside the timed call: serve's greedy steps
+    again under a probe (the same tokens, finite logits, unique slots, the
+    dropped share), and the prefill's last-token logits and one
+    teacher-forced decode step against ``use_kernel=False`` with routes
+    pinned to the kernel run's (the gap printed)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+    from repro_torch.models.moe import capacity as moe_capacity
+    from repro_torch.models.moe import expert_counts as moe_counts
+
+    full = configs.get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(full, n_periods=1)
+    n_params = _param_count(cfg)
+    kind = variant(torch.bfloat16, cfg.d_head, cfg.d_head)
+    log(f"phase 15c: serve {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.d_head}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, d_ff {cfg.moe.d_ff}, vocab "
+        f"{cfg.vocab_size}), cut to 1 period of {full.n_periods} ({n_params:,} parameters, "
+        f"{2 * n_params / 1e9:.1f} GB in bf16: all {full.n_periods} are "
+        f"{_param_count(full) / 1e12:.2f} T parameters and do not fit one card), batch "
+        f"{MOE_BATCH}, prompt {MOE_PROMPT}, {KIMI_GEN} generated; flash variant at "
+        f"({cfg.d_head}, {cfg.d_head}), group {cfg.n_heads // cfg.n_kv_heads}: {kind}")
+    if kind != "wgmma":
+        raise AssertionError(f"15c: GQA prefill takes the {kind} variant, not wgmma")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve(cfg, batch=MOE_BATCH, prompt_len=MOE_PROMPT, gen_tokens=KIMI_GEN, seed=0)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen = out["generated"]
+    log(f"  serve: prefill {out['prefill_s']:.4f} s ({MOE_BATCH * MOE_PROMPT / out['prefill_s']:.1f} "
+        f"prompt tokens/s); decode {out['decode_s']:.4f} s for {KIMI_GEN - 1} steps, "
+        f"{out['tokens_per_s']:.2f} tokens/s; peak memory {peak_gb:.2f} GB; kernel launches "
+        f"{launches}")
+    if launches["flash_attention"] != 1:
+        raise AssertionError(f"15c: {launches['flash_attention']} flash launches, expected 1")
+
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _prompts(cfg, dev)
+    S_max = MOE_PROMPT + KIMI_GEN
+    pos0 = torch.full((MOE_BATCH,), MOE_PROMPT, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        with MoEProbe(plans=True) as kernel_run:
+            lk, cache = model.prefill(prompts, S_max)
+            logits = [lk[:, -1]]
+            for i in range(KIMI_GEN - 1):
+                tok = logits[-1].argmax(-1)
+                pos = torch.full((MOE_BATCH,), MOE_PROMPT + i, dtype=torch.long, device=dev)
+                logits.append(model.decode_step(cache, tok, pos)[0][:, 0])
+        del cache
+        tok0 = logits[0].argmax(-1)
+        with MoEProbe(replay=kernel_run.ids):
+            lp, cp = model.prefill(prompts, S_max, use_kernel=False)
+            dp, _ = model.decode_step(cp, tok0, pos0)
+        del cp
+    del model
+    torch.cuda.empty_cache()
+    tokens = torch.stack([lo.argmax(-1) for lo in logits], 1).cpu().numpy()
+    finite = all(lo.shape[-1] == cfg.vocab_size and bool(torch.isfinite(lo).all())
+                 for lo in logits)
+    if not finite:
+        raise AssertionError("15c: logits not finite")
+    if not np.array_equal(tokens, gen):
+        raise AssertionError(f"15c: rebuilt weights give tokens {tokens.tolist()}, serve gave "
+                             f"{gen.tolist()}")
+    for plan in kernel_run.plans:
+        kept = plan.slot[plan.keep]
+        if kept.unique().numel() != kept.numel():
+            raise AssertionError("15c: two kept pairs share a slot")
+    prefill_plan = kernel_run.plans[0]
+    dropped = 1 - float(prefill_plan.keep.float().mean())
+    load = moe_counts(kernel_run.ids[0], cfg.moe.num_experts).float()
+    load_ratio = float(load.max() / load.mean())
+    dropped_decode = [1 - float(p.keep.float().mean()) for p in kernel_run.plans[1:]]
+    C = moe_capacity(MOE_BATCH * MOE_PROMPT, cfg.moe)
+    gap = dict(prefill=float((logits[0].float() - lp[:, -1].float()).abs().max()),
+               decode=float((logits[1].float() - dp[:, 0].float()).abs().max()),
+               logit_std=float(logits[0].float().std()))
+    log(f"  rebuilt weights, outside the timed call: serve's {KIMI_GEN} tokens again, "
+        f"{KIMI_GEN} logits calls all finite; prefill capacity C = {C}, dropped pairs "
+        f"{100 * dropped:.3f}% of {prefill_plan.keep.numel()} (the busiest expert's load "
+        f"{load_ratio:.2f}x the mean); decode steps' dropped share at most "
+        f"{max(dropped_decode):.4f}; routes pinned to the kernel run: max |logit| gap kernel "
+        f"vs plain, prefill {gap['prefill']:.6g}, decode {gap['decode']:.6g} (logit std "
+        f"{gap['logit_std']:.6g}; not gated: no fp32 copy fits beside the bf16 period, and "
+        "phase 5 holds the kernel at this shape against fp32)")
+    return launches, dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+                          tokens_per_s=out["tokens_per_s"], peak_memory_gb=peak_gb,
+                          dropped_pair_share=dropped, busiest_expert_load=load_ratio,
+                          capacity=C, params=n_params, pinned_gap=gap)
+
+
+def mla_train(dev):
+    """15d: three ``make_train_step`` steps of DeepSeek-V2-Lite at full width
+    and 2 periods on one fixed batch, remat full."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Transformer, make_train_step
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(configs.get_config(MLA_ARCH), n_periods=2)
+    n_mla = cfg.n_periods * cfg.period.count("mla")
+    log(f"phase 15d: three make_train_step steps of {cfg.name} at full width cut to "
+        f"{cfg.n_periods} periods ({_param_count(cfg):,} parameters), one batch of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat {cfg.remat_policy}, AdamW(peak_lr=3e-4, "
+        "warmup_steps=1) with fp32 moments")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, device=dev, seed=0)
+    opt = AdamW(peak_lr=3e-4, warmup_steps=1, total_steps=10)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(opt)
+    batch = _train_batch(cfg)
+    ops.reset_launch_counts()
+    losses, seconds = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, state = step(model, state, batch)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    with torch.no_grad():
+        _, aux = model.hidden(batch["tokens"][:, :-1])
+    aux = float(aux)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = 2 * n_mla * 3
+    log(f"  losses {losses} (CE + aux); aux after the steps {aux:.6g}; step seconds "
+        f"{[round(s, 4) for s in seconds]}; peak memory {peak_gb:.2f} GB; kernel launches "
+        f"{launches} (expected {expected}: forward and remat recompute a layer a step)")
+    if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+        raise AssertionError(f"15d: losses {losses} not finite and falling")
+    if not aux > 0:
+        raise AssertionError(f"15d: aux loss {aux}")
+    if launches["flash_attention"] != expected:
+        raise AssertionError(f"15d: {launches['flash_attention']} flash launches, "
+                             f"expected {expected}")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches, dict(losses=losses, aux=aux, step_seconds=seconds, peak_memory_gb=peak_gb,
+                          periods=cfg.n_periods)
+
+
+def main_path_moe(dev):
+    t0 = time.perf_counter()
+    serve_launches, full = mla_serve_full(dev)
+    witness = mla_witness(dev)
+    kimi_launches, kimi = kimi_period(dev)
+    train_launches, train = mla_train(dev)
+    out = dict(deepseek=full, witness=witness, kimi=kimi, train=train,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 15: {out['seconds']:.1f} s")
+    return out, dict(mla_serve=serve_launches, kimi=kimi_launches, mla_train=train_launches)
+
+
 def main() -> int:
     import torch
 
@@ -3315,6 +3787,11 @@ def main() -> int:
         "ragged_noncausal": check_flash(dev, "non-causal, ragged Sk", 4, 32, 8, 2048, 1999,
                                         128, 128, False, 10),
         "mla_dv": check_flash(dev, "dv != d", 4, 16, 16, 2048, 2048, 192, 128, True, 10),
+        # phase 15's other shapes: Kimi-K2's serve (GQA group 8, 15c) and
+        # DeepSeek-V2-Lite's train steps (d = 192 / dv = 128 at 1024, 15d)
+        "kimi_gqa8": check_flash(dev, "Kimi-K2 serve", 4, 64, 8, 2048, 2048, 128, 128, True,
+                                 10),
+        "mla_train": check_flash(dev, "MLA train", 4, 16, 16, 1024, 1024, 192, 128, True, 10),
     }
     if flash["serve"]["variant"] != "wgmma":
         raise AssertionError(f"the serve shape took the {flash['serve']['variant']} variant, "
@@ -3328,6 +3805,7 @@ def main() -> int:
     continuous, loop_launches = main_path_continuous()
     distributed, dist_launches = main_path_distributed(paper_clf, paper_data)
     training, train_launches = main_path_train(dev)
+    moe_run, moe_launches = main_path_moe(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -3369,15 +3847,30 @@ def main() -> int:
              **stream_kernels["degree"],
              ihb_update=dict(launches=stream_launches["cgavi-ihb"]["ihb_update"], **ihb[64])),
         # launches: phase 6's serve (prefill); train_launches: phase 14a's
-        # training run (each layer's forward and its remat recompute)
+        # training run (each layer's forward and its remat recompute); phase
+        # 15's paths: DeepSeek-V2-Lite's serve (MLA prefill at d = 192, dv =
+        # 128, checked at that shape as mla_dv), Kimi-K2's one-period serve
+        # (GQA 64/8, kimi_gqa8) and DeepSeek's three train steps at 2 periods
+        # (mla_train)
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"],
-             train_launches=train_launches["flash_attention"], **flash["serve"]),
+             train_launches=train_launches["flash_attention"],
+             mla_serve_launches=moe_launches["mla_serve"]["flash_attention"],
+             kimi_serve_launches=moe_launches["kimi"]["flash_attention"],
+             mla_train_launches=moe_launches["mla_train"]["flash_attention"],
+             mla_dv=dict(launches=moe_launches["mla_serve"]["flash_attention"],
+                         **flash["mla_dv"]),
+             kimi_gqa8=dict(launches=moe_launches["kimi"]["flash_attention"],
+                            **flash["kimi_gqa8"]),
+             mla_train=dict(launches=moe_launches["mla_train"]["flash_attention"],
+                            **flash["mla_train"]),
+             **flash["serve"]),
     ]
     for entry in kernels:
         nested = [v["launches"] for v in entry.values() if isinstance(v, dict) and "launches" in v]
-        if min([entry["launches"], entry.get("train_launches", 1)] + nested) <= 0:
+        counts = [v for k, v in entry.items() if k.endswith("launches")]
+        if min(counts + nested) <= 0:
             raise AssertionError(f"{entry['name']}: no launch on its main path")
     log("wide shapes: " + json.dumps({
         "gram_update_acc_m2M": gacc,
@@ -3401,6 +3894,7 @@ def main() -> int:
         "continuous": continuous,
         "distributed": distributed,
         "training": training,
+        "moe": moe_run,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

@@ -1,10 +1,10 @@
-"""Architecture registry of the port: the dense family.
+"""Architecture registry of the port: the dense and MoE families.
 
 Counterpart of ``src/repro/configs/__init__.py``.  ``get_config(arch_id)`` /
-``get_reduced(arch_id)`` resolve ``--arch`` flags; the four dense config
-modules are copies of the JAX package's.  The other architectures of the JAX
-registry raise ``NotImplementedError`` naming the ROADMAP item that ports
-their blocks.
+``get_reduced(arch_id)`` resolve ``--arch`` flags; the four dense and two
+MoE config modules are copies of the JAX package's.  The other architectures
+of the JAX registry raise ``NotImplementedError`` naming the ROADMAP item
+that ports their blocks.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 from ..models.model import ModelConfig
-from . import phi4_mini_3_8b, qwen1_5_4b, qwen2_1_5b, qwen3_8b, shapes
+from . import (deepseek_v2_lite_16b, kimi_k2_1t_a32b, phi4_mini_3_8b, qwen1_5_4b, qwen2_1_5b,
+               qwen3_8b, shapes)
 from .shapes import SHAPES, Shape, cell_supported
 
 _MODULES = [
@@ -20,14 +21,14 @@ _MODULES = [
     qwen1_5_4b,
     qwen2_1_5b,
     phi4_mini_3_8b,
+    kimi_k2_1t_a32b,
+    deepseek_v2_lite_16b,
 ]
 
 ARCHS: Dict[str, object] = {m.ARCH_ID: m for m in _MODULES}
 
 # architectures of the JAX registry that need blocks this slice lacks
 UNPORTED: Dict[str, str] = {
-    "kimi-k2-1t-a32b": "14c (MLA/MoE)",
-    "deepseek-v2-lite-16b": "14c (MLA/MoE)",
     "xlstm-1.3b": "14d (SSM)",
     "jamba-1.5-large-398b": "14d (SSM)",
     "hubert-xlarge": "14e (frames frontend)",

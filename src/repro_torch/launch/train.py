@@ -1,5 +1,5 @@
-"""Training driver of the dense LM: config + data pipeline + AdamW + fault
-tolerance, on one device.
+"""Training entry point of the LM (dense and MoE families): config + data
+pipeline + AdamW + fault tolerance, on one device.
 
 Counterpart of ``src/repro/launch/train.py``::
 

@@ -1,1 +1,1 @@
-"""The LM substrate, dense family (counterpart of ``src/repro/models/``)."""
+"""The LM substrate, dense and MoE families (counterpart of ``src/repro/models/``)."""

@@ -105,9 +105,13 @@ class Attention(nn.Module):
         return x + out @ self.wo, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
-        """Full-sequence attention (training / prefill).  x: (B, S, d_model)."""
-        return self._attend_full(x, positions, use_kernel)[0]
+                use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
+        """Full-sequence attention (training / prefill).  x: (B, S, d_model).
+        Returns (output, None): no aux loss."""
+        return self._attend_full(x, positions, use_kernel)[0], None
+
+    def init_cache(self, B: int, S_max: int, dtype, device) -> KVCache:
+        return init_cache(B, S_max, self.dims, dtype, device)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, KVCache]:

@@ -60,10 +60,22 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype, device,
                in_axis: int = 0) -> torch.Tensor:
-    """Truncated-normal fan-in init: N(0, 1) cut at +-2, times 1/sqrt(fan_in)."""
+    """Truncated-normal fan-in init: N(0, 1) cut at +-2, times
+    1/sqrt(shape[in_axis]).  A 3-D stack (MoE experts) is drawn one slice of
+    its leading axis at a time, so the fp32 draw never holds the whole stack
+    (a Kimi-K2 layer's ``w_in`` is 45 GB in fp32)."""
+    scale = 1.0 / shape[in_axis] ** 0.5
+    if len(shape) == 3:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = (_trunc_normal(gen, shape[1:], device) * scale).to(dtype)
+        return out
+    return (_trunc_normal(gen, shape, device) * scale).to(dtype)
+
+
+def _trunc_normal(gen: torch.Generator, shape: Sequence[int], device) -> torch.Tensor:
     w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    return (w * (1.0 / shape[in_axis] ** 0.5)).to(dtype)
+    return torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype, device) -> torch.Tensor:
@@ -84,9 +96,25 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 
 def dense_param(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
-                device) -> nn.Parameter:
-    """A dense weight drawn from ``gen``, or left uninitialized without one
-    (to be loaded)."""
+                device, in_axis: int = 0) -> nn.Parameter:
+    """A dense weight drawn from ``gen`` (fan-in ``shape[in_axis]``), or left
+    uninitialized without one (to be loaded)."""
     if gen is None:
         return param(torch.empty(tuple(shape), dtype=dtype, device=device))
-    return param(dense_init(gen, shape, dtype, device))
+    return param(dense_init(gen, shape, dtype, device, in_axis=in_axis))
+
+
+class Stateless:
+    """The serving methods of a sub-block that keeps no cache (MLP, MoE):
+    its prefill and its decode step are its ``forward``, the aux loss
+    dropped, so the model runs every sub-block through one interface."""
+
+    def init_cache(self, B: int, S_max: int, dtype, device) -> None:
+        return None
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, S_max: int,
+                use_kernel: Optional[bool] = None):
+        return self(x, positions, use_kernel)[0], None
+
+    def decode_step(self, x: torch.Tensor, cache: None, pos: torch.Tensor):
+        return self(x, pos[:, None])[0], cache

@@ -1,6 +1,7 @@
-"""Config-driven LM stack, dense family: ``("attn", "mlp")`` periods.
+"""Config-driven LM stack: the dense and MoE families, periods of ``attn``,
+``mla``, ``mlp`` and ``moe`` sub-blocks.
 
-Counterpart of the dense part of ``src/repro/models/model.py``.
+Counterpart of ``src/repro/models/model.py`` for those block types.
 :class:`ModelConfig` carries the same fields as the JAX package's, so the
 config modules copy over unchanged; :class:`Transformer` holds one module per
 sub-block (``n_periods * len(period)`` of them, in order) where the JAX
@@ -22,18 +23,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
-from . import attention, layers
+from . import attention, layers, mla, moe
 
 # what is not ported yet, and the ROADMAP queue 1 item that ports it
 _UNPORTED_BLOCKS = {
-    "mla": "14c (MLA/MoE)",
-    "moe": "14c (MLA/MoE)",
     "mamba": "14d (SSM)",
     "mlstm": "14d (SSM)",
     "slstm": "14d (SSM)",
@@ -59,9 +58,9 @@ class ModelConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     # dense mlp
     d_ff: int = 0
-    # family-specific dims (not ported: ROADMAP queue 1 items 14c, 14d)
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    # family-specific dims (mamba, mlstm, slstm: ROADMAP queue 1 item 14d)
+    moe: Optional[moe.MoEDims] = None
+    mla: Optional[mla.MLADims] = None
     mamba: Optional[Any] = None
     mlstm: Optional[Any] = None
     slstm: Optional[Any] = None
@@ -112,15 +111,15 @@ def check_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: block type {btype!r} is ROADMAP queue 1 item "
                 f"{_UNPORTED_BLOCKS[btype]}")
-        if btype not in ("attn", "mlp"):
+        if btype not in ("attn", "mla", "mlp", "moe"):
             raise ValueError(f"unknown block type {btype!r}")
     if cfg.frontend != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: frontend={cfg.frontend!r} (hubert) is ROADMAP queue 1 item 14e")
-    # M-RoPE and attn_impl="chunked" raise in attention.Attention
+    # M-RoPE and attn_impl="chunked" raise in attention.Attention / mla.MLA
 
 
-class MLP(nn.Module):
+class MLP(layers.Stateless, nn.Module):
     """Pre-norm SwiGLU sub-block: ``x + swiglu(norm(x))``."""
 
     def __init__(self, d_model: int, d_ff: int, dtype, device,
@@ -130,18 +129,26 @@ class MLP(nn.Module):
         self.w_in = layers.dense_param(gen, (d_model, 2 * d_ff), dtype, device)
         self.w_out = layers.dense_param(gen, (d_ff, d_model), dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
         h = layers.rms_norm(x, self.norm_scale)
-        return x + layers.swiglu(h, self.w_in, self.w_out)
+        return x + layers.swiglu(h, self.w_in, self.w_out), None
 
 
-Cache = List[Optional[attention.KVCache]]  # one entry per sub-block
+# one entry per sub-block: a KV cache (attn), a latent cache (mla), or None
+Cache = List[Optional[Union[attention.KVCache, mla.MLACache]]]
 
 
 class Transformer(nn.Module):
-    """The dense LM.  ``seed`` draws random weights on ``device`` with a
+    """The LM.  ``seed`` draws random weights on ``device`` with a
     generator of that device, sub-block by sub-block; ``seed=None`` leaves
-    them uninitialized for :meth:`load_params`."""
+    them uninitialized for :meth:`load_params`.
+
+    Every sub-block has one interface: ``forward(x, positions, use_kernel)
+    -> (x, aux or None)`` (only MoE has an aux loss), ``init_cache(B, S_max,
+    dtype, device)``, ``prefill(x, positions, S_max, use_kernel) -> (x,
+    cache)`` and ``decode_step(x, cache, pos) -> (x, cache)``; the blocks
+    without a cache take the last three from :class:`layers.Stateless`."""
 
     def __init__(self, cfg: ModelConfig, *, device, seed: Optional[int] = 0):
         super().__init__()
@@ -160,6 +167,10 @@ class Transformer(nn.Module):
                 if btype == "attn":
                     blocks.append(attention.Attention(
                         cfg.d_model, cfg.attn_dims(), dtype, device, gen))
+                elif btype == "mla":
+                    blocks.append(mla.MLA(cfg.d_model, _mla_dims(cfg), dtype, device, gen))
+                elif btype == "moe":
+                    blocks.append(moe.MoE(cfg.d_model, cfg.moe, dtype, device, gen))
                 else:
                     blocks.append(MLP(cfg.d_model, cfg.d_ff, dtype, device, gen))
         self.blocks = nn.ModuleList(blocks)
@@ -201,22 +212,23 @@ class Transformer(nn.Module):
 
     # -- step functions ------------------------------------------------------
 
-    def _period(self, i: int, x: torch.Tensor, positions: torch.Tensor,
-                use_kernel: Optional[bool]) -> torch.Tensor:
+    def _period(self, i: int, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
+                use_kernel: Optional[bool]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Period ``i`` on ``x``, the MoE aux losses added to ``aux`` in
+        block order (the reference's scan carries ``(x, aux)``)."""
         P = len(self.cfg.period)
         for blk in self.blocks[i * P:(i + 1) * P]:
-            if isinstance(blk, attention.Attention):
-                x = blk(x, positions, use_kernel)
-            else:
-                x = blk(x)
-        return x
+            x, a = blk(x, positions, use_kernel)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def hidden(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
                cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The last period's output (B, S, d_model), before the final norm,
-        and the MoE aux loss (0 here).  ``cfg`` (default ``self.cfg``)
-        supplies ``remat`` and ``remat_policy``; remat applies only while
-        autograd records."""
+        and the summed MoE aux loss (fp32; 0 without MoE blocks).  ``cfg``
+        (default ``self.cfg``) supplies ``remat`` and ``remat_policy``; remat
+        applies only while autograd records."""
         cfg = cfg or self.cfg
         x = self.embed[tokens]
         B, S, _ = x.shape
@@ -228,24 +240,24 @@ class Transformer(nn.Module):
                                            _save_dots)
         elif remat and cfg.remat_policy != "full":
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_periods):
             if remat:
-                x = _ckpt.checkpoint(self._period, i, x, positions, use_kernel,
-                                     use_reentrant=False, context_fn=context_fn)
+                x, aux = _ckpt.checkpoint(self._period, i, x, aux, positions, use_kernel,
+                                          use_reentrant=False, context_fn=context_fn)
             else:
-                x = self._period(i, x, positions, use_kernel)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = self._period(i, x, aux, positions, use_kernel)
+        return x, aux
 
     def forward(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
                 cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence logits (B, S, V) and the MoE aux loss (0 here)."""
+        """Full-sequence logits (B, S, V) and the summed MoE aux loss."""
         x, aux = self.hidden(tokens, use_kernel, cfg)
         return self._unembed(x), aux
 
     def init_cache(self, B: int, S_max: int) -> Cache:
-        return [attention.init_cache(B, S_max, blk.dims, self.embed.dtype, self.embed.device)
-                if isinstance(blk, attention.Attention) else None
-                for blk in self.blocks]
+        dtype, device = self.embed.dtype, self.embed.device
+        return [blk.init_cache(B, S_max, dtype, device) for blk in self.blocks]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, S_max: int,
@@ -257,10 +269,7 @@ class Transformer(nn.Module):
         positions = self._positions(B, S, x.device)
         cache: Cache = []
         for blk in self.blocks:
-            if isinstance(blk, attention.Attention):
-                x, c = blk.prefill(x, positions, S_max, use_kernel)
-            else:
-                x, c = blk(x), None
+            x, c = blk.prefill(x, positions, S_max, use_kernel)
             cache.append(c)
         return self._unembed(x[:, -1:, :]), cache
 
@@ -268,14 +277,20 @@ class Transformer(nn.Module):
     def decode_step(self, cache: Cache, token: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  token, pos: (B,).  Returns (logits (B, 1, V),
-        cache); the cache is updated in place."""
+        cache); the cache is updated in place.  A MoE block routes the B new
+        tokens as one batch (T = B, its capacity from that), as the
+        reference does."""
         x = self.embed[token[:, None]]
         for blk, c in zip(self.blocks, cache):
-            if isinstance(blk, attention.Attention):
-                x, _ = blk.decode_step(x, c, pos)
-            else:
-                x = blk(x)
+            x, _ = blk.decode_step(x, c, pos)
         return self._unembed(x), cache
+
+
+def _mla_dims(cfg: ModelConfig) -> mla.MLADims:
+    """The MLA dims a full-sequence pass uses: the config's attention
+    implementation options, as the reference's ``_apply_block`` sets them."""
+    return cfg.mla._replace(impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                            unroll=cfg.unroll_scan)
 
 
 def _save_dots(ctx, op, *args, **kwargs):

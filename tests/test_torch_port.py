@@ -34,6 +34,8 @@ SLICE_MODULES = [
     "repro_torch.checkpoint",
     "repro_torch.checkpoint.store",
     "repro_torch.configs",
+    "repro_torch.configs.deepseek_v2_lite_16b",
+    "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.oavi_paper",
     "repro_torch.configs.phi4_mini_3_8b",
     "repro_torch.configs.qwen1_5_4b",
@@ -74,7 +76,9 @@ SLICE_MODULES = [
     "repro_torch.models",
     "repro_torch.models.attention",
     "repro_torch.models.layers",
+    "repro_torch.models.mla",
     "repro_torch.models.model",
+    "repro_torch.models.moe",
     "repro_torch.obs",
     "repro_torch.obs.baseline",
     "repro_torch.obs.core",

@@ -33,10 +33,12 @@ Phases, each reported on its own lines:
 5. Flash attention: the CUDA kernel in bf16 against its plain version
    computed in fp32 from the same bf16 inputs, at the serve shape (Qwen3-8B,
    batch 4, 2048 tokens), a ragged causal length, a ragged non-causal key
-   length and dv != d; the bf16 plain version's own error beside it; each
-   timed beside its bound, the plain version and PyTorch's
-   ``scaled_dot_product_attention``.  Each shape logs the kernel variant it
-   took; the serve shape must take the wgmma one.
+   length and dv != d, and the shapes of phases 15-16's paths (Kimi-K2's
+   and Jamba's GQA 64/8, MLA's train shape, Qwen2-VL's GQA 12/2, HuBERT's
+   non-causal d = 80 on the scalar variant); the bf16 plain version's own
+   error beside it; each timed beside its bound, the plain version and
+   PyTorch's ``scaled_dot_product_attention``.  Each shape logs the kernel
+   variant it took; the serve shape must take the wgmma one.
 6. Main path, LM serving: ``launch.serve.serve`` of Qwen3-8B at its full
    width (36 layers, random weights from seed 0), batch 4, 2048-token
    prompts, 32 generated tokens; the prefill must launch the kernel once per
@@ -167,6 +169,27 @@ Phases, each reported on its own lines:
    DeepSeek-V2-Lite at full width and 2 periods on one batch of 4 x 1,024,
    remat full: finite losses that fall, aux > 0, two ``flash_attention``
    launches a layer a step.
+16. The SSM, hybrid, VLM and audio families (``models/ssm.py``, M-RoPE, the
+   frames frontend), bf16, random weights from seed 0: (a) ``serve`` of
+   xLSTM-1.3B at full width and depth (6 x (7 mLSTM + 1 sLSTM)), batch 4 x
+   2,048, 32 generated: the rebuilt weights give serve's tokens, a second
+   prefill the same bits; the decode step and one period's prefill profiled
+   (launches, busy and idle shares), each layer kind timed; at full width cut
+   to 1 period in fp32 (B = 1 x 256) the card's logits against the CPU
+   port's (``CARD_CPU_TOL``) and token-by-token decode from ``init_cache``
+   against forward; (b) ``serve`` of Jamba-1.5-Large's first 5 layers
+   (period[:10]: 4 Mamba, 1 attention, 3 MLP, 2 MoE) at full width, batch
+   4 x 2,048, 8 generated: one ``flash_attention`` launch, unique MoE slots,
+   a repeated prefill's bits, each layer's device ms; the ``LM_FACTOR`` rule
+   with routes pinned at a further cut (a Mamba + MoE layer and the
+   attention + MLP layer, the fp32 copy built after the bf16 runs); (c)
+   phase 6's path for Qwen2-VL-2B (28 layers, text-mode M-RoPE, GQA group 6
+   on the wgmma variant); (d) HuBERT-XLarge's encoder at full width and depth
+   on 4 x 1,500 frames of ``frame_embeddings(seed=0)``: 48 launches of the
+   scalar variant at d = 80, non-causal, its share of device time, the
+   ``LM_FACTOR`` rule over every frame's logits; three ``make_train_step``
+   steps at 4 periods on frames and labels (losses falling, two launches a
+   layer a step).
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -1210,23 +1233,32 @@ def judge_logits(tag, dists):
         raise AssertionError(f"{tag}: the kernel model's logits are off")
 
 
-def main_path_serve(dev):
+def main_path_serve(dev, arch="qwen3-8b", phase="6"):
+    """``serve`` of a dense GQA model at full width and depth (phase 6:
+    Qwen3-8B; 16c: Qwen2-VL-2B, text-mode M-RoPE), then the same weights'
+    logits against plain attention and an fp32 copy."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import variant
     from repro_torch.launch.serve import serve
     from repro_torch.models.model import Transformer
 
-    cfg = configs.get_config("qwen3-8b")
+    cfg = configs.get_config(arch)
     batch, prompt_len, gen_tokens = 4, 2048, 32
     n_attn = cfg.n_periods * cfg.period.count("attn")
-    log(f"phase 6: serve {cfg.name} at full width ({cfg.n_periods} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, {cfg.dtype}), batch {batch}, prompt {prompt_len}, "
+    kind = variant(torch.bfloat16, cfg.d_head, cfg.d_head)
+    log(f"phase {phase}: serve {cfg.name} at full width ({cfg.n_periods} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head} (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}, flash variant {kind}), M-RoPE sections "
+        f"{cfg.mrope_sections}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+        f"{_param_count(cfg):,} parameters), batch {batch}, prompt {prompt_len}, "
         f"{gen_tokens} generated tokens, seed 0")
+    if kind != "wgmma":
+        raise AssertionError(f"{phase}: the prefill's attention takes the {kind} variant")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1281,7 +1313,7 @@ def main_path_serve(dev):
     return launches, dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
                           tokens_per_s=out["tokens_per_s"], serve_s=serve_s,
                           peak_memory_gb=peak_gb, prefill_logits=pre, decode_logits=dec,
-                          profile=prof)
+                          profile=prof, variant=kind)
 
 
 # ---------------------------------------------------------------------------
@@ -3728,6 +3760,491 @@ def main_path_moe(dev):
     return out, dict(mla_serve=serve_launches, kimi=kimi_launches, mla_train=train_launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the SSM, hybrid, VLM and audio families
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, JAMBA_ARCH, VLM_ARCH, AUDIO_ARCH = ("xlstm-1.3b", "jamba-1.5-large-398b",
+                                              "qwen2-vl-2b", "hubert-xlarge")
+SSM_BATCH, SSM_PROMPT, SSM_GEN, JAMBA_GEN = 4, 2048, 32, 8
+# 16b: the first 5 layers of Jamba-1.5-Large's 8-layer period at full width,
+# sub-blocks period[:10]: 4 Mamba, 1 attention, 3 dense MLP, 2 MoE (one
+# period is ~44 B parameters, 88 GB in bf16, and does not fit one card)
+JAMBA_SUBBLOCKS = 10
+# 16b's LM_FACTOR witness: period positions 2-3 and 8-9, a Mamba + MoE layer
+# and the attention + MLP layer (every block type that differs between the
+# kernel and the plain run, and the MoE whose routes are pinned), 11.9 B
+# parameters: its fp32 copy (47.6 GB) does not fit beside 16b's bf16 cut, so
+# the bf16 model runs first, then its weights go to the host and come back
+# as the fp32 copy
+JAMBA_WITNESS = (2, 3, 8, 9)
+# 16d: 30 s clips at 50 frames/s; training at full width cut to 4 periods
+AUDIO_FRAMES, AUDIO_TRAIN_PERIODS = 1500, 4
+# 16a: the card's fp32 logits against the CPU port's, xLSTM at full width
+# cut to 1 period, B = 1 x 256 tokens.  The same fp32 products summed in
+# another order on each device: a dot product of K terms moves by ~sqrt(K)
+# 2^-24 of its terms' magnitude (K <= 4,096 here: ~4e-6); the 8 residual
+# blocks and the head add such errors up to ~1e-5 of the logits' scale.
+# The bound is 100 times that: max |card - cpu| <= CARD_CPU_TOL * max |cpu|.
+CARD_CPU_TOL = 1e-3
+# 16a: token-by-token decode from init_cache against forward on the card in
+# fp32, tests/test_models.py::test_ssm_decode_matches_forward_stepwise's
+# tolerance (atol = rtol = 2e-2)
+STEPWISE_TOL = 2e-2
+
+
+def profile_cuda(tag, fn):
+    """Device busy time and kernel launches of one call of ``fn`` under
+    ``torch.profiler`` with CUDA activity only (a call of ~10^5 launches
+    would take long to trace with every CPU op), and the host seconds that
+    tracing took."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    busy_ms = sum(ev.self_device_time_total for ev in rows) / 1e3
+    launches = sum(ev.count for ev in rows)
+    trace_s = time.perf_counter() - t0
+    log(f"  profiled {tag} (CUDA activity only): wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, {launches} kernel launches; tracing took {trace_s:.1f} s")
+    for ev in sorted(rows, key=lambda ev: -ev.self_device_time_total)[:5]:
+        log(f"    {ev.self_device_time_total / 1e3:9.3f} ms x{ev.count:<7d} {ev.key[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, launches=launches)
+
+
+def block_ms(model, x):
+    """Milliseconds of each sub-block's forward over ``x`` (the prompt's
+    embeddings), CUDA events between the blocks, which run back to back: in a
+    device-bound prefill the device is busy throughout, so each interval is
+    its block's device time."""
+    import torch
+
+    positions = model._positions(x.shape[0], x.shape[1], x.device)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(model.blocks) + 1)]
+    events[0].record()
+    for blk, ev in zip(model.blocks, events[1:]):
+        x = blk(x, positions)[0]
+        ev.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def _ssm_prompts(cfg, dev, batch=SSM_BATCH, prompt=SSM_PROMPT):
+    """``serve``'s prompts: the first draw of ``default_rng(0)``."""
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)), dtype=torch.long, device=dev)
+
+
+def _serve_and_rebuild(tag, cfg, dev, gen_tokens, probe=False):
+    """``serve`` on the card, then the same weights rebuilt from seed 0
+    outside the timed call: serve's greedy tokens again from a prefill and
+    decode steps (under a ``MoEProbe`` keeping dispatch plans with
+    ``probe``), every logits call finite, a second prefill's bits.  Returns
+    (launches of the serve, serve's report, the rebuilt model, prompts,
+    the first prefill's logits and cache, the probe, the second prefill's
+    host seconds)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve(cfg, batch=SSM_BATCH, prompt_len=SSM_PROMPT, gen_tokens=gen_tokens, seed=0)
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["serve_s"] = serve_s
+    gen = out["generated"]
+    tokens = SSM_BATCH * SSM_PROMPT
+    log(f"  serve: {serve_s:.3f} s in all (init included); prefill {out['prefill_s']:.4f} s "
+        f"({tokens / out['prefill_s']:.1f} prompt tokens/s); decode {out['decode_s']:.4f} s "
+        f"for {gen_tokens - 1} steps, {out['tokens_per_s']:.2f} tokens/s; peak memory "
+        f"{out['peak_memory_gb']:.2f} GB; kernel launches {launches}")
+    if gen.shape != (SSM_BATCH, gen_tokens) or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"{tag}: generated tokens {gen.shape} out of range")
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _ssm_prompts(cfg, dev)
+    S_max = SSM_PROMPT + gen_tokens
+    scope = MoEProbe(plans=True) if probe else contextlib.nullcontext()
+    with torch.inference_mode():
+        with scope as run:
+            lk, cache = model.prefill(prompts, S_max)
+            logits = [lk[:, -1]]
+            for i in range(gen_tokens - 1):
+                pos = torch.full((SSM_BATCH,), SSM_PROMPT + i, dtype=torch.long, device=dev)
+                logits.append(model.decode_step(cache, logits[-1].argmax(-1), pos)[0][:, 0])
+        tokens_again = torch.stack([lo.argmax(-1) for lo in logits], 1).cpu().numpy()
+        finite = all(lo.shape[-1] == cfg.vocab_size and bool(torch.isfinite(lo).all())
+                     for lo in logits)
+        del cache
+        (l2, c2), second_s = timed(lambda: model.prefill(prompts, S_max))
+        same = torch.equal(l2, lk)
+        del l2, c2
+    again = np.array_equal(tokens_again, gen)
+    log(f"  rebuilt weights: serve's {gen_tokens} tokens again {again}, "
+        f"every logits call finite {finite}; a second prefill ({second_s:.4f} s, unprofiled) "
+        f"gives the same bits: {same}")
+    if not finite:
+        raise AssertionError(f"{tag}: logits not finite")
+    if not again:
+        raise AssertionError(f"{tag}: rebuilt weights give tokens {tokens_again.tolist()}, "
+                             f"serve gave {gen.tolist()}")
+    if not same:
+        raise AssertionError(f"{tag}: two prefills of the same prompts differ")
+    return launches, out, model, prompts, lk, run, second_s
+
+
+def xlstm_serve(dev):
+    """16a: xLSTM-1.3B at full width and depth through ``serve``; where its
+    time goes; the card against the CPU port at 1 period; decode token by
+    token against forward on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_config(SSM_ARCH)
+    n_params = _param_count(cfg)
+    m, sl = cfg.mlstm, cfg.slstm
+    log(f"phase 16a: serve {cfg.name} at full width and depth ({cfg.n_periods} x "
+        f"({cfg.period.count('mlstm')} mLSTM + {cfg.period.count('slstm')} sLSTM), d_model "
+        f"{cfg.d_model}, mLSTM d_inner {m.d_inner} in {m.n_heads} heads of "
+        f"{m.d_inner // m.n_heads}, sLSTM {sl.n_heads} heads, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, ssm_chunk {cfg.ssm_chunk}; {n_params:,} parameters, where the name "
+        f"says 1.3 B), batch {SSM_BATCH}, prompt {SSM_PROMPT}, {SSM_GEN} generated, seed 0")
+    launches, out, model, prompts, lk, _, second_s = _serve_and_rebuild("16a", cfg, dev, SSM_GEN)
+    S_max = SSM_PROMPT + SSM_GEN
+    with torch.inference_mode():
+        # one layer of each kind on the prompt's embeddings, timed before any
+        # profile (a profiler session can leave the host's launches slower)
+        x = model.embed[prompts]
+        mlstm, slstm = model.blocks[0], model.blocks[cfg.period.index("slstm")]
+        for _ in range(2):  # the second of each
+            _, mlstm_s = timed(lambda: mlstm(x))
+            _, slstm_s = timed(lambda: slstm(x))
+        # a decode step, and the prefill of one period (tracing all 6, ~343 k
+        # launches, takes over a minute): the sLSTM loop's launches a step
+        cache = model.init_cache(SSM_BATCH, S_max)  # what the prefill returns (a fresh state)
+        tok = lk[:, -1].argmax(-1)
+        pos = torch.full((SSM_BATCH,), SSM_PROMPT, dtype=torch.long, device=dev)
+        dec = profile_cuda("decode step", lambda: model.decode_step(cache, tok, pos))
+        P = len(cfg.period)
+        period = torch.nn.Sequential(*model.blocks[:P])
+
+        def one_period():
+            h = x
+            for blk in period:
+                h = blk(h)[0]
+            return h
+
+        pre = profile_cuda(f"prefill of one period ({P} layers)", one_period)
+        del cache
+    step_ms = out["decode_s"] / (SSM_GEN - 1) * 1e3
+    n_m, n_s = cfg.n_periods * cfg.period.count("mlstm"), cfg.n_periods * cfg.period.count("slstm")
+    idle = dict(prefill_period=1 - pre["busy_ms"] / pre["wall_ms"],
+                decode=1 - dec["busy_ms"] / step_ms)
+    log(f"  an unprofiled prefill {second_s:.4f} s; one period's layers, profiled: wall "
+        f"{pre['wall_ms']:.1f} ms, busy {pre['busy_ms']:.1f} ms (idle "
+        f"{100 * idle['prefill_period']:.1f}%), {pre['launches']} launches (x "
+        f"{cfg.n_periods} periods: ~{cfg.n_periods * pre['launches']} a prefill, "
+        f"~{pre['launches'] / SSM_PROMPT:.1f} a prompt step); a decode step {step_ms:.3f} ms "
+        f"(serve's mean), busy {dec['busy_ms']:.3f} ms: idle {100 * idle['decode']:.1f}%, "
+        f"{dec['launches']} launches; unprofiled, one mLSTM layer {mlstm_s:.4f} s (x {n_m}) "
+        f"and one sLSTM layer {slstm_s:.4f} s (x {n_s}) on {SSM_BATCH} x {SSM_PROMPT}")
+    del model, x, period
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, and decode against forward, at 1 period in fp32
+    cut = dataclasses.replace(cfg, n_periods=1, dtype="float32")
+    log(f"  16a at full width cut to 1 period ({_param_count(cut):,} parameters), fp32, "
+        "B = 1 x 256: the card against the CPU port (same weights), then token-by-token "
+        "decode from init_cache against forward on the card")
+    t0 = time.perf_counter()
+    cpu_model = Transformer(cut, device="cpu", seed=0)
+    card_model = Transformer.from_params(cut, cpu_model.state_dict(), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cut.vocab_size, (1, 256)))
+    with torch.inference_mode():
+        want, _ = cpu_model(toks)
+        got, _ = card_model(toks.to(dev))
+        cache = card_model.init_cache(1, 256)
+        steps = torch.stack([card_model.decode_step(
+            cache, toks[:, t].to(dev), torch.tensor([t], device=dev))[0][:, 0]
+            for t in range(256)], 1)
+    del cpu_model, card_model, cache
+    got = got.cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    step_err = float((steps.cpu() - got).abs().max())
+    step_ok = bool(torch.all((steps.cpu() - got).abs() <= STEPWISE_TOL * (1 + got.abs())))
+    log(f"  card vs CPU: max |logit| difference {err:.6g} against max |logit| {scale:.6g} "
+        f"(bound {CARD_CPU_TOL} x that = {CARD_CPU_TOL * scale:.6g}); stepwise decode vs "
+        f"forward on the card: max difference {step_err:.6g} (tolerance {STEPWISE_TOL} + "
+        f"{STEPWISE_TOL} x |forward|: {step_ok}); {time.perf_counter() - t0:.1f} s")
+    if not bool(torch.isfinite(got).all()) or err > CARD_CPU_TOL * scale:
+        raise AssertionError("16a: the card's logits disagree with the CPU port's")
+    if not step_ok:
+        raise AssertionError("16a: token-by-token decode disagrees with forward")
+    torch.cuda.empty_cache()
+    return launches, dict(params=n_params, prefill_s=out["prefill_s"],
+                          decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+                          serve_s=out["serve_s"], peak_memory_gb=out["peak_memory_gb"],
+                          second_prefill_s=second_s, period_prefill_profile=pre,
+                          decode_profile=dec, idle_share=idle,
+                          mlstm_layer_s=mlstm_s, slstm_layer_s=slstm_s,
+                          card_vs_cpu=dict(max_abs=err, logit_max=scale),
+                          stepwise_max_abs=step_err)
+
+
+def jamba_block(dev):
+    """16b: Jamba-1.5-Large's period cut to its first 5 layers, at full width,
+    through ``serve``; unique MoE slots, the Mamba layers' share of prefill
+    device time; the LM_FACTOR witness at a further cut."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import variant
+
+    full = configs.get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_periods=1, period=full.period[:JAMBA_SUBBLOCKS])
+    n_params = _param_count(cfg)
+    kind = variant(torch.bfloat16, cfg.d_head, cfg.d_head)
+    log(f"phase 16b: serve {cfg.name} at full width (d_model {cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, Mamba d_inner "
+        f"{cfg.mamba.d_inner} d_state {cfg.mamba.d_state}, {cfg.moe.num_experts} experts "
+        f"top-{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, dense d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), cut to the first {JAMBA_SUBBLOCKS // 2} layers of its 8-layer "
+        f"period {cfg.period} ({n_params:,} parameters, {2 * n_params / 1e9:.1f} GB in bf16; "
+        f"the {full.n_periods} periods are {_param_count(full) / 1e9:.1f} B), batch "
+        f"{SSM_BATCH}, prompt {SSM_PROMPT}, {JAMBA_GEN} generated; flash variant at "
+        f"({cfg.d_head}, {cfg.d_head}), group {cfg.n_heads // cfg.n_kv_heads}: {kind}")
+    if kind != "wgmma":
+        raise AssertionError(f"16b: GQA prefill takes the {kind} variant, not wgmma")
+    launches, out, model, prompts, lk, run, second_s = _serve_and_rebuild(
+        "16b", cfg, dev, JAMBA_GEN, probe=True)
+    if launches["flash_attention"] != 1:
+        raise AssertionError(f"16b: {launches['flash_attention']} flash launches, expected 1")
+    for plan in run.plans:
+        kept = plan.slot[plan.keep]
+        if kept.unique().numel() != kept.numel():
+            raise AssertionError("16b: two kept pairs share a slot")
+    n_moe = cfg.period.count("moe")
+    dropped = [1 - float(p.keep.float().mean()) for p in run.plans[:n_moe]]
+    S_max = SSM_PROMPT + JAMBA_GEN
+    with torch.inference_mode():
+        x = model.embed[prompts]
+        block_ms(model, x)
+        ms = block_ms(model, x)
+        prof = profile_device("prefill", lambda: model.prefill(prompts, S_max))
+    by_type = {b: sum(t for t, bt in zip(ms, cfg.period) if bt == b)
+               for b in dict.fromkeys(cfg.period)}
+    mamba_share = by_type["mamba"] / sum(ms)
+    log(f"  prefill: {second_s:.4f} s unprofiled, busy {prof['busy_ms']:.1f} ms (idle "
+        f"{100 * (1 - prof['busy_ms'] / (second_s * 1e3)):.1f}% of the unprofiled wall); "
+        f"the blocks' forwards back to back, ms by layer {[round(t, 2) for t in ms]}, by "
+        f"type {({b: round(t, 2) for b, t in by_type.items()})}: the Mamba layers "
+        f"{100 * mamba_share:.1f}%; dropped pairs by MoE layer {[round(x, 4) for x in dropped]}")
+    del model, lk, x
+    torch.cuda.empty_cache()
+    witness = jamba_witness(dev, full)
+    return launches, dict(params=n_params, prefill_s=out["prefill_s"],
+                          decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+                          serve_s=out["serve_s"], peak_memory_gb=out["peak_memory_gb"],
+                          second_prefill_s=second_s, prefill_profile=prof,
+                          block_ms=ms, mamba_share=mamba_share, dropped_pair_share=dropped,
+                          witness=witness)
+
+
+def jamba_witness(dev, full):
+    """16b's LM_FACTOR rule at the JAMBA_WITNESS cut: the kernel model against
+    ``use_kernel=False`` and an fp32 copy of the same weights, routes pinned
+    to the kernel run's; prefill last-token logits and a teacher-forced
+    decode step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import Transformer
+
+    cfg = dataclasses.replace(full, n_periods=1,
+                              period=tuple(full.period[i] for i in JAMBA_WITNESS))
+    log(f"phase 16b witness: {cfg.name} at full width cut to {cfg.period} "
+        f"({_param_count(cfg):,} parameters), batch {SSM_BATCH} x {SSM_PROMPT}: kernel "
+        "against use_kernel=False and an fp32 copy (built from the bf16 weights after the "
+        "bf16 runs, through the host), routes pinned to the kernel run's")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _ssm_prompts(cfg, dev)
+    S_max = SSM_PROMPT + JAMBA_GEN
+    pos = torch.full((SSM_BATCH,), SSM_PROMPT, dtype=torch.long, device=dev)
+    runs = {}
+    with torch.inference_mode():
+        with MoEProbe() as kernel_run:
+            lk, ck = model.prefill(prompts, S_max)
+            tok = lk[:, -1].argmax(-1)
+            runs["kernel"] = (lk[:, -1], model.decode_step(ck, tok, pos)[0][:, 0])
+        del ck
+        with MoEProbe(replay=kernel_run.ids):
+            lp, cp = model.prefill(prompts, S_max, use_kernel=False)
+            runs["plain"] = (lp[:, -1], model.decode_step(cp, tok, pos)[0][:, 0])
+        del cp, lk, lp
+    host = {k: v.to("cpu") for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    model32 = Transformer(dataclasses.replace(cfg, dtype="float32"), device=dev, seed=None)
+    with torch.no_grad():
+        for name, p in model32.state_dict(keep_vars=True).items():
+            p.copy_(host.pop(name).to(dev))
+    with torch.inference_mode():
+        with MoEProbe(replay=kernel_run.ids):
+            l32, c32 = model32.prefill(prompts, S_max, use_kernel=False)
+            runs["fp32"] = (l32[:, -1], model32.decode_step(c32, tok, pos)[0][:, 0])
+        del c32, l32
+    del model32
+    torch.cuda.empty_cache()
+    pre = _logit_dists(*(runs[k][0] for k in ("kernel", "plain", "fp32")))
+    dec = _logit_dists(*(runs[k][1] for k in ("kernel", "plain", "fp32")))
+    for tag, dists in (("16b prefill last-token logits", pre),
+                       ("16b teacher-forced decode logits", dec)):
+        judge_logits(tag, dists)
+    log(f"  16b witness: {time.perf_counter() - t0:.1f} s")
+    return dict(period=cfg.period, prefill_logits=pre, decode_logits=dec)
+
+
+def hubert_encoder(dev):
+    """16d: HuBERT-XLarge's encoder at full width and depth on 4 x 1,500
+    frames (the flash kernel's scalar variant at d = 80, non-causal), held
+    by the LM_FACTOR rule; three train steps at 4 periods."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import variant
+    from repro_torch.models.model import Transformer, make_train_step
+    from repro_torch.optim import AdamW
+
+    cfg = configs.get_config(AUDIO_ARCH)
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    kind = variant(torch.bfloat16, cfg.d_head, cfg.d_head)
+    log(f"phase 16d: {cfg.name}'s encoder at full width and depth ({cfg.n_periods} x (attn, "
+        f"mlp), d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, causal "
+        f"{cfg.causal}, d_ff {cfg.d_ff}, {cfg.vocab_size} labels, {cfg.dtype}, "
+        f"{_param_count(cfg):,} parameters), frames {SSM_BATCH} x {AUDIO_FRAMES} x "
+        f"{cfg.d_model} from frame_embeddings(seed=0); flash variant at d = {cfg.d_head}: "
+        f"{kind}")
+    if kind != "scalar":
+        raise AssertionError(f"16d: d = {cfg.d_head} takes the {kind} variant")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, device=dev, seed=0)
+    frames = lm_data.frame_embeddings(cfg.d_model, AUDIO_FRAMES, SSM_BATCH, seed=0, device=dev)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        (lk, _), first_s = timed(lambda: model(frames))
+        launches = ops.launch_counts()
+        (l2, _), fwd_s = timed(lambda: model(frames))
+        same = torch.equal(l2, lk)
+        del l2
+        prof = profile_device("encoder forward", lambda: model(frames), watch=("flash",))
+        lp, _ = model(frames, use_kernel=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flash_ms = sum(r["ms"] for r in prof["top"] if "flash" in r["name"])
+    log(f"  forward {first_s:.4f} s (first), {fwd_s:.4f} s (second, the same bits: {same}); "
+        f"flash launches {launches['flash_attention']} (expected {n_attn}); the kernel "
+        f"{flash_ms:.3f} ms of {prof['busy_ms']:.3f} ms busy "
+        f"({100 * flash_ms / max(prof['busy_ms'], 1e-9):.1f}%); peak memory {peak_gb:.2f} GB")
+    if launches["flash_attention"] != n_attn:
+        raise AssertionError(f"16d: {launches['flash_attention']} flash launches, expected "
+                             f"{n_attn}")
+    if lk.shape != (SSM_BATCH, AUDIO_FRAMES, cfg.vocab_size) or not bool(
+            torch.isfinite(lk).all()):
+        raise AssertionError(f"16d: logits {tuple(lk.shape)} not finite")
+    if not same:
+        raise AssertionError("16d: two forwards of the same frames differ")
+    model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                      model.state_dict(), device=dev)
+    del model
+    with torch.inference_mode():
+        l32, _ = model32(frames, use_kernel=False)
+    del model32
+    dists = _logit_dists(lk, lp, l32)
+    judge_logits("16d every frame's logits", dists)
+    del lk, lp, l32
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, n_periods=AUDIO_TRAIN_PERIODS)
+    expected = 2 * AUDIO_TRAIN_PERIODS * 3
+    log(f"phase 16d train: three make_train_step steps of {tcfg.name} at full width cut to "
+        f"{tcfg.n_periods} periods ({_param_count(tcfg):,} parameters), one batch of "
+        f"{SSM_BATCH} x {AUDIO_FRAMES} frames and labels, remat {tcfg.remat_policy}, "
+        "AdamW(peak_lr=3e-4, warmup_steps=1) with fp32 moments")
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(tcfg, device=dev, seed=0)
+    opt = AdamW(peak_lr=3e-4, warmup_steps=1, total_steps=10)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(opt)
+    batch = {"frames": frames, "labels": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SSM_BATCH, AUDIO_FRAMES)), dtype=torch.long, device=dev)}
+    ops.reset_launch_counts()
+    losses, seconds = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, state = step(model, state, batch)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    train_launches = ops.launch_counts()
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  losses {losses}; step seconds {[round(x, 4) for x in seconds]}; peak memory "
+        f"{train_peak:.2f} GB; kernel launches {train_launches} (expected {expected}: forward "
+        "and remat recompute a layer a step)")
+    if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+        raise AssertionError(f"16d: losses {losses} not finite and falling")
+    if train_launches["flash_attention"] != expected:
+        raise AssertionError(f"16d: {train_launches['flash_attention']} flash launches in "
+                             f"training, expected {expected}")
+    del model, state, batch, frames
+    torch.cuda.empty_cache()
+    return launches, train_launches, dict(
+        forward_first_s=first_s, forward_s=fwd_s, profile=prof, flash_ms=flash_ms,
+        peak_memory_gb=peak_gb, logits=dists, train_losses=losses,
+        train_step_seconds=seconds, train_peak_memory_gb=train_peak)
+
+
+def main_path_families(dev):
+    t0 = time.perf_counter()
+    xlstm_launches, xlstm = xlstm_serve(dev)
+    jamba_launches, jamba = jamba_block(dev)
+    vlm_launches, vlm = main_path_serve(dev, VLM_ARCH, "16c")
+    audio_launches, train_launches, audio = hubert_encoder(dev)
+    out = dict(xlstm=xlstm, jamba=jamba, qwen2_vl=vlm, hubert=audio,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out, dict(xlstm=xlstm_launches, jamba=jamba_launches, vlm=vlm_launches,
+                     hubert=audio_launches, hubert_train=train_launches)
+
+
 def main() -> int:
     import torch
 
@@ -3792,6 +4309,12 @@ def main() -> int:
         "kimi_gqa8": check_flash(dev, "Kimi-K2 serve", 4, 64, 8, 2048, 2048, 128, 128, True,
                                  10),
         "mla_train": check_flash(dev, "MLA train", 4, 16, 16, 1024, 1024, 192, 128, True, 10),
+        # phase 16's new shapes: Qwen2-VL's serve (GQA group 6, 16c) and
+        # HuBERT's encoder (d = 80, non-causal: the scalar variant, 16d)
+        "qwen2vl_gqa6": check_flash(dev, "Qwen2-VL serve", 4, 12, 2, 2048, 2048, 128, 128,
+                                    True, 10),
+        "hubert_d80": check_flash(dev, "HuBERT encoder", 4, 16, 16, 1500, 1500, 80, 80, False,
+                                  5),
     }
     if flash["serve"]["variant"] != "wgmma":
         raise AssertionError(f"the serve shape took the {flash['serve']['variant']} variant, "
@@ -3806,6 +4329,7 @@ def main() -> int:
     distributed, dist_launches = main_path_distributed(paper_clf, paper_data)
     training, train_launches = main_path_train(dev)
     moe_run, moe_launches = main_path_moe(dev)
+    families, family_launches = main_path_families(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -3851,7 +4375,9 @@ def main() -> int:
         # 15's paths: DeepSeek-V2-Lite's serve (MLA prefill at d = 192, dv =
         # 128, checked at that shape as mla_dv), Kimi-K2's one-period serve
         # (GQA 64/8, kimi_gqa8) and DeepSeek's three train steps at 2 periods
-        # (mla_train)
+        # (mla_train); phase 16's: Jamba's block serve (GQA 64/8, Kimi-K2's
+        # shape), Qwen2-VL's serve (GQA 12/2, qwen2vl_gqa6), HuBERT's forward
+        # and its train steps (d = 80, non-causal, hubert_d80)
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"],
@@ -3865,6 +4391,12 @@ def main() -> int:
                             **flash["kimi_gqa8"]),
              mla_train=dict(launches=moe_launches["mla_train"]["flash_attention"],
                             **flash["mla_train"]),
+             jamba_serve_launches=family_launches["jamba"]["flash_attention"],
+             qwen2vl_gqa6=dict(launches=family_launches["vlm"]["flash_attention"],
+                               **flash["qwen2vl_gqa6"]),
+             hubert_d80=dict(launches=family_launches["hubert"]["flash_attention"],
+                             train_launches=family_launches["hubert_train"]["flash_attention"],
+                             **flash["hubert_d80"]),
              **flash["serve"]),
     ]
     for entry in kernels:
@@ -3895,6 +4427,7 @@ def main() -> int:
         "distributed": distributed,
         "training": training,
         "moe": moe_run,
+        "families": families,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

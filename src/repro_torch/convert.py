@@ -69,8 +69,10 @@ def _tensor(a) -> torch.Tensor:
 
 def _unstack(tree: Dict[str, Any], cfg) -> Dict[str, np.ndarray]:
     """The port's parameter names -> arrays of a pytree shaped like the JAX
-    package's params (period axis unstacked)."""
-    out = {"embed": np.asarray(tree["embed"]), "final_norm": np.asarray(tree["final_norm"])}
+    package's params (period axis unstacked).  A ``frames`` config carries
+    ``embed_proj`` where a token config carries ``embed``."""
+    embed = "embed" if cfg.frontend == "tokens" else "embed_proj"
+    out = {embed: np.asarray(tree[embed]), "final_norm": np.asarray(tree["final_norm"])}
     if not cfg.tie_embeddings:
         out["head"] = np.asarray(tree["head"])
     n_pos = len(cfg.period)
@@ -108,7 +110,7 @@ def adamw_state_from_reference(state, cfg):
         return _dequantize(q, scale, shape).numpy()
 
     def moments(tree):
-        if not isinstance(tree["embed"], (tuple, list)):  # fp32 leaves
+        if not isinstance(tree["final_norm"], (tuple, list)):  # fp32 leaves
             return {k: _tensor(v) for k, v in _unstack(tree, cfg).items()}
         full = {k: dequantized(v, shapes[k]) for k, v in tree.items() if k != "blocks"}
         full["blocks"] = {

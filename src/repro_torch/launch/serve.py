@@ -1,12 +1,13 @@
-"""Serving entry point of the LM (dense and MoE families): batched prefill,
-then greedy decode.
+"""Serving entry point of the LM (every decoding family: dense, MoE, SSM,
+hybrid and VLM): batched prefill, then greedy decode.
 
 Counterpart of ``src/repro/launch/serve.py``.  ``init`` (random weights from
 ``seed``, or ``params``), one ``prefill`` over the prompt batch, then
 ``decode_step`` lock-step for ``gen_tokens - 1`` more tokens.  Prompts are
 drawn as the JAX package draws them, so both packages serve the same
 prompts.  On the card every prefill attention layer (GQA or MLA) runs the
-hand-written flash kernel.
+hand-written flash kernel.  After an SSM block the prefill leaves a fresh
+state, as the reference's does; an encoder (HuBERT) raises.
 
 Usage::
 
@@ -14,6 +15,8 @@ Usage::
         --device cpu --batch 4 --prompt-len 32 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b   # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --batch 4 --prompt-len 2048                                    # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --batch 4 --prompt-len 2048                                    # on the card
 """
 

@@ -1,5 +1,5 @@
-"""Training entry point of the LM (dense and MoE families): config + data
-pipeline + AdamW + fault tolerance, on one device.
+"""Training entry point of the LM (every token-frontend family): config +
+data pipeline + AdamW + fault tolerance, on one device.
 
 Counterpart of ``src/repro/launch/train.py``::
 
@@ -13,7 +13,9 @@ The reference runs the same code on a device mesh under GSPMD
 training over ``torch.distributed`` is ROADMAP item 14i.  On the card every
 attention layer's forward launches the hand-written flash kernel (twice a
 step under remat: the forward and its recompute); the backward is plain
-PyTorch.
+PyTorch.  The pipeline yields tokens only, as the reference's does: a frames
+encoder (HuBERT) trains through ``models.model.make_train_step`` on a batch
+of ``frames`` and ``labels``.
 
 Usage::
 
@@ -81,6 +83,9 @@ def train(
     Returns the loop's report plus ``losses`` (one a step run) and
     ``step_seconds`` (host time of each step, which ends in reading its
     loss)."""
+    if cfg.frontend != "tokens":
+        raise ValueError(f"{cfg.name}: the token pipeline cannot feed a {cfg.frontend!r} "
+                         "frontend; train it through models.model.make_train_step")
     dev = mesh_device(mesh, device)
     opt = opt or AdamW(peak_lr=3e-4, warmup_steps=min(50, steps // 10 + 1),
                        total_steps=steps)

@@ -1,4 +1,5 @@
-"""GQA attention block (qk-norm / QKV-bias variants) with a KV cache.
+"""GQA attention block (qk-norm / QKV-bias / M-RoPE variants) with a KV
+cache, causal or not (``AttnDims.causal``: an encoder attends both ways).
 
 Counterpart of ``src/repro/models/attention.py``.  The full-sequence paths
 (``forward``, ``prefill``) attend through
@@ -52,8 +53,6 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, dims: AttnDims, dtype, device,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if dims.mrope_sections is not None:
-            raise NotImplementedError("M-RoPE (qwen2-vl) is ROADMAP queue 1 item 14f")
         if dims.impl != "reference":
             raise NotImplementedError(
                 f"attn_impl={dims.impl!r}: the port attends through its flash kernel "
@@ -87,8 +86,14 @@ class Attention(nn.Module):
         if d.qk_norm:
             q = layers.rms_norm(q, self.q_norm)
             k = layers.rms_norm(k, self.k_norm)
-        q = layers.apply_rope(q, positions, d.rope_theta)
-        k = layers.apply_rope(k, positions, d.rope_theta)
+        if d.mrope_sections is not None:
+            if positions.dim() == 2:
+                positions = layers.text_mrope_positions(positions)
+            q = layers.apply_mrope(q, positions, d.rope_theta, d.mrope_sections)
+            k = layers.apply_mrope(k, positions, d.rope_theta, d.mrope_sections)
+        else:
+            q = layers.apply_rope(q, positions, d.rope_theta)
+            k = layers.apply_rope(k, positions, d.rope_theta)
         return q, k, v
 
     def _attend_full(self, x, positions, use_kernel):

@@ -1,14 +1,13 @@
 """Shared neural blocks of the LM substrate: RMS norm, RoPE, MLPs, initializers.
 
-Counterpart of ``src/repro/models/layers.py`` (M-RoPE is not ported: ROADMAP
-queue 1 item 14f).  The order of casts follows the JAX package, so bf16
+Counterpart of ``src/repro/models/layers.py``, M-RoPE included.  The order of casts follows the JAX package, so bf16
 rounds at the same places: the norm and the rotation run in fp32 and are cast
 back before the scale or the next product.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +38,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): the rotary half-dim is cut into (temporal, height,
+    width) sections, each rotated by its own position id.
+    x: (B, S, H, dh); positions: (B, S, 3); ``sections`` sums to dh // 2."""
+    B, S, H, dh = x.shape
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {dh // 2}")
+    inv = rope_freqs(dh, theta, device=x.device)
+    pos = torch.cat([positions[..., i:i + 1].expand(B, S, sec)
+                     for i, sec in enumerate(sections)], dim=-1)  # (B, S, half)
+    ang = pos.float() * inv[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """Pure-text M-RoPE: t = h = w = sequence index.  (B, S) -> (B, S, 3)."""
+    return positions[..., None].expand(*positions.shape, 3)
 
 
 def swiglu(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:

@@ -1,42 +1,48 @@
-"""Config-driven LM stack: the dense and MoE families, periods of ``attn``,
-``mla``, ``mlp`` and ``moe`` sub-blocks.
+"""Config-driven LM stack: every architecture of the JAX registry, periods
+of ``attn``, ``mla``, ``mlp``, ``moe``, ``mamba``, ``mlstm`` and ``slstm``
+sub-blocks over a token or a frames frontend.
 
-Counterpart of ``src/repro/models/model.py`` for those block types.
-:class:`ModelConfig` carries the same fields as the JAX package's, so the
-config modules copy over unchanged; :class:`Transformer` holds one module per
-sub-block (``n_periods * len(period)`` of them, in order) where the JAX
-package stacks each period position over a scan axis, and
+Counterpart of ``src/repro/models/model.py``.  :class:`ModelConfig` carries
+the same fields as the JAX package's, so the config modules copy over
+unchanged; :class:`Transformer` holds one module per sub-block
+(``n_periods * len(period)`` of them, in order) where the JAX package stacks
+each period position over a scan axis, and
 :func:`repro_torch.convert.lm_params_from_reference` unstacks one into the
-other.  Block types, frontends and options of other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+other.  Options of later items raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
-Training: :func:`loss_fn` (the next-token cross-entropy, plain or chunked
-over the vocabulary) and :func:`make_train_step`.  With ``cfg.remat`` each
+Inputs are the reference's batch keys: token ids (B, S) for a ``tokens``
+frontend, or precomputed frames (B, S, d_model) for ``frames`` (an encoder:
+HuBERT), cast to the model's type and projected by ``embed_proj``.  An
+encoder has no serving path (``prefill`` and ``decode_step`` raise).  After
+an SSM block ``prefill`` returns a fresh state, as the reference's does.
+
+Training: :func:`loss_fn` (the next-token cross-entropy for causal token
+models, the frame-label cross-entropy for encoders, plain or chunked over
+the vocabulary) and :func:`make_train_step`.  With ``cfg.remat`` each
 period is a checkpointed region of ``forward``: ``remat_policy="full"``
 recomputes all of it in the backward, ``"dots"`` saves the weight products'
 outputs (the counterpart of ``dots_with_no_batch_dims_saveable``) and
 recomputes the rest.  The serving paths (``prefill``, ``decode_step``) run
 under ``torch.no_grad()``.
+
+``unroll_scan`` (the reference's cost-extraction mode) changes nothing in
+eager PyTorch, where nothing is traced, except on an sLSTM block: there the
+reference swaps in a FLOP-equivalent parallel form, the dry run's proxy
+(ROADMAP item 14h), and the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
-from . import attention, layers, mla, moe
-
-# what is not ported yet, and the ROADMAP queue 1 item that ports it
-_UNPORTED_BLOCKS = {
-    "mamba": "14d (SSM)",
-    "mlstm": "14d (SSM)",
-    "slstm": "14d (SSM)",
-}
+from . import attention, layers, mla, moe, ssm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,12 +64,12 @@ class ModelConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     # dense mlp
     d_ff: int = 0
-    # family-specific dims (mamba, mlstm, slstm: ROADMAP queue 1 item 14d)
+    # family-specific dims
     moe: Optional[moe.MoEDims] = None
     mla: Optional[mla.MLADims] = None
-    mamba: Optional[Any] = None
-    mlstm: Optional[Any] = None
-    slstm: Optional[Any] = None
+    mamba: Optional[ssm.MambaDims] = None
+    mlstm: Optional[ssm.MLSTMDims] = None
+    slstm: Optional[ssm.SLSTMDims] = None
     # io
     frontend: str = "tokens"  # tokens | frames (precomputed embeddings stub)
     tie_embeddings: bool = False
@@ -105,18 +111,22 @@ class ModelConfig:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not cover."""
-    for btype in cfg.period:
-        if btype in _UNPORTED_BLOCKS:
-            raise NotImplementedError(
-                f"{cfg.name}: block type {btype!r} is ROADMAP queue 1 item "
-                f"{_UNPORTED_BLOCKS[btype]}")
-        if btype not in ("attn", "mla", "mlp", "moe"):
-            raise ValueError(f"unknown block type {btype!r}")
-    if cfg.frontend != "tokens":
+    """Raise for a frontend the reference does not know, and
+    ``NotImplementedError`` for an option of a later ROADMAP item (an
+    unknown block type raises in :func:`_block`)."""
+    if cfg.frontend not in ("tokens", "frames"):
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    if cfg.unroll_scan and "slstm" in cfg.period:
         raise NotImplementedError(
-            f"{cfg.name}: frontend={cfg.frontend!r} (hubert) is ROADMAP queue 1 item 14e")
-    # M-RoPE and attn_impl="chunked" raise in attention.Attention / mla.MLA
+            f"{cfg.name}: unroll_scan on an sLSTM block is the dry run's FLOP proxy, "
+            "ROADMAP queue 1 item 14h")
+    # attn_impl="chunked" raises in attention.Attention / mla.MLA (item 14h)
+
+
+def _check_decodes(cfg: ModelConfig) -> None:
+    """Raise for an encoder-only config (frames in, no decode path)."""
+    if cfg.frontend != "tokens" or not cfg.supports_decode:
+        raise ValueError(f"{cfg.name}: encoder-only arch has no prefill or decode step")
 
 
 class MLP(layers.Stateless, nn.Module):
@@ -135,14 +145,17 @@ class MLP(layers.Stateless, nn.Module):
         return x + layers.swiglu(h, self.w_in, self.w_out), None
 
 
-# one entry per sub-block: a KV cache (attn), a latent cache (mla), or None
-Cache = List[Optional[Union[attention.KVCache, mla.MLACache]]]
+# one entry per sub-block: a KV cache (attn), a latent cache (mla), a
+# recurrent state (mamba, mlstm, slstm), or None (mlp, moe)
+Cache = List[Optional[Union[attention.KVCache, mla.MLACache, ssm.MambaState,
+                            ssm.MLSTMState, ssm.SLSTMState]]]
 
 
 class Transformer(nn.Module):
     """The LM.  ``seed`` draws random weights on ``device`` with a
     generator of that device, sub-block by sub-block; ``seed=None`` leaves
-    them uninitialized for :meth:`load_params`.
+    them uninitialized for :meth:`load_params`.  A ``frames`` config holds
+    ``embed_proj`` (d_model, d_model) in place of ``embed``.
 
     Every sub-block has one interface: ``forward(x, positions, use_kernel)
     -> (x, aux or None)`` (only MoE has an aux loss), ``init_cache(B, S_max,
@@ -157,23 +170,17 @@ class Transformer(nn.Module):
         dtype = cfg.torch_dtype()
         device = torch.device(device)
         gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
-        embed_shape = (cfg.vocab_size, cfg.d_model)
-        self.embed = layers.param(
-            torch.empty(embed_shape, dtype=dtype, device=device) if gen is None
-            else layers.embed_init(gen, embed_shape, dtype, device))
-        blocks = []
-        for _ in range(cfg.n_periods):
-            for btype in cfg.period:
-                if btype == "attn":
-                    blocks.append(attention.Attention(
-                        cfg.d_model, cfg.attn_dims(), dtype, device, gen))
-                elif btype == "mla":
-                    blocks.append(mla.MLA(cfg.d_model, _mla_dims(cfg), dtype, device, gen))
-                elif btype == "moe":
-                    blocks.append(moe.MoE(cfg.d_model, cfg.moe, dtype, device, gen))
-                else:
-                    blocks.append(MLP(cfg.d_model, cfg.d_ff, dtype, device, gen))
-        self.blocks = nn.ModuleList(blocks)
+        if cfg.frontend == "tokens":
+            embed_shape = (cfg.vocab_size, cfg.d_model)
+            self.embed = layers.param(
+                torch.empty(embed_shape, dtype=dtype, device=device) if gen is None
+                else layers.embed_init(gen, embed_shape, dtype, device))
+        else:  # frames: precomputed embeddings -> a learned input projection
+            self.embed_proj = layers.dense_param(gen, (cfg.d_model, cfg.d_model), dtype,
+                                                 device)
+        self.blocks = nn.ModuleList(
+            _block(btype, cfg, dtype, device, gen)
+            for _ in range(cfg.n_periods) for btype in cfg.period)
         self.final_norm = layers.param(layers.init_rms_scale(cfg.d_model, dtype, device))
         if not cfg.tie_embeddings:
             self.head = layers.dense_param(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
@@ -204,6 +211,15 @@ class Transformer(nn.Module):
     def _positions(self, B: int, S: int, device) -> torch.Tensor:
         return torch.arange(S, device=device)[None].expand(B, S)
 
+    def _embed(self, inputs) -> torch.Tensor:
+        """(B, S, d_model) from token ids (B, S) or frames (B, S, d_model),
+        or from a batch of the reference's keys (``tokens`` or ``frames``)."""
+        if isinstance(inputs, Mapping):
+            inputs = inputs["tokens" if self.cfg.frontend == "tokens" else "frames"]
+        if self.cfg.frontend == "tokens":
+            return self.embed[inputs]
+        return inputs.to(self.embed_proj.dtype) @ self.embed_proj
+
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         x = layers.rms_norm(x, self.final_norm)
         if self.cfg.tie_embeddings:
@@ -223,14 +239,15 @@ class Transformer(nn.Module):
                 aux = aux + a
         return x, aux
 
-    def hidden(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
+    def hidden(self, inputs, use_kernel: Optional[bool] = None,
                cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """The last period's output (B, S, d_model), before the final norm,
-        and the summed MoE aux loss (fp32; 0 without MoE blocks).  ``cfg``
-        (default ``self.cfg``) supplies ``remat`` and ``remat_policy``; remat
-        applies only while autograd records."""
+        and the summed MoE aux loss (fp32; 0 without MoE blocks).
+        ``inputs``: token ids, frames, or a batch dict (:meth:`_embed`).
+        ``cfg`` (default ``self.cfg``) supplies ``remat`` and
+        ``remat_policy``; remat applies only while autograd records."""
         cfg = cfg or self.cfg
-        x = self.embed[tokens]
+        x = self._embed(inputs)
         B, S, _ = x.shape
         positions = self._positions(B, S, x.device)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -249,21 +266,25 @@ class Transformer(nn.Module):
                 x, aux = self._period(i, x, aux, positions, use_kernel)
         return x, aux
 
-    def forward(self, tokens: torch.Tensor, use_kernel: Optional[bool] = None,
+    def forward(self, inputs, use_kernel: Optional[bool] = None,
                 cfg: Optional[ModelConfig] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits (B, S, V) and the summed MoE aux loss."""
-        x, aux = self.hidden(tokens, use_kernel, cfg)
+        x, aux = self.hidden(inputs, use_kernel, cfg)
         return self._unembed(x), aux
 
     def init_cache(self, B: int, S_max: int) -> Cache:
-        dtype, device = self.embed.dtype, self.embed.device
+        """Empty caches and fresh recurrent states, one a sub-block."""
+        _check_decodes(self.cfg)
+        dtype, device = self.final_norm.dtype, self.final_norm.device
         return [blk.init_cache(B, S_max, dtype, device) for blk in self.blocks]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Cache]:
         """Forward over the prompt, filling the caches: (last logits (B, 1, V),
-        cache)."""
+        cache).  An SSM block's entry is a fresh state, not the state at the
+        prompt's end (the reference's documented serving limitation)."""
+        _check_decodes(self.cfg)
         x = self.embed[tokens]
         B, S, _ = x.shape
         positions = self._positions(B, S, x.device)
@@ -279,11 +300,31 @@ class Transformer(nn.Module):
         """One decode step.  token, pos: (B,).  Returns (logits (B, 1, V),
         cache); the cache is updated in place.  A MoE block routes the B new
         tokens as one batch (T = B, its capacity from that), as the
-        reference does."""
+        reference does.  A recurrent block's state advances in place."""
+        _check_decodes(self.cfg)
         x = self.embed[token[:, None]]
         for blk, c in zip(self.blocks, cache):
             x, _ = blk.decode_step(x, c, pos)
         return self._unembed(x), cache
+
+
+def _block(btype: str, cfg: ModelConfig, dtype, device, gen) -> nn.Module:
+    d = cfg.d_model
+    if btype == "attn":
+        return attention.Attention(d, cfg.attn_dims(), dtype, device, gen)
+    if btype == "mla":
+        return mla.MLA(d, _mla_dims(cfg), dtype, device, gen)
+    if btype == "mlp":
+        return MLP(d, cfg.d_ff, dtype, device, gen)
+    if btype == "moe":
+        return moe.MoE(d, cfg.moe, dtype, device, gen)
+    if btype == "mamba":
+        return ssm.Mamba(d, cfg.mamba, cfg.ssm_chunk, dtype, device, gen)
+    if btype == "mlstm":
+        return ssm.MLSTM(d, cfg.mlstm, cfg.ssm_chunk, dtype, device, gen)
+    if btype == "slstm":
+        return ssm.SLSTM(d, cfg.slstm, dtype, device, gen)
+    raise ValueError(f"unknown block type {btype!r}")
 
 
 def _mla_dims(cfg: ModelConfig) -> mla.MLADims:
@@ -311,8 +352,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             cfg: Optional[ModelConfig] = None, *,
             use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Next-token cross-entropy of ``batch["tokens"]`` (B, S + 1): inputs
-    ``tokens[:, :-1]``, labels ``tokens[:, 1:]``; a scalar fp32 tensor.
+    """The cross-entropy, a scalar fp32 tensor.  A causal token model: next
+    token of ``batch["tokens"]`` (B, S + 1), inputs ``tokens[:, :-1]``,
+    labels ``tokens[:, 1:]``.  An encoder (non-causal or frames): the batch
+    without ``labels`` as inputs, ``batch["labels"]`` (B, S) as labels, no
+    shift.
 
     ``cfg`` (default ``model.cfg``) supplies the numerics options --
     ``ce_impl``, ``ce_chunk``, ``remat``, ``remat_policy`` -- as the JAX
@@ -322,8 +366,11 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     logits.
     """
     cfg = cfg or model.cfg
-    tokens = batch["tokens"]
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    if cfg.causal and cfg.frontend == "tokens":
+        inputs, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    else:
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        labels = batch["labels"]
     if cfg.ce_impl == "chunked":
         return _chunked_ce(model, inputs, labels, cfg, use_kernel)
     if cfg.ce_impl != "plain":

@@ -35,13 +35,17 @@ SLICE_MODULES = [
     "repro_torch.checkpoint.store",
     "repro_torch.configs",
     "repro_torch.configs.deepseek_v2_lite_16b",
+    "repro_torch.configs.hubert_xlarge",
+    "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.oavi_paper",
     "repro_torch.configs.phi4_mini_3_8b",
     "repro_torch.configs.qwen1_5_4b",
     "repro_torch.configs.qwen2_1_5b",
+    "repro_torch.configs.qwen2_vl_2b",
     "repro_torch.configs.qwen3_8b",
     "repro_torch.configs.shapes",
+    "repro_torch.configs.xlstm_1_3b",
     "repro_torch.convert",
     "repro_torch.core",
     "repro_torch.core.abm",
@@ -79,6 +83,7 @@ SLICE_MODULES = [
     "repro_torch.models.mla",
     "repro_torch.models.model",
     "repro_torch.models.moe",
+    "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.obs.baseline",
     "repro_torch.obs.core",

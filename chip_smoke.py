@@ -35,10 +35,12 @@ Phases, each reported on its own lines:
    batch 4, 2048 tokens), a ragged causal length, a ragged non-causal key
    length and dv != d, and the shapes of phases 15-16's paths (Kimi-K2's
    and Jamba's GQA 64/8, MLA's train shape, Qwen2-VL's GQA 12/2, HuBERT's
-   non-causal d = 80 on the scalar variant); the bf16 plain version's own
-   error beside it; each timed beside its bound, the plain version and
-   PyTorch's ``scaled_dot_product_attention``.  Each shape logs the kernel
-   variant it took; the serve shape must take the wgmma one.
+   non-causal d = 80), and one bf16 shape of the scalar variant (the
+   reduced configs' (24, 16), ragged); the bf16 plain version's own error
+   beside it; each timed beside its bound, the plain version and PyTorch's
+   ``scaled_dot_product_attention``.  Each shape logs the kernel variant it
+   took; the serve shape and HuBERT's must take the wgmma one, the (24, 16)
+   shape the scalar one.
 6. Main path, LM serving: ``launch.serve.serve`` of Qwen3-8B at its full
    width (36 layers, random weights from seed 0), batch 4, 2048-token
    prompts, 32 generated tokens; the prefill must launch the kernel once per
@@ -186,7 +188,7 @@ Phases, each reported on its own lines:
    phase 6's path for Qwen2-VL-2B (28 layers, text-mode M-RoPE, GQA group 6
    on the wgmma variant); (d) HuBERT-XLarge's encoder at full width and depth
    on 4 x 1,500 frames of ``frame_embeddings(seed=0)``: 48 launches of the
-   scalar variant at d = 80, non-causal, its share of device time, the
+   wgmma variant at d = 80, non-causal, its share of device time, the
    ``LM_FACTOR`` rule over every frame's logits; three ``make_train_step``
    steps at 4 periods on frames and labels (losses falling, two launches a
    layer a step).
@@ -4132,7 +4134,7 @@ def jamba_witness(dev, full):
 
 def hubert_encoder(dev):
     """16d: HuBERT-XLarge's encoder at full width and depth on 4 x 1,500
-    frames (the flash kernel's scalar variant at d = 80, non-causal), held
+    frames (the flash kernel's wgmma variant at d = 80, non-causal), held
     by the LM_FACTOR rule; three train steps at 4 periods."""
     import dataclasses
 
@@ -4154,8 +4156,8 @@ def hubert_encoder(dev):
         f"{_param_count(cfg):,} parameters), frames {SSM_BATCH} x {AUDIO_FRAMES} x "
         f"{cfg.d_model} from frame_embeddings(seed=0); flash variant at d = {cfg.d_head}: "
         f"{kind}")
-    if kind != "scalar":
-        raise AssertionError(f"16d: d = {cfg.d_head} takes the {kind} variant")
+    if kind != "wgmma":
+        raise AssertionError(f"16d: d = {cfg.d_head} takes the {kind} variant, not wgmma")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = Transformer(cfg, device=dev, seed=0)
@@ -4310,15 +4312,21 @@ def main() -> int:
                                  10),
         "mla_train": check_flash(dev, "MLA train", 4, 16, 16, 1024, 1024, 192, 128, True, 10),
         # phase 16's new shapes: Qwen2-VL's serve (GQA group 6, 16c) and
-        # HuBERT's encoder (d = 80, non-causal: the scalar variant, 16d)
+        # HuBERT's encoder (d = 80, non-causal: the wgmma variant's five
+        # 16-column boxes, 16d)
         "qwen2vl_gqa6": check_flash(dev, "Qwen2-VL serve", 4, 12, 2, 2048, 2048, 128, 128,
                                     True, 10),
         "hubert_d80": check_flash(dev, "HuBERT encoder", 4, 16, 16, 1500, 1500, 80, 80, False,
-                                  5),
+                                  10),
+        # the scalar variant in bf16, at a head size with no wgmma
+        # instantiation (the reduced configs'; no full-size main path takes it)
+        "scalar_24_16": check_flash(dev, "scalar variant", 1, 3, 3, 65, 150, 24, 16, False,
+                                    10),
     }
-    if flash["serve"]["variant"] != "wgmma":
-        raise AssertionError(f"the serve shape took the {flash['serve']['variant']} variant, "
-                             "not wgmma")
+    for key, kind in (("serve", "wgmma"), ("hubert_d80", "wgmma"), ("scalar_24_16", "scalar")):
+        if flash[key]["variant"] != kind:
+            raise AssertionError(f"flash shape {key} took the {flash[key]['variant']} variant, "
+                                 f"not {kind}")
     serve_launches, lm = main_path_serve(dev)
     oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
     abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
@@ -4377,7 +4385,8 @@ def main() -> int:
         # (GQA 64/8, kimi_gqa8) and DeepSeek's three train steps at 2 periods
         # (mla_train); phase 16's: Jamba's block serve (GQA 64/8, Kimi-K2's
         # shape), Qwen2-VL's serve (GQA 12/2, qwen2vl_gqa6), HuBERT's forward
-        # and its train steps (d = 80, non-causal, hubert_d80)
+        # and its train steps (d = 80, non-causal, hubert_d80); the scalar
+        # variant's bf16 check (scalar_24_16) has no main-path launch
         dict(name="flash_attention", route="cuda", source=src + "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:81",
              launches=serve_launches["flash_attention"],
@@ -4397,6 +4406,7 @@ def main() -> int:
              hubert_d80=dict(launches=family_launches["hubert"]["flash_attention"],
                              train_launches=family_launches["hubert_train"]["flash_attention"],
                              **flash["hubert_d80"]),
+             scalar_24_16=flash["scalar_24_16"],
              **flash["serve"]),
     ]
     for entry in kernels:

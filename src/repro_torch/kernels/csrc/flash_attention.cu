@@ -22,13 +22,15 @@
 // What bounds it on the H100: operations.  At the serve shape (B * Hq = 128,
 // S = 2048, d = dv = 128, causal, bf16) a call does 137.5 GFLOP of
 // tensor-core work on 168 MB of q, k, v and o: 0.139 ms at 989 TFLOP/s
-// against 0.050 ms at 3.35 TB/s.  Only wgmma reaches the tensor cores' full
+// against 0.050 ms at 3.35 TB/s; at HuBERT's encoder shape (B * Hq = 64,
+// S = 1500, d = dv = 80, not causal) 46.1 GFLOP on 61.4 MB: 0.047 ms against
+// 0.018 ms.  Only wgmma reaches the tensor cores' full
 // rate, and only if the operands arrive in shared memory while the tensor
 // cores work and no thread spends instructions on moving them.
 //
 // Two variants, chosen by repro_flash_attention_variant:
-//   * flash_attn_wgmma (bf16; (d, dv) = (128, 128), the serve shape, (64, 64)
-//     and (192, 128)).  One block per (head, 128-row q-tile), 384 threads:
+//   * flash_attn_wgmma (bf16; (d, dv) = (128, 128), the serve shape, (64, 64),
+//     (192, 128) and (80, 80)).  One block per (head, 128-row q-tile), 384 threads:
 //     two consumer warpgroups own 64 rows each; in the third, the producer,
 //     one thread issues TMA loads: Q once, then K and V 128-key tiles through
 //     a 3-stage ring (2 stages at d = 192) guarded by full/empty mbarriers.
@@ -38,18 +40,27 @@
 //     next head.  The maps are encoded on the host with
 //     cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
 //     (ByVersion), so the library links no libcuda.  TMA writes the tiles in
-//     the 128-byte swizzle that wgmma's descriptors read.  S = Q K^T is wgmma
-//     m64n128k16 with both operands from shared memory, K-major; the fp32 S
+//     the swizzle that wgmma's descriptors read: 64-column boxes in the
+//     128-byte swizzle where d and dv are multiples of 64; at d = dv = 80
+//     (HuBERT's heads; 80 = 5 x 16 is no multiple of 32 or 64) five
+//     16-column boxes of 32-byte rows in the 32-byte swizzle, the widest
+//     that divides 80 and the largest box TMA takes in it.  S = Q K^T is wgmma
+//     m64n128k16 (d / 16 k-steps: 5 at d = 80, each one box) with both
+//     operands from shared memory, K-major; the fp32 S
 //     accumulator becomes, rounded to bf16, the register A operand of
 //     O += P V, whose B operand V is read MN-major (transpose bit) from its
-//     TMA tile: no thread transposes or copies a tile.  In each warpgroup, S
+//     TMA tile, one m64n{dv}k16 a k-step (n = 80 over the five boxes at
+//     d = 80): no thread transposes, pads or copies a tile.  In each warpgroup, S
 //     of k-tile i + 1 is issued before P V of tile i, so the softmax of i + 1
 //     runs on the CUDA cores while P V of i runs on the tensor cores; the two
 //     warpgroups take turns to issue (named barriers), so one's softmax also
 //     overlaps the other's products.  The mask arithmetic runs only on the
 //     last k-tile (the diagonal when causal, the ragged Sk edge otherwise);
 //     every other tile runs unmasked.  Causal blocks are scheduled longest
-//     first, and k-tiles wholly above the diagonal are never loaded.
+//     first, and k-tiles wholly above the diagonal are never loaded.  At
+//     d = 80 a k-tile is 62.5% of d = 128's products for the same softmax
+//     work, so the softmax on the CUDA cores weighs more against the tensor
+//     cores; a tile of Q is 20 KB and a K/V stage 40 KB (3 stages, 144,464 bytes).
 //   * flash_attn_simple (fp32, and bf16 head sizes without a tensor-core
 //     instantiation, up to 256): one key per lane, scalar fp32 FMA from
 //     shared memory.
@@ -209,15 +220,17 @@ cudaError_t launch_simple(const void* q, const void* k, const void* v, void* o, 
 }
 
 // ---------------------------------------------------------------------------
-// flash_attn_wgmma: bf16, (d, dv) = (128, 128) (the serve shape), (64, 64)
-// or (192, 128).
+// flash_attn_wgmma: bf16, (d, dv) = (128, 128) (the serve shape), (64, 64),
+// (192, 128) or (80, 80).
 //
 // Warps 0-7 are the two consumer warpgroups; warpgroup 2 is the producer.
-// Shared memory, each tile stored as 64-column halves of 128-byte rows in the
-// 128-byte swizzle that TMA writes and wgmma reads:
+// Shared memory, each tile stored as column boxes in the swizzle that TMA
+// writes and wgmma reads (64-column boxes of 128-byte rows in the 128-byte
+// swizzle; at d = dv = 80, 16-column boxes of 32-byte rows in the 32-byte
+// swizzle), box after box, each 128 rows:
 //     Q (128 x D), then kStages x [K (128 x D), V (128 x DV)], then barriers
-// (3 stages, 230,480 bytes at d = dv = 128; 2 stages at d = 192, dv = 128:
-// one block per SM).  Barriers: full_q;
+// (3 stages, 230,480 bytes at d = dv = 128, 144,464 at d = dv = 80; 2 stages
+// at d = 192, dv = 128: one block per SM).  Barriers: full_q;
 // full_k[s], full_v[s] (TMA bytes landed); empty[s] (the 8 consumer warps
 // are done with stage s).
 // ---------------------------------------------------------------------------
@@ -228,11 +241,18 @@ constexpr int kWgConsumers = 256;
 constexpr int kWgThreads = kWgConsumers + 128;  // + the producer warpgroup
 constexpr int kProducerRegs = 24;   // setmaxnreg: the producer gives its registers
 constexpr int kConsumerRegs = 240;  // to the consumers (128 x 24 + 256 x 240 <= 65536)
-constexpr int kHalf = 64;        // bf16 columns in one 128-byte swizzled row
-constexpr int kAtom = 1024;      // 8 rows x 128 bytes: one swizzle atom
+constexpr int kAtom = 1024;      // 8 rows x 128 bytes: the largest swizzle atom
 
 template <int D, int DV>
 struct WgShape {
+  // bf16 columns of one TMA box: 64 (128-byte rows, 128-byte swizzle) where
+  // both head sizes are multiples of 64, else 16 (32-byte rows, 32-byte
+  // swizzle); one box is the swizzle's width, as TMA requires
+  static constexpr int kBox = D % 64 == 0 && DV % 64 == 0 ? 64 : 16;
+  static constexpr int kRowBytes = 2 * kBox;
+  static constexpr int kBoxBytes = kWgRows * kRowBytes;  // one box of 128 rows
+  static constexpr int kGroupBytes = 8 * kRowBytes;      // 8 rows: one swizzle atom
+  static constexpr uint64_t kSwizzle = kBox == 64 ? 1 : 3;  // descriptor bits 62-63
   // K/V ring depth: 3 (k-tile i + 2 loads while i + 1's S runs) where it
   // fits the 227 KB a block may use, else 2
   static constexpr int kStages =
@@ -282,7 +302,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-// One box {64 columns, 128 rows, 1 head} of a 3-D (heads, rows, cols) map.
+// One box {kBox columns, 128 rows, 1 head} of a 3-D (heads, rows, cols) map.
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int col, int row, int head) {
   asm volatile(
@@ -292,10 +312,13 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor; offsets in bytes; swizzle 1 = 128-byte,
+// 3 = 32-byte (bits 62-63).  K-major: sbo steps 8 rows, lbo is unused.
+// MN-major: lbo steps one box along MN, sbo 8 rows along K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (swizzle << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -393,6 +416,20 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += A (64x16, registers) B (16x80, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(d, 0), WG_ACC8(d, 8), WG_ACC8(d, 16), WG_ACC8(d, 24), WG_ACC8(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int DV>
 __device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2], const uint32_t (&a)[4], uint64_t db);
 template <>
@@ -403,6 +440,10 @@ template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_m64n64(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_m64n80(d, a, db);
+}
 
 template <int D, int DV>
 __global__ void __launch_bounds__(kWgThreads, 1)
@@ -411,7 +452,8 @@ flash_attn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  int Sq, int Sk, int group, int causal, float scale_log2) {
   using Sh = WgShape<D, DV>;
   constexpr int kWgStages = Sh::kStages;
-  static_assert(D % kHalf == 0 && DV % kHalf == 0, "head sizes in 64-column halves");
+  constexpr int kBox = Sh::kBox;
+  static_assert(D % kBox == 0 && DV % kBox == 0, "head sizes in whole boxes");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + kAtom - 1) & ~uint32_t(kAtom - 1);
   const uint32_t sQ = base;
@@ -451,20 +493,20 @@ flash_attn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const int hk = h / group;
       mbar_expect_tx(full_q, Sh::kQBytes);
 #pragma unroll
-      for (int c = 0; c < D / kHalf; ++c)
-        tma_load_3d(sQ + c * kWgRows * 128, &tq, full_q, c * kHalf, q0, h);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load_3d(sQ + c * Sh::kBoxBytes, &tq, full_q, c * kBox, q0, h);
       for (int i = 0; i < n_k; ++i) {
         const int s = i % kWgStages;
         mbar_wait(empty(s), ((i / kWgStages) & 1) ^ 1);
         const uint32_t sK = sKV + s * Sh::kStageBytes, sV = sK + Sh::kKBytes;
         mbar_expect_tx(full_k(s), Sh::kKBytes);
 #pragma unroll
-        for (int c = 0; c < D / kHalf; ++c)
-          tma_load_3d(sK + c * kWgKeys * 128, &tk, full_k(s), c * kHalf, i * kWgKeys, hk);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load_3d(sK + c * Sh::kBoxBytes, &tk, full_k(s), c * kBox, i * kWgKeys, hk);
         mbar_expect_tx(full_v(s), Sh::kVBytes);
 #pragma unroll
-        for (int c = 0; c < DV / kHalf; ++c)
-          tma_load_3d(sV + c * kWgKeys * 128, &tv, full_v(s), c * kHalf, i * kWgKeys, hk);
+        for (int c = 0; c < DV / kBox; ++c)
+          tma_load_3d(sV + c * Sh::kBoxBytes, &tv, full_v(s), c * kBox, i * kWgKeys, hk);
       }
     }
     return;
@@ -486,10 +528,11 @@ flash_attn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 #pragma unroll
   for (int n = 0; n < 64; ++n) s[n] = 0.0f;
   uint32_t pa[kWgKeys / 16][4];   // P in bf16: the A operand of P V
-  const uint32_t sQw = sQ + wg * 64 * 128;  // this warpgroup's 64 rows: 8 atoms
+  const uint32_t sQw = sQ + wg * 64 * Sh::kRowBytes;  // this warpgroup's 64 rows: 8 atoms
 
-  // S = Q K^T of k-tile i: D / 16 steps of m64n128k16, K-major operands;
-  // issued and committed, not waited for (the caller fences first)
+  // S = Q K^T of k-tile i: D / 16 steps of m64n128k16, K-major operands, a
+  // step 32 bytes into a 128-byte row or one whole 32-byte box; issued and
+  // committed, not waited for (the caller fences first)
   auto issue_qk = [&](int i) {
     const int st = i % kWgStages;
     const uint32_t sK = sKV + st * Sh::kStageBytes;
@@ -497,9 +540,9 @@ flash_attn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     __syncwarp();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kWgRows * 128 + (kk % 4) * 32;
-      const uint64_t da = sw128_desc(sQw + off, 16, kAtom);
-      const uint64_t db = sw128_desc(sK + (kk / 4) * kWgKeys * 128 + (kk % 4) * 32, 16, kAtom);
+      const uint32_t off = (kk * 16 / kBox) * Sh::kBoxBytes + (kk * 16 % kBox) * 2;
+      const uint64_t da = smem_desc(sQw + off, 16, Sh::kGroupBytes, Sh::kSwizzle);
+      const uint64_t db = smem_desc(sK + off, 16, Sh::kGroupBytes, Sh::kSwizzle);
       if (kk == 0)
         wgmma_ss_m64n128_zero(s, da, db);
       else
@@ -614,7 +657,8 @@ flash_attn_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     __syncwarp();
 #pragma unroll
     for (int kt = 0; kt < kWgKeys / 16; ++kt)
-      wgmma_rs<DV>(acc, pa[kt], sw128_desc(sV + kt * 16 * 128, kWgKeys * 128, kAtom));
+      wgmma_rs<DV>(acc, pa[kt], smem_desc(sV + kt * 16 * Sh::kRowBytes, Sh::kBoxBytes,
+                                          Sh::kGroupBytes, Sh::kSwizzle));
     wgmma_commit();
   };
 
@@ -705,19 +749,22 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (heads, rows, cols) bf16 tensor as a 3-D TMA map of {64, 128, 1} boxes in
-// the 128-byte swizzle.  Rows past `rows` read as zeros inside each head: a
-// box never reaches into the next head.
-cudaError_t encode_3d(CUtensorMap* map, const void* ptr, int heads, int rows, int cols) {
+// A (heads, rows, cols) bf16 tensor as a 3-D TMA map of {box, 128, 1} boxes:
+// box = 64 columns in the 128-byte swizzle, or 16 in the 32-byte swizzle.
+// Rows past `rows` read as zeros inside each head: a box never reaches into
+// the next head.
+cudaError_t encode_3d(CUtensorMap* map, const void* ptr, int heads, int rows, int cols,
+                      int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {kHalf, kWgRows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, kWgRows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -727,10 +774,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
                          int Sk, int group, int causal, cudaStream_t stream) {
   static_assert(kWgRows == kWgKeys, "q and k maps share one box");
   constexpr int smem = WgShape<D, DV>::kSmem;
+  constexpr int box = WgShape<D, DV>::kBox;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode_3d(&tq, q, BHq, Sq, D);
-  if (err == cudaSuccess) err = encode_3d(&tk, k, BHq / group, Sk, D);
-  if (err == cudaSuccess) err = encode_3d(&tv, v, BHq / group, Sk, DV);
+  cudaError_t err = encode_3d(&tq, q, BHq, Sq, D, box);
+  if (err == cudaSuccess) err = encode_3d(&tk, k, BHq / group, Sk, D, box);
+  if (err == cudaSuccess) err = encode_3d(&tv, v, BHq / group, Sk, DV, box);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_attn_wgmma<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -748,7 +796,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
 // (dtype 0 = float32, 1 = bfloat16).
 extern "C" int repro_flash_attention_variant(int dtype, int d, int dv) {
   return dtype == 1 && ((d == 128 && dv == 128) || (d == 64 && dv == 64) ||
-                        (d == 192 && dv == 128));
+                        (d == 192 && dv == 128) || (d == 80 && dv == 80));
 }
 
 // q (BHq, Sq, d), k (BHq / group, Sk, d), v (BHq / group, Sk, dv), o (BHq, Sq, dv),
@@ -760,6 +808,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (BHq <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
   if (repro_flash_attention_variant(dtype, d, dv)) {
     if (d == 64) return (int)launch_wgmma<64, 64>(q, k, v, o, BHq, Sq, Sk, group, causal, stream);
+    if (d == 80) return (int)launch_wgmma<80, 80>(q, k, v, o, BHq, Sq, Sk, group, causal, stream);
     if (d == 128)
       return (int)launch_wgmma<128, 128>(q, k, v, o, BHq, Sq, Sk, group, causal, stream);
     return (int)launch_wgmma<192, 128>(q, k, v, o, BHq, Sq, Sk, group, causal, stream);

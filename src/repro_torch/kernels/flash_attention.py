@@ -5,8 +5,11 @@ The CUDA counterpart of the Pallas kernel ``flash_attention``
 flattened heads, ``q (B*Hq, Sq, d)``, ``k (B*Hkv, Sk, d)``, ``v (B*Hkv, Sk,
 dv)``, query head ``h`` reading kv head ``h // q_heads_per_kv``.  The kernel
 masks the ragged edges itself, so nothing is padded here.  bf16 head sizes
-(128, 128), (64, 64) and (192, 128) run the wgmma + TMA variant; fp32, and
-other bf16 head sizes up to 256, run the scalar variant.  The
+(128, 128), (64, 64), (192, 128) and (80, 80) run the wgmma + TMA variant
+(tensor cores, bound by operations): at d = 80, HuBERT's heads, every tile
+is five 16-column TMA boxes in the 32-byte swizzle, read by five k-steps of
+Q K^T and one m64n80k16 of P V a k-step.  fp32, and other bf16 head sizes
+up to 256, run the scalar variant.  The
 plain PyTorch version is :func:`repro_torch.kernels.ref.attention_ref`;
 dispatch lives in :mod:`repro_torch.kernels.ops`.
 

@@ -45,6 +45,7 @@ def _jax(q, k, v, causal, bq, bk, dtype=jnp.float32):
     (2, 4, 2, 256, 32, 64, 64),     # GQA group 2
     (2, 8, 1, 128, 16, 64, 32),     # MQA
     (1, 2, 2, 192, 32, 64, 64),     # padded seq in the JAX op
+    (1, 2, 2, 128, 80, 64, 64),     # HuBERT's head size
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_vs_reference(B, Hq, Hkv, S, d, bq, bk, causal):
@@ -144,6 +145,7 @@ _CARD_CASES = [
     (1, 2, 1, 190, 190, 192, 128, True),     # dv != d (MLA)
     (2, 4, 2, 77, 77, 16, 16, True),         # the reduced configs' head size
     (1, 3, 3, 65, 150, 24, 16, False),       # scalar variant, ragged
+    (1, 4, 4, 150, 150, 80, 80, False),      # HuBERT's d: fp32 scalar, bf16 wgmma
 ]
 
 
@@ -199,6 +201,12 @@ _WGMMA_CASES = [
     (1, 4, 1, 1, 1, 128, True),          # S = 1
     (1, 4, 2, 1, 77, 128, False),        # one query row over a ragged Sk
     (1, 4, 2, 257, 90, 64, False),       # d = dv = 64
+    # d = dv = 80 (HuBERT's heads: five 16-column boxes in the 32-byte swizzle)
+    (1, 4, 4, 300, 300, 80, False),      # ragged, not causal
+    (1, 8, 2, 260, 333, 80, False),      # group 4, ragged Sk != Sq
+    (1, 8, 2, 200, 200, 80, True),       # causal, ragged
+    (2, 4, 1, 50, 90, 80, False),        # Sk smaller than one k-tile
+    (1, 4, 4, 1, 1, 80, True),           # S = 1
 ]
 
 
@@ -220,11 +228,13 @@ def test_flash_wgmma_vs_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 80])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_wgmma_never_reads_past_a_head(cuda, causal):
+def test_flash_wgmma_never_reads_past_a_head(cuda, causal, d):
     """q, k and v are views of buffers whose next head is NaN: a tile that
     crossed the last head's ragged edge would bring NaN into the output."""
-    BHq, BHkv, S, d = 8, 2, 200, 128
+    BHq, BHkv, S = 8, 2, 200
+    assert flash_mod.variant(torch.bfloat16, d, d) == "wgmma"
     rng = np.random.default_rng(3)
 
     def with_nan_head(heads):

@@ -11,8 +11,8 @@ kernel's fp32 variant against the plain softmax), a few ulps of each
 product; the recurrences and the head carry that to ~1e-6 of the logits'
 scale (~4), so 1e-4 leaves a margin of ~25x and TF32 (2^-11 a product)
 would exceed it.  The bf16 head shapes of the full-size models (Qwen2-VL's
-GQA group 6 at d = 128 on the wgmma variant, HuBERT's d = 80 non-causal on
-the scalar one) are held by the fp32-witness rule of
+GQA group 6 at d = 128, HuBERT's d = 80 non-causal; both on the wgmma
+variant) are held by the fp32-witness rule of
 ``tests/test_torch_lm.py``: no further from an fp32 copy than twice the
 plain-attention bf16 model.
 """
@@ -80,7 +80,7 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
 @pytest.mark.parametrize("arch,heads,kind", [
     ("qwen2-vl-2b", dict(n_heads=12, n_kv_heads=2, d_head=128,
                          mrope_sections=(16, 24, 24)), "wgmma"),
-    ("hubert-xlarge", dict(n_heads=4, n_kv_heads=4, d_head=80), "scalar"),
+    ("hubert-xlarge", dict(n_heads=4, n_kv_heads=4, d_head=80), "wgmma"),
 ])
 def test_head_shapes_on_card_kernel_vs_plain(cuda, arch, heads, kind):
     cfg = dataclasses.replace(configs.get_reduced(arch), dtype="bfloat16", **heads)

@@ -192,6 +192,25 @@ Phases, each reported on its own lines:
    ``LM_FACTOR`` rule over every frame's logits; three ``make_train_step``
    steps at 4 periods on frames and labels (losses falling, two launches a
    layer a step).
+17. The dry run and the sharding layer (``get_optimized``, the mesh): (a)
+   ``serve`` of ``get_optimized("qwen3-8b")`` (chunked attention, chunks of
+   1,024) at phase 6's shape; its prefill logits held against phase 6's
+   flash-path logits from the same seed-0 weights by the ``LM_FACTOR`` rule
+   (phase 6's fp32 copy the witness), no flash launch in its prefill, and
+   the chunked and flash prefills timed in turns on the same weights; (b)
+   ``get_optimized("deepseek-v2-lite-16b")`` at full width and depth
+   (chunked MLA at d = 192 / dv = 128, rowwise MoE with one row) with the
+   routes pinned to phase 15a's: its prefill logits no further from 15a's
+   flash logits than ``LM_FACTOR`` times 15a's plain-attention gap; (c)
+   ``python -m repro_torch.launch.dryrun`` on Qwen3-8B's train_4k,
+   prefill_32k and decode_32k and ``--oavi``, in a subprocess that must not
+   initialize CUDA: each Qwen3-8B cell's FLOP count equal to its products
+   counted by hand, the OAVI step's all-reduce (L K + K K) fp32 words (the
+   whole grid, whose SSM cells take minutes of host time, is left to the
+   CLI and the CPU tests); (d)
+   ``launch.train.train`` of Qwen2-1.5B cut to 2 periods, 2 steps of 4 x
+   1,024, under ``make_local_mesh()`` (an NCCL world of one) and with no
+   mesh, deterministic algorithms on: the losses bit for bit equal.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -1235,10 +1254,12 @@ def judge_logits(tag, dists):
         raise AssertionError(f"{tag}: the kernel model's logits are off")
 
 
-def main_path_serve(dev, arch="qwen3-8b", phase="6"):
+def main_path_serve(dev, arch="qwen3-8b", phase="6", keep=None):
     """``serve`` of a dense GQA model at full width and depth (phase 6:
     Qwen3-8B; 16c: Qwen2-VL-2B, text-mode M-RoPE), then the same weights'
-    logits against plain attention and an fp32 copy."""
+    logits against plain attention and an fp32 copy.  ``keep`` (a dict)
+    receives the prefill's last-token logits of the kernel path and the
+    fp32 copy on the host, for phase 17a."""
     import dataclasses
 
     import torch
@@ -1311,6 +1332,9 @@ def main_path_serve(dev, arch="qwen3-8b", phase="6"):
         if t.shape[-1] != cfg.vocab_size or not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{tag}: not finite of width {cfg.vocab_size}")
         judge_logits(tag, dists)
+    if keep is not None:
+        keep.update(flash=lk[:, -1].float().cpu(), fp32=l32[:, -1].float().cpu(),
+                    plain_vs_fp32=pre["plain_vs_fp32"], prefill_s=out["prefill_s"])
     torch.cuda.empty_cache()
     return launches, dict(prefill_s=out["prefill_s"], decode_s=out["decode_s"],
                           tokens_per_s=out["tokens_per_s"], serve_s=serve_s,
@@ -3451,11 +3475,12 @@ def _flip_shares(ids_a, ids_b):
                   .float().mean()) for a, b in zip(ids_a, ids_b)]
 
 
-def mla_serve_full(dev):
+def mla_serve_full(dev, keep=None):
     """15a-15b at full depth: ``serve`` of DeepSeek-V2-Lite, then the same
     weights rebuilt: a repeated prefill's bits, profiles, and the kernel run
     against the plain one with routes pinned (the gap printed) and unpinned
-    (the flip share printed)."""
+    (the flip share printed).  ``keep`` receives the kernel run's prefill
+    logits and routes and the pinned gap, for phase 17b."""
     import torch
 
     from repro_torch import configs
@@ -3541,6 +3566,9 @@ def mla_serve_full(dev):
         f"plain, prefill {gap['prefill']:.6g}, decode {gap['decode']:.6g} (not gated); "
         f"unpinned, the plain run's share of tokens routed to another expert set, by layer: "
         f"{[round(f, 4) for f in flips]} (mean {float(np.mean(flips)):.4f}; not gated)")
+    if keep is not None:
+        keep.update(flash=lk[:, -1].float().cpu(), routes=[i.cpu() for i in kernel_run.ids[:n_moe]],
+                    plain_gap=gap["prefill"], prefill_s=out["prefill_s"])
     del model
     torch.cuda.empty_cache()
     return launches, dict(prefill_s=out["prefill_s"], prompt_tokens_per_s=tokens / out["prefill_s"],
@@ -3750,9 +3778,9 @@ def mla_train(dev):
                           periods=cfg.n_periods)
 
 
-def main_path_moe(dev):
+def main_path_moe(dev, keep=None):
     t0 = time.perf_counter()
-    serve_launches, full = mla_serve_full(dev)
+    serve_launches, full = mla_serve_full(dev, keep)
     witness = mla_witness(dev)
     kimi_launches, kimi = kimi_period(dev)
     train_launches, train = mla_train(dev)
@@ -4247,6 +4275,273 @@ def main_path_families(dev):
                      hubert=audio_launches, hubert_train=train_launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the dry run and the sharding layer
+# ---------------------------------------------------------------------------
+
+OPT_BATCH, OPT_PROMPT, OPT_GEN = 4, 2048, 32  # phase 6's serving shape
+DRYRUN_ARCH = "qwen3-8b"  # 17c's cells: one train, one prefill, one decode
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 180
+MESH_TRAIN_PERIODS, MESH_TRAIN_STEPS = 2, 2
+
+DRYRUN_PROGRAM = """
+import json, sys, time
+import torch
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+for i, shape in enumerate(json.loads(sys.argv[3])):
+    recs = dryrun.main(["--arch", sys.argv[2], "--shape", shape, "--out", sys.argv[1]]
+                       + (["--oavi"] if i == 0 else []))
+print(json.dumps(dict(records=len(recs), cuda_initialized=torch.cuda.is_initialized(),
+                      seconds=time.perf_counter() - t0)))
+"""
+
+
+def dense_matmul_flops(cfg, shape) -> int:
+    """Every product of a dense attention + MLP cell, 2 m n k each, counted
+    by hand: per token a period's q, k, v, o projections and the SwiGLU's
+    three; per head of a sequence the scores and the weighted sum over every
+    key (the plain attention masks, it does not skip); the unembedding of
+    every position (train) or of the last (prefill, decode).  Train is 3
+    forwards (each product's two in the backward) and remat's recompute of
+    each period, which stops before the period's last product (the MLP's
+    down projection, whose output the backward does not need)."""
+    d, H, Hkv, dh, ff = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    B, S = shape.global_batch, shape.seq_len
+    T = B if shape.kind == "decode" else B * S
+    Sq = 1 if shape.kind == "decode" else S
+    period = 2 * T * (d * H * dh + 2 * d * Hkv * dh + H * dh * d + 3 * d * ff) \
+        + 4 * B * H * Sq * S * dh
+    forward = cfg.n_periods * period \
+        + 2 * (T if shape.kind == "train" else B) * d * cfg.vocab_size
+    if shape.kind != "train":
+        return forward
+    return 3 * forward + cfg.n_periods * (period - 2 * T * ff * d)
+
+
+def run_dryrun():
+    """17c: ``python -m repro_torch.launch.dryrun`` on one train, one prefill
+    and one decode cell of Qwen3-8B and the OAVI degree step, in a
+    subprocess that must not initialize CUDA.  Each Qwen3-8B cell's count
+    is held to the products counted by hand, exactly; the OAVI step's
+    all-reduce to (L K + K K) fp32 words.  The rest of the grid (the SSM
+    cells' meta runs take minutes of host time) is left to the CLI and the
+    CPU tests."""
+    import tempfile
+
+    from repro_torch import configs
+
+    log(f"phase 17c: python -m repro_torch.launch.dryrun --arch {DRYRUN_ARCH} --shape "
+        f"{'|'.join(DRYRUN_SHAPES)} --oavi (pod16x16, meta tensors)")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run([sys.executable, "-c", DRYRUN_PROGRAM, tmp, DRYRUN_ARCH,
+                              json.dumps(DRYRUN_SHAPES)], capture_output=True, text=True,
+                             env=env, cwd=HERE, timeout=DRYRUN_TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"17c: the dry run exited {out.returncode}: "
+                                 f"{(out.stdout + out.stderr)[-3000:]}")
+        with open(os.path.join(tmp, "dryrun_torch_pod16x16.json")) as f:
+            recs = {(r["arch"], r["shape"]): r for r in json.load(f)}
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"  {summary['records']} records in {summary['seconds']:.1f} s of its own "
+        f"({time.perf_counter() - t0:.1f} s with the process); CUDA initialized there: "
+        f"{summary['cuda_initialized']}")
+    if summary["cuda_initialized"] or len(recs) != len(DRYRUN_SHAPES) + 1:
+        raise AssertionError(f"17c: {len(recs)} records, CUDA initialized "
+                             f"{summary['cuda_initialized']}")
+    cfg = configs.get_config(DRYRUN_ARCH)
+    flops = {}
+    for shape in DRYRUN_SHAPES:
+        r = recs[(DRYRUN_ARCH, shape)]
+        want = dense_matmul_flops(cfg, configs.SHAPES[shape])
+        log(f"  {DRYRUN_ARCH} {shape}: flops_total {r['flops_total']:.6e} (by hand "
+            f"{want:.6e}), bytes/device {r['bytes_accessed']:.6e}, arguments/device "
+            f"{r['memory']['argument_size_bytes']}, {r['time_count_s']} s")
+        if r["flops_total"] != want:
+            raise AssertionError(f"17c: {shape} counted {r['flops_total']} flops, "
+                                 f"the products make {want}")
+        flops[shape] = r["flops_total"]
+    oavi = recs[("oavi-gram-step", "m4M_n57_L256_K64")]
+    if not oavi["flops"] > 0 or oavi["collective_bytes"]["all-reduce"] != (256 * 64 + 64 * 64) * 4:
+        raise AssertionError(f"17c: the OAVI record is off: {oavi}")
+    return dict(records=len(recs), seconds=summary["seconds"], flops_total=flops,
+                oavi_flops=oavi["flops"])
+
+
+def _set_attn_impl(model, impl):
+    for blk in model.blocks:
+        if hasattr(blk, "dims") and hasattr(blk.dims, "impl"):
+            blk.dims = blk.dims._replace(impl=impl)
+
+
+def _prefill_turns(model, prompts, S_max):
+    """Host seconds (synchronized) of the chunked and the flash prefill on
+    the same weights, in turns chunked, flash, flash, chunked, after one
+    warm call of each."""
+    import torch
+
+    times = {"chunked": [], "reference": []}
+    for impl in ("chunked", "reference", "reference", "chunked", "chunked", "reference",
+                 "reference", "chunked"):
+        _set_attn_impl(model, impl)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(prompts, S_max)
+        torch.cuda.synchronize()
+        times[impl].append(time.perf_counter() - t0)
+    _set_attn_impl(model, "chunked")
+    return {("flash" if k == "reference" else k): float(np.median(v[1:]))
+            for k, v in times.items()}
+
+
+def optimized_qwen(dev, p6):
+    """17a: ``get_optimized("qwen3-8b")`` served at phase 6's shape, then
+    held against phase 6's flash-path logits."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_optimized("qwen3-8b")
+    log(f"phase 17a: serve get_optimized('qwen3-8b') (attn_impl {cfg.attn_impl}, attn_chunk "
+        f"{cfg.attn_chunk}) at full width and depth, batch {OPT_BATCH}, prompt {OPT_PROMPT}, "
+        f"{OPT_GEN} generated, seed 0")
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = serve(cfg, batch=OPT_BATCH, prompt_len=OPT_PROMPT, gen_tokens=OPT_GEN, seed=0)
+    launches = ops.launch_counts()
+    log(f"  serve: prefill {out['prefill_s']:.4f} s (phase 6's flash prefill "
+        f"{p6['prefill_s']:.4f} s); decode {out['decode_s']:.4f} s, {out['tokens_per_s']:.2f} "
+        f"tokens/s; kernel launches {launches}")
+    if launches["flash_attention"]:
+        raise AssertionError("17a: the chunked prefill launched the flash kernel")
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (OPT_BATCH, OPT_PROMPT)), dtype=torch.long, device=dev)
+    S_max = OPT_PROMPT + OPT_GEN
+    with torch.inference_mode():
+        lc, _ = model.prefill(prompts, S_max)
+        turns = _prefill_turns(model, prompts, S_max)
+    del model
+    torch.cuda.empty_cache()
+    chunked = lc[:, -1].float().cpu()
+    if not bool(torch.isfinite(chunked).all()) or chunked.shape[-1] != cfg.vocab_size:
+        raise AssertionError("17a: chunked logits not finite of the vocabulary's width")
+    d_flash = float((chunked - p6["flash"]).abs().max())
+    d_fp32 = float((chunked - p6["fp32"]).abs().max())
+    limit = LM_FACTOR * p6["plain_vs_fp32"]
+    log(f"  prefill last-token logits: chunked vs phase 6's flash {d_flash:.6g}, chunked vs "
+        f"fp32 {d_fp32:.6g}, phase 6's plain bf16 vs fp32 {p6['plain_vs_fp32']:.6g} (limit "
+        f"{limit:.6g}); same top-1: {bool(torch.equal(chunked.argmax(-1), p6['flash'].argmax(-1)))}")
+    log(f"  warm prefill on the same weights, in turns (median of 3, host s synchronized): "
+        f"chunked {turns['chunked']:.4f}, flash {turns['flash']:.4f} "
+        f"(chunked / flash {turns['chunked'] / turns['flash']:.2f})")
+    if d_flash > limit or d_fp32 > limit:
+        raise AssertionError("17a: the chunked model's logits are off")
+    return dict(serve_prefill_s=out["prefill_s"], flash_serve_prefill_s=p6["prefill_s"],
+                decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+                warm_prefill_s=turns, chunked_vs_flash=d_flash, chunked_vs_fp32=d_fp32,
+                limit=limit)
+
+
+def optimized_deepseek(dev, p15):
+    """17b: ``get_optimized("deepseek-v2-lite-16b")`` at full width and
+    depth, routes pinned to phase 15a's prefill, against 15a's flash
+    logits."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_optimized(MLA_ARCH)
+    T = MOE_BATCH * MOE_PROMPT
+    log(f"phase 17b: get_optimized('{MLA_ARCH}') at full width and depth (chunked MLA at d "
+        f"{cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim} / dv {cfg.mla.v_head_dim}, chunks of "
+        f"{cfg.attn_chunk}; MoE dispatch {cfg.moe.dispatch}, {moe.rows_of(T, cfg.moe)} row), "
+        f"batch {MOE_BATCH}, prompt {MOE_PROMPT}, seed 0, routes pinned to phase 15a's")
+    if moe.rows_of(T, cfg.moe) != 1:
+        raise AssertionError("17b: rowwise dispatch without a mesh must have one row")
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _prompts(cfg, dev)
+    S_max = MOE_PROMPT + MOE_GEN
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        with MoEProbe(replay=[r.to(dev) for r in p15["routes"]]):
+            lc, _ = model.prefill(prompts, S_max)
+        launches = ops.launch_counts()
+        turns = _prefill_turns(model, prompts, S_max)
+    del model
+    torch.cuda.empty_cache()
+    chunked = lc[:, -1].float().cpu()
+    if not bool(torch.isfinite(chunked).all()) or chunked.shape[-1] != cfg.vocab_size:
+        raise AssertionError("17b: chunked logits not finite of the vocabulary's width")
+    gap = float((chunked - p15["flash"]).abs().max())
+    limit = LM_FACTOR * p15["plain_gap"]
+    log(f"  prefill last-token logits, routes pinned: chunked vs 15a's flash {gap:.6g}, 15a's "
+        f"plain vs flash {p15['plain_gap']:.6g} (limit {limit:.6g}); kernel launches {launches}")
+    log(f"  warm prefill on the same weights, in turns (median of 3, unpinned): chunked "
+        f"{turns['chunked']:.4f} s, flash {turns['flash']:.4f} s (15a's served flash prefill "
+        f"{p15['prefill_s']:.4f} s)")
+    if launches["flash_attention"]:
+        raise AssertionError("17b: the chunked prefill launched the flash kernel")
+    if gap > limit:
+        raise AssertionError("17b: the chunked model's logits are off")
+    return dict(chunked_vs_flash=gap, limit=limit, warm_prefill_s=turns)
+
+
+def train_under_mesh(dev):
+    """17d: ``launch.train.train`` under ``make_local_mesh()`` and with no
+    mesh: the same losses, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train
+
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH), n_periods=MESH_TRAIN_PERIODS)
+    log(f"phase 17d: launch.train.train({cfg.name} cut to {MESH_TRAIN_PERIODS} periods, "
+        f"{MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}) under make_local_mesh() and "
+        "with mesh=None, torch.use_deterministic_algorithms(True, warn_only=True)")
+    kw = dict(steps=MESH_TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0,
+              log_every=MESH_TRAIN_STEPS)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_local_mesh()
+        log(f"  mesh {mesh} (backend {dist.get_backend()}, world {dist.get_world_size()})")
+        with_mesh = train(cfg, mesh=mesh, **kw)["losses"]
+        without = train(cfg, mesh=None, **kw)["losses"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log(f"  losses under the mesh {with_mesh}, without {without}; bit-equal: "
+        f"{with_mesh == without}")
+    if with_mesh != without or not all(np.isfinite(with_mesh)):
+        raise AssertionError("17d: training under the local mesh changed the losses")
+    return dict(losses=with_mesh)
+
+
+def main_path_optimized(dev, p6, p15):
+    t0 = time.perf_counter()
+    qwen = optimized_qwen(dev, p6)
+    deepseek = optimized_deepseek(dev, p15)
+    dry = run_dryrun()
+    mesh_train = train_under_mesh(dev)
+    out = dict(qwen3_8b=qwen, deepseek=deepseek, dryrun=dry, mesh_train=mesh_train,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4327,7 +4622,8 @@ def main() -> int:
         if flash[key]["variant"] != kind:
             raise AssertionError(f"flash shape {key} took the {flash[key]['variant']} variant, "
                                  f"not {kind}")
-    serve_launches, lm = main_path_serve(dev)
+    p6 = {}
+    serve_launches, lm = main_path_serve(dev, keep=p6)
     oracle_launches, oracle = main_path_oracles(paper_data, wide_fast)
     abm_launches, gram3, baselines = main_path_baselines(dev, paper_data, wide_fast[0])
     batch_launches, class_batched = main_path_class_batch(paper_data)
@@ -4336,8 +4632,10 @@ def main() -> int:
     continuous, loop_launches = main_path_continuous()
     distributed, dist_launches = main_path_distributed(paper_clf, paper_data)
     training, train_launches = main_path_train(dev)
-    moe_run, moe_launches = main_path_moe(dev)
+    p15 = {}
+    moe_run, moe_launches = main_path_moe(dev, keep=p15)
     families, family_launches = main_path_families(dev)
+    optimized = main_path_optimized(dev, p6, p15)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -4438,6 +4736,7 @@ def main() -> int:
         "training": training,
         "moe": moe_run,
         "families": families,
+        "optimized": optimized,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

@@ -10,6 +10,8 @@ def resolve(device=None) -> torch.device:
     """``None`` means the CUDA card; without one, raise rather than fall back.
 
     The CPU runs only when the caller asks for it (``device="cpu"``).
+    ``"meta"`` builds shapes and types without storage (the dry run's
+    allocation-free build); nothing is computed there.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -20,8 +22,8 @@ def resolve(device=None) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}: expected 'cpu' or 'cuda'")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"unsupported device {dev}: expected 'cpu', 'cuda' or 'meta'")
     return dev
 
 

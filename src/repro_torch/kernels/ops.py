@@ -92,11 +92,13 @@ def flop_count() -> float:
 
 
 def _kernel_path(t: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    """True to launch the CUDA kernel, False for the plain version."""
+    """True to launch the CUDA kernel, False for the plain version.  A meta
+    tensor (the dry run's) takes the plain version: it computes nothing,
+    only the shapes and types of the results."""
     if t.device.type == "cuda":
         return use_kernel is not False
-    if t.device.type != "cpu":
-        raise ValueError(f"unsupported device {t.device}: expected cpu or cuda")
+    if t.device.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {t.device}: expected cpu, cuda or meta")
     if use_kernel:
         raise ValueError("use_kernel=True needs CUDA tensors")
     return False

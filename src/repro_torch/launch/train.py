@@ -9,8 +9,11 @@ Counterpart of ``src/repro/launch/train.py``::
 
 The reference runs the same code on a device mesh under GSPMD
 (``param_specs``/``batch_specs``); the port trains on one device
-(``mesh=None``, or a ``DeviceMesh`` of world 1).  Data-parallel and sharded
-training over ``torch.distributed`` is ROADMAP item 14i.  On the card every
+(``mesh=None``, or a ``DeviceMesh`` of world 1 such as
+``launch.mesh.make_local_mesh()``, under which the steps run inside
+``models.hints.use_mesh``, the reference's ``with mesh:``; a world of one
+gives the same bits as no mesh).  Data-parallel and sharded training over
+``torch.distributed`` is ROADMAP item 14i.  On the card every
 attention layer's forward launches the hand-written flash kernel (twice a
 step under remat: the forward and its recompute); the backward is plain
 PyTorch.  The pipeline yields tokens only, as the reference's does: a frames
@@ -35,6 +38,7 @@ import torch
 
 from .. import _device, configs
 from ..data import lm as lm_data
+from ..models import hints
 from ..models import model as M
 from ..optim import AdamW
 from ..runtime import TrainLoop, TrainLoopConfig
@@ -112,19 +116,20 @@ def train(
         losses.append(loss)
         return {"params": live, "opt": opt_state}, {"loss": loss}
 
-    if ckpt_dir is not None:
-        loop = TrainLoop(TrainLoopConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
-                         wrapped_step, batch_fn, state)
-        loop.try_resume()
-        report = loop.run(steps)
-    else:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            state, m = wrapped_step(state, batch_fn(i))
-            if i % log_every == 0:
-                print(f"step {i:5d} loss {m['loss']:.4f}", flush=True)
-        _sync(dev)
-        report = {"final_step": steps, "seconds": time.perf_counter() - t0}
+    with hints.use_mesh(mesh):
+        if ckpt_dir is not None:
+            loop = TrainLoop(TrainLoopConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
+                             wrapped_step, batch_fn, state)
+            loop.try_resume()
+            report = loop.run(steps)
+        else:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state, m = wrapped_step(state, batch_fn(i))
+                if i % log_every == 0:
+                    print(f"step {i:5d} loss {m['loss']:.4f}", flush=True)
+            _sync(dev)
+            report = {"final_step": steps, "seconds": time.perf_counter() - t0}
     report["losses"] = losses
     report["step_seconds"] = step_seconds
     return report

@@ -2,9 +2,14 @@
 cache, causal or not (``AttnDims.causal``: an encoder attends both ways).
 
 Counterpart of ``src/repro/models/attention.py``.  The full-sequence paths
-(``forward``, ``prefill``) attend through
-:func:`repro_torch.kernels.ops.multihead_attention`: the hand-written flash
-kernel on the card, the plain version on the CPU.  Decode is dense one-token
+(``forward``, ``prefill``) attend through :func:`attend`: with
+``impl="reference"`` (the default) through
+:func:`repro_torch.kernels.ops.multihead_attention`, the hand-written flash
+kernel on the card and the plain version on the CPU; with ``impl="chunked"``
+through :func:`_chunked_attention`, the reference's online softmax over KV
+chunks in plain PyTorch ops on every device (the reference computes it
+outside any Pallas kernel: it is the ``get_optimized`` profile's attention,
+not a plain version of the flash kernel).  Decode is dense one-token
 attention over the cache in plain PyTorch ops, as in the JAX package (it
 reads the whole cache once and is bound by that read).  Weights keep the JAX
 layout, ``(in, out)``, so ``x @ w``.
@@ -19,7 +24,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
-from . import layers
+from . import hints, layers
 
 
 class AttnDims(NamedTuple):
@@ -31,9 +36,62 @@ class AttnDims(NamedTuple):
     rope_theta: float
     causal: bool
     mrope_sections: Optional[Tuple[int, int, int]] = None  # M-RoPE if set
-    impl: str = "reference"  # "reference" | "chunked" (flash-in-XLA)
+    impl: str = "reference"  # "reference" (the flash kernel) | "chunked"
     chunk: int = 1024
-    unroll: bool = False  # cost-extraction: unroll the kv-chunk scan
+    unroll: bool = False  # the reference's cost extraction (eager: no effect)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dims,
+                       use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``dims.chunk`` keys: the
+    reference's ``lax.scan`` as a Python loop, so the score matrix never
+    exceeds (Sq, chunk) a head.  q: (B, H, Sq, dh); k, v: (B, Hkv, Sk, dh*).
+
+    The reference's casts: each chunk's scores are formed in the inputs'
+    type, then scaled in fp32, masked with -1e30 (causal), and the
+    probabilities are cast to v's type for the product, accumulated in fp32
+    and cast back at the end.  A ragged Sk (not a multiple of the chunk)
+    goes to :func:`ops.multihead_attention` (the flash kernel on the card),
+    as the reference falls back to its reference path.  ``dims``: anything
+    with ``chunk`` and ``causal`` (:class:`AttnDims`, ``mla.MLADims``)."""
+    B, H, Sq, dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = H // Hkv
+    ck = min(dims.chunk, Sk)
+    if Sk % ck:
+        return ops.multihead_attention(q, k, v, causal=dims.causal, use_kernel=use_kernel)
+    scale = 1.0 / dh ** 0.5
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    m_run = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    s_run = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, dv), dtype=torch.float32, device=q.device)
+    for start in range(0, Sk, ck):
+        k_c, v_c = k[:, :, start:start + ck], v[:, :, start:start + ck]
+        if group != 1:
+            k_c = k_c.repeat_interleave(group, dim=1)
+            v_c = v_c.repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k_c).float() * scale
+        if dims.causal:
+            kv_pos = start + torch.arange(ck, device=q.device)[None, :]
+            s = torch.where(q_pos >= kv_pos, s, NEG_INF)
+        m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_run - m_new)
+        s_run = s_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v_c.dtype), v_c).float()
+        m_run = m_new
+    return (acc / torch.clamp(s_run, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dims,
+           use_kernel: Optional[bool]) -> torch.Tensor:
+    """(B, H, S, dh) attention by ``dims.impl``: the chunked online softmax,
+    or :func:`ops.multihead_attention` (the flash kernel on the card)."""
+    if dims.impl == "chunked":
+        return _chunked_attention(q, k, v, dims, use_kernel)
+    return ops.multihead_attention(q, k, v, causal=dims.causal, use_kernel=use_kernel)
 
 
 class KVCache(NamedTuple):
@@ -53,10 +111,8 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, dims: AttnDims, dtype, device,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if dims.impl != "reference":
-            raise NotImplementedError(
-                f"attn_impl={dims.impl!r}: the port attends through its flash kernel "
-                "only (ROADMAP queue 1 item 14h)")
+        if dims.impl not in ("reference", "chunked"):
+            raise ValueError(f"unknown attn_impl {dims.impl!r}")
         self.dims = dims
         H, Hkv, dh = dims.n_heads, dims.n_kv_heads, dims.d_head
         self.norm_scale = layers.param(layers.init_rms_scale(d_model, dtype, device))
@@ -102,12 +158,11 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         h = layers.rms_norm(x, self.norm_scale)
         q, k, v = self._project_qkv(h, positions)
-        out = ops.multihead_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=self.dims.causal, use_kernel=use_kernel,
-        )
+        out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                     self.dims, use_kernel)
         out = out.transpose(1, 2).reshape(B, S, self.dims.n_heads * self.dims.d_head)
-        return x + out @ self.wo, k, v
+        # the reference pins the batch axes here (a no-op in eager code)
+        return x + hints.constrain_batch(out) @ self.wo, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:

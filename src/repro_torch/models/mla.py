@@ -6,7 +6,8 @@ through a low-rank latent ``c_kv`` (``kv_lora_rank``) plus one rotary key
 cached.  The explicit (non-absorbed) form, as in the JAX package: prefill
 expands K and V from the latent and attends through
 :func:`repro_torch.kernels.ops.multihead_attention` (the hand-written flash
-kernel on the card, at d = nope + rope and dv = v_head_dim), and each decode
+kernel on the card, at d = nope + rope and dv = v_head_dim), or through
+attention's chunked online softmax with ``impl="chunked"``, and each decode
 step expands the whole latent cache again and attends in plain PyTorch ops.
 """
 
@@ -17,9 +18,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels import ops
 from ..kernels.ref import NEG_INF
 from . import layers
+from .attention import attend
 
 
 class MLADims(NamedTuple):
@@ -30,7 +31,7 @@ class MLADims(NamedTuple):
     v_head_dim: int
     rope_theta: float
     causal: bool = True
-    impl: str = "reference"  # "reference" | "chunked" (ROADMAP item 14h)
+    impl: str = "reference"  # "reference" | "chunked" (attention._chunked_attention)
     chunk: int = 1024
     unroll: bool = False
 
@@ -54,10 +55,8 @@ class MLA(nn.Module):
     def __init__(self, d_model: int, dims: MLADims, dtype, device,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if dims.impl != "reference":
-            raise NotImplementedError(
-                f"attn_impl={dims.impl!r}: the port attends through its flash kernel "
-                "only (ROADMAP queue 1 item 14h)")
+        if dims.impl not in ("reference", "chunked"):
+            raise ValueError(f"unknown attn_impl {dims.impl!r}")
         self.dims = dims
         H, r = dims.n_heads, dims.kv_lora_rank
         self.norm_scale = layers.param(layers.init_rms_scale(d_model, dtype, device))
@@ -117,8 +116,7 @@ class MLA(nn.Module):
         q = torch.cat([q_nope.transpose(1, 2), q_pe.transpose(1, 2)], dim=-1)
         k = torch.cat([k_nope.transpose(1, 2),
                        k_pe[:, None].expand(B, H, S, d.qk_rope_dim)], dim=-1)
-        out = ops.multihead_attention(q, k, v.transpose(1, 2), causal=d.causal,
-                                      use_kernel=use_kernel)
+        out = attend(q, k, v.transpose(1, 2), d, use_kernel)
         out = out.transpose(1, 2).reshape(B, S, H * d.v_head_dim)
         return x + out @ self.wo, c_kv, k_pe
 

@@ -27,9 +27,16 @@ recomputes the rest.  The serving paths (``prefill``, ``decode_step``) run
 under ``torch.no_grad()``.
 
 ``unroll_scan`` (the reference's cost-extraction mode) changes nothing in
-eager PyTorch, where nothing is traced, except on an sLSTM block: there the
-reference swaps in a FLOP-equivalent parallel form, the dry run's proxy
-(ROADMAP item 14h), and the port raises.
+eager PyTorch, where nothing is traced, except on an sLSTM block: there it
+swaps in the reference's FLOP-equivalent parallel form, the dry run's cost
+proxy (:class:`repro_torch.models.ssm.SLSTM`).
+
+The dry run's pieces: :func:`abstract_params` and :func:`abstract_cache`
+build on the ``meta`` device (shapes and types, no storage), and the
+sharding rules -- :func:`param_specs`, :func:`batch_specs`,
+:func:`cache_specs` -- give the reference's spec for every leaf, a spec
+being a tuple of ``None | axis | tuple of axes``.  ``forward`` pins the
+batch axes before every block (:mod:`.hints`), as the reference does.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
-from . import attention, layers, mla, moe, ssm
+from . import attention, hints, layers, mla, moe, ssm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,16 +118,11 @@ class ModelConfig:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a frontend the reference does not know, and
-    ``NotImplementedError`` for an option of a later ROADMAP item (an
-    unknown block type raises in :func:`_block`)."""
+    """Raise for a frontend the reference does not know (an unknown block
+    type raises in :func:`_block`, an unknown ``attn_impl`` in the
+    attention blocks)."""
     if cfg.frontend not in ("tokens", "frames"):
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
-    if cfg.unroll_scan and "slstm" in cfg.period:
-        raise NotImplementedError(
-            f"{cfg.name}: unroll_scan on an sLSTM block is the dry run's FLOP proxy, "
-            "ROADMAP queue 1 item 14h")
-    # attn_impl="chunked" raises in attention.Attention / mla.MLA (item 14h)
 
 
 def _check_decodes(cfg: ModelConfig) -> None:
@@ -154,7 +156,8 @@ Cache = List[Optional[Union[attention.KVCache, mla.MLACache, ssm.MambaState,
 class Transformer(nn.Module):
     """The LM.  ``seed`` draws random weights on ``device`` with a
     generator of that device, sub-block by sub-block; ``seed=None`` leaves
-    them uninitialized for :meth:`load_params`.  A ``frames`` config holds
+    them uninitialized for :meth:`load_params`, as does ``device="meta"``
+    (:func:`abstract_params`).  A ``frames`` config holds
     ``embed_proj`` (d_model, d_model) in place of ``embed``.
 
     Every sub-block has one interface: ``forward(x, positions, use_kernel)
@@ -169,7 +172,9 @@ class Transformer(nn.Module):
         self.cfg = cfg
         dtype = cfg.torch_dtype()
         device = torch.device(device)
-        gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+        # meta holds no values, so nothing is drawn there
+        gen = (None if seed is None or device.type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
         if cfg.frontend == "tokens":
             embed_shape = (cfg.vocab_size, cfg.d_model)
             self.embed = layers.param(
@@ -234,6 +239,7 @@ class Transformer(nn.Module):
         block order (the reference's scan carries ``(x, aux)``)."""
         P = len(self.cfg.period)
         for blk in self.blocks[i * P:(i + 1) * P]:
+            x = hints.constrain_batch(x)  # re-pin the batch axes every block
             x, a = blk(x, positions, use_kernel)
             if a is not None:
                 aux = aux + a
@@ -285,7 +291,15 @@ class Transformer(nn.Module):
         cache).  An SSM block's entry is a fresh state, not the state at the
         prompt's end (the reference's documented serving limitation)."""
         _check_decodes(self.cfg)
-        x = self.embed[tokens]
+        return self.prefill_inputs(tokens, S_max, use_kernel)
+
+    @torch.no_grad()
+    def prefill_inputs(self, inputs, S_max: int,
+                       use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, Cache]:
+        """:meth:`prefill` on anything :meth:`_embed` takes, an encoder's
+        frames included: the reference's ``prefill``, which has no encoder
+        check (the dry run's ``prefill_32k`` cell of HuBERT)."""
+        x = self._embed(inputs)
         B, S, _ = x.shape
         positions = self._positions(B, S, x.device)
         cache: Cache = []
@@ -323,7 +337,7 @@ def _block(btype: str, cfg: ModelConfig, dtype, device, gen) -> nn.Module:
     if btype == "mlstm":
         return ssm.MLSTM(d, cfg.mlstm, cfg.ssm_chunk, dtype, device, gen)
     if btype == "slstm":
-        return ssm.SLSTM(d, cfg.slstm, dtype, device, gen)
+        return ssm.SLSTM(d, cfg.slstm, dtype, device, gen, cost_mode=cfg.unroll_scan)
     raise ValueError(f"unknown block type {btype!r}")
 
 
@@ -442,3 +456,181 @@ def make_train_step(optimizer, *, use_kernel: Optional[bool] = None) -> Callable
         return loss.detach(), opt_state
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The dry run's abstract build (meta device: shapes and types, no storage)
+# ---------------------------------------------------------------------------
+
+
+def abstract_params(cfg: ModelConfig, seed: int = 0) -> Transformer:
+    """The model on the ``meta`` device: every parameter with its shape and
+    type and no storage (the reference's ``ShapeDtypeStruct`` pytree).
+    ``seed`` is the reference's argument; nothing is drawn on meta."""
+    return Transformer(cfg, device="meta", seed=None)
+
+
+def abstract_cache(cfg: ModelConfig, B: int, S_max: int) -> Cache:
+    """The serving cache of :meth:`Transformer.init_cache` on ``meta``, one
+    entry a sub-block, for any frontend (the reference's ``init_cache`` has
+    no encoder check)."""
+    model = abstract_params(cfg)
+    dtype = cfg.torch_dtype()
+    return [blk.init_cache(B, S_max, dtype, "meta") for blk in model.blocks]
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (the reference's baseline FSDP x TP plan)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]  # one entry a dimension: None | axis | tuple of axes
+
+# leaf name -> spec of the block-local shape
+_RULES: Dict[str, Spec] = {
+    # attention
+    "wq": ("data", "model"),
+    "wk": ("data", "model"),
+    "wv": ("data", "model"),
+    "wo": ("model", "data"),
+    "bq": ("model",),
+    "bk": ("model",),
+    "bv": ("model",),
+    # mlp
+    "w_in": ("data", "model"),
+    "w_out": ("model", "data"),
+    # moe (expert-major weights override w_in/w_out by rank below)
+    "router": ("data", None),
+    "sw_in": ("data", "model"),
+    "sw_out": ("model", "data"),
+    # mla
+    "w_dkv": ("data", None),
+    "w_uk": (None, "model"),
+    "w_uv": (None, "model"),
+    # mamba
+    "conv_w": (None, "model"),
+    "conv_b": ("model",),
+    "w_x": ("model", None),
+    "w_dt": (None, "model"),
+    "dt_bias": ("model",),
+    "A_log": ("model", None),
+    "D": ("model",),
+    # mlstm / slstm
+    "w_up": ("data", "model"),
+    "w_if": ("data", None),
+    "b_i": (None,),
+    "b_f": (None,),
+    "w_down": ("model", "data"),
+    "w": ("data", "model"),
+    "r": (None,),
+    "b": (None,),
+    # io
+    "embed": ("model", "data"),
+    "embed_proj": ("data", "model"),
+    "head": ("data", "model"),
+}
+
+_REPLICATED = {"norm_scale", "q_norm", "k_norm", "kv_norm", "out_norm", "final_norm"}
+
+
+def _spec_for(name: str, rank: int) -> Spec:
+    """The reference's rule for the leaf ``name`` (a parameter name of
+    :class:`Transformer`) of block-local rank ``rank``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _REPLICATED:
+        return ()
+    if leaf in ("w_in", "w_out") and rank == 3:  # MoE expert stacks
+        return ("model", "data", None) if leaf == "w_in" else ("model", None, "data")
+    if leaf in ("wq", "wk", "wv") and rank == 3:  # mLSTM per-head (H, dh, dh)
+        return (None, "data", "model")
+    if leaf in _RULES:
+        return _RULES[leaf][:rank]  # trim over-long specs for low-rank leaves
+    return ()
+
+
+def _entry_size(sizes: Mapping[str, int], entry) -> int:
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n = 1
+    for a in axes:
+        n *= int(sizes[a])
+    return n
+
+
+def fit_spec(spec: Spec, shape, sizes: Mapping[str, int]) -> Spec:
+    """The divisibility fix: an entry whose mesh size does not divide its
+    dimension becomes None (a 504-class head over a 16-way model axis)."""
+    return tuple(None if e is None or shape[dim] % _entry_size(sizes, e) else e
+                 for dim, e in enumerate(spec))
+
+
+def _leaves(params_like) -> Dict[str, Any]:
+    if isinstance(params_like, nn.Module):
+        return dict(params_like.state_dict(keep_vars=True))
+    return dict(params_like)
+
+
+def param_specs(cfg: ModelConfig, params_like, mesh=None) -> Dict[str, Spec]:
+    """The reference's spec for every parameter, keyed by the port's names
+    (``blocks.{i}.{leaf}``, as :func:`repro_torch.convert.lm_params_from_reference`
+    keys the reference's leaves).  ``params_like``: a :class:`Transformer`
+    (on meta, for instance) or a dict of name -> tensor.  A block's spec is
+    the reference's without its leading period axis (``None`` there).
+
+    With ``mesh`` given, axes that do not divide the corresponding dimension
+    are dropped, as the reference's explicit input shardings require."""
+    leaves = _leaves(params_like)
+    specs = {k: _spec_for(k, len(v.shape)) for k, v in leaves.items()}
+    if mesh is None:
+        return specs
+    sizes = hints.mesh_axis_sizes(mesh)
+    return {k: fit_spec(spec, leaves[k].shape, sizes) for k, spec in specs.items()}
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in hints.mesh_axis_sizes(mesh) else ("data",)
+
+
+def _mesh_size(mesh, axes: Tuple[str, ...]) -> int:
+    sizes = hints.mesh_axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _batch_spec_entry(mesh, size: int):
+    """Largest suffix of the batch axes whose size divides ``size``: the
+    pod axis is dropped first, then data (a spec entry, or None)."""
+    ba = batch_axes(mesh)
+    for start in range(len(ba)):
+        axes = ba[start:]
+        if size % _mesh_size(mesh, axes) == 0:
+            return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def batch_specs(cfg: ModelConfig, mesh, kind: str, global_batch: int) -> Dict[str, Spec]:
+    """Input specs of a step kind ('train' | 'prefill' | 'decode').  A batch
+    the data axes do not divide is replicated (the long_500k cell's one
+    request)."""
+    b = _batch_spec_entry(mesh, global_batch)
+    if kind == "decode":
+        return {"token": (b,), "pos": (b,)}
+    if cfg.frontend == "tokens":
+        return {"tokens": (b, None)}
+    out = {"frames": (b, None, None)}
+    if kind == "train":
+        out["labels"] = (b, None)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, cache_like: Cache, mesh) -> List[Any]:
+    """The cache's specs, one entry a sub-block as in ``cache_like`` (a
+    NamedTuple of specs, or None): the batch dim over the data axes where
+    they divide it, the rest left unconstrained.  The reference's leaves
+    carry a leading period axis (``None`` in its spec) that the port's
+    per-block caches do not."""
+
+    def spec(leaf) -> Spec:
+        return (_batch_spec_entry(mesh, int(leaf.shape[0])),) + (None,) * (leaf.dim() - 1)
+
+    return [None if c is None else type(c)(*(spec(t) for t in c)) for c in cache_like]

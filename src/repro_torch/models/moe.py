@@ -25,9 +25,14 @@ counts (the aux loss, the positions) are integer scatter-adds, which are
 exact in any order; ``torch.bincount`` would read its input's maximum back
 to the host.
 
-``dispatch="rowwise"`` is the reference's per-data-shard dispatch; without
-a mesh (ROADMAP item 14g) the port has one row, and one row is the global
-dispatch at ``capacity(T)``, the reference's own single-device identity.
+``dispatch="rowwise"`` is the reference's per-data-shard dispatch: under a
+mesh (:func:`.hints.use_mesh`) the T tokens are viewed as (rows, T / rows),
+``rows`` the product of the mesh's ``pod`` and ``data`` sizes, and each row
+is planned, dispatched and combined on its own at ``capacity(T / rows)``;
+routing and the aux loss stay global, as the reference's.  Without a mesh
+(or where rows do not divide T) there is one row, which is the global
+dispatch at ``capacity(T)``, the reference's own single-device identity,
+and the same code path and bits as ``dispatch="global"``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from . import layers
+from . import hints, layers
 
 
 class MoEDims(NamedTuple):
@@ -52,6 +57,17 @@ class MoEDims(NamedTuple):
     # "global": one (E, C, d) buffer; "rowwise": one per data shard (one row
     # without a mesh, which is the global dispatch)
     dispatch: str = "global"
+
+
+def rows_of(T: int, dims: MoEDims) -> int:
+    """Rows of the rowwise dispatch for ``T`` tokens: the active mesh's
+    ``pod`` x ``data`` size where it divides T, else 1 (and 1 for the
+    global dispatch)."""
+    if dims.dispatch != "rowwise":
+        return 1
+    sizes = hints.axis_sizes()
+    rows = sizes.get("pod", 1) * sizes.get("data", 1)
+    return rows if T % rows == 0 else 1
 
 
 def capacity(T: int, dims: MoEDims) -> int:
@@ -197,13 +213,36 @@ class MoE(layers.Stateless, nn.Module):
         B, S, d = x.shape
         T = B * S
         E = self.dims.num_experts
-        C = capacity(T, self.dims)
+        rows = rows_of(T, self.dims)
+        C = capacity(T // rows, self.dims)
         h = layers.rms_norm(x, self.norm_scale).reshape(T, d)
         probs, gates, eidx = route(h, self.router, self.dims)
         aux = aux_loss(probs, eidx, self.dims)
-        plan = dispatch_plan(eidx, E, C)
-        y = experts(dispatch(h, plan, E, C), self.w_in, self.w_out)
-        out = combine(y, gates, plan)
+        if rows == 1:
+            plan = dispatch_plan(eidx, E, C)
+            y = experts(dispatch(h, plan, E, C), self.w_in, self.w_out)
+            out = combine(y, gates, plan)
+        else:
+            out = self._rowwise(h, gates, eidx, rows, C)
         if self.dims.n_shared > 0:
             out = out + layers.swiglu(h, self.sw_in, self.sw_out)
         return x + out.reshape(B, S, d), aux
+
+    def _rowwise(self, h: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor,
+                 rows: int, C: int) -> torch.Tensor:
+        """Steps 2-6 row by row: each row of ``T / rows`` tokens gets its own
+        plan, its own (E, C, d) buffer and its own combine; the experts run
+        once over every row's buffer (the reference's ``recd,edf->recf``
+        einsum), the rows laid end to end along each expert's slots."""
+        T, d = h.shape
+        E = self.dims.num_experts
+        Tr = T // rows
+        # rows over the batch axes, as the reference pins them (a no-op here)
+        hr = hints.constrain_batch(h.reshape(rows, Tr, d))
+        parts = [slice(r * Tr, (r + 1) * Tr) for r in range(rows)]
+        plans = [dispatch_plan(eidx[p], E, C) for p in parts]
+        buf = torch.stack([dispatch(hr[r], plans[r], E, C) for r in range(rows)])
+        y = experts(buf.transpose(0, 1).reshape(E, rows * C, d), self.w_in, self.w_out)
+        y = y.reshape(E, rows, C, d).transpose(0, 1)  # (rows, E, C, d)
+        out = torch.stack([combine(y[r], gates[p], plans[r]) for r, p in enumerate(parts)])
+        return out.reshape(T, d)

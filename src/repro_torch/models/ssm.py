@@ -21,7 +21,11 @@ where a value is rounded matters as much as how it is computed.
   chunks; the running max is ``torch.cummax`` (exact).
 * **sLSTM** (scalar memory, block-diagonal recurrence): a Python loop over
   time of :func:`_slstm_cell`, as the reference's ``lax.scan`` is, run
-  eagerly (some 25 launches a step on the card).
+  eagerly (some 25 launches a step on the card).  With ``cost_mode`` (the
+  config's ``unroll_scan``) it is the reference's FLOP-equivalent parallel
+  form instead, the dry run's cost proxy: the gates see the normed input in
+  place of ``h_{t-1}``, so c and n are linear recurrences that the
+  log-step scan computes.  Not the sLSTM's values: a cost stand-in.
 
 ``prefill`` keeps the reference's documented serving limitation: it runs the
 full forward and returns a *fresh* state (zeros), not the state at the end of
@@ -456,9 +460,9 @@ class SLSTM(nn.Module):
     ``b`` the gate biases with the forget slice at 3.0)."""
 
     def __init__(self, d_model: int, dims: SLSTMDims, dtype, device,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, cost_mode: bool = False):
         super().__init__()
-        self.dims = dims
+        self.dims, self.cost_mode = dims, cost_mode
         H = dims.n_heads
         dh = d_model // H
         self.norm_scale = layers.param(layers.init_rms_scale(d_model, dtype, device))
@@ -472,15 +476,42 @@ class SLSTM(nn.Module):
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
         """The time loop: one :func:`_slstm_cell` a step, as the reference's
-        ``lax.scan``."""
+        ``lax.scan``; with ``cost_mode`` the parallel proxy
+        (:meth:`_cost_forward`)."""
         B, T, d = x.shape
-        xw = layers.rms_norm(x, self.norm_scale) @ self.w + self.b  # (B, T, 4d)
+        h = layers.rms_norm(x, self.norm_scale)
+        xw = h @ self.w + self.b  # (B, T, 4d)
+        if self.cost_mode:
+            return self._cost_forward(x, h, xw), None
         state = _slstm_init_state(B, d, x.dtype, x.device)
         hs: List[torch.Tensor] = []
         for t in range(T):
             state = _slstm_cell(self.r, xw[:, t], state)
             hs.append(state.h)
         return x + torch.stack(hs, dim=1) @ self.w_out, None
+
+    def _cost_forward(self, x: torch.Tensor, h: torch.Tensor,
+                      xw: torch.Tensor) -> torch.Tensor:
+        """The reference's ``cost_mode``: the per-head recurrent product and
+        the gates of every step at once, ``h`` (the normed input) standing in
+        for ``h_{t-1}``; then ``c_t = f_t c_{t-1} + i_t z_t`` and ``n_t = f_t
+        n_{t-1} + i_t`` by the log-step scan.  Its per-step operations are
+        the time loop's; its values are not the sLSTM's."""
+        B, T, d = x.shape
+        H = self.dims.n_heads
+        dh = d // H
+        rec = torch.einsum("bthd,hde->bthe", h.reshape(B, T, H, dh), self.r)
+        rec = rec.reshape(B, T, H, 4, dh).transpose(2, 3).reshape(B, T, 4 * d)
+        li, lf, z_in, o_in = (xw + rec).chunk(4, dim=-1)
+        lf = F.logsigmoid(lf.float())
+        i_p = torch.exp(li.float() - torch.amax(li).float())
+        f_p = torch.exp(lf)
+        z_t = torch.tanh(z_in)
+        o_t = torch.sigmoid(o_in)
+        c_all = _log_step_scan(f_p, i_p * z_t.float())
+        n_all = _log_step_scan(f_p, i_p)
+        hs = o_t * (c_all / torch.clamp(n_all, min=1e-6)).to(x.dtype)
+        return x + hs @ self.w_out
 
     def init_cache(self, B: int, S_max: int, dtype, device) -> SLSTMState:
         return _slstm_init_state(B, self.w.shape[0], dtype, device)

@@ -136,6 +136,17 @@ class AdamW:
                 mu[name], nu[name] = m, n
         return params, AdamWState(step=step, mu=mu, nu=nu)
 
+    def state_specs(self, param_specs: Dict[str, Any]) -> AdamWState:
+        """Specs of the optimizer state (a spec is a tuple of ``None | axis
+        | tuple of axes``, as ``models.model.param_specs`` gives them): the
+        moments mirror the parameters, the step is replicated.  Quantized
+        moments, ``(int8 blocks, scale)``, are replicated, as the
+        reference's are (their blocks cut across the parameter's shape)."""
+        if self.quantize_states:
+            q = {k: ((), ()) for k in param_specs}
+            return AdamWState(step=(), mu=q, nu=dict(q))
+        return AdamWState(step=(), mu=dict(param_specs), nu=dict(param_specs))
+
 
 # ---------------------------------------------------------------------------
 # Error-feedback int8 gradient compression

@@ -65,17 +65,27 @@ def test_configs_copied_exactly(arch, which):
 
 def test_unported_options_raise():
     """Every architecture of the JAX registry builds (``configs.UNPORTED``
-    is empty); the dry run's options raise naming item 14h, an unknown block
-    type ``ValueError``."""
+    is empty); an unknown block type raises ``ValueError``.  The dry run's
+    options, once raising (item 14h), now build and match the reference:
+    chunked attention (``get_optimized``'s) and ``unroll_scan`` on an sLSTM
+    (its cost form), each forward at the LM tolerance
+    (``tests/test_torch_optimized.py`` holds losses and gradients)."""
     assert configs.UNPORTED == {} and sorted(jconfigs.ARCHS) == ALL_ARCHS
     cfg = configs.get_reduced("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="item 14h"):
-        Transformer(dataclasses.replace(cfg, attn_impl="chunked"), device="cpu")
-    xlstm = configs.get_reduced("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="item 14h"):
-        Transformer(dataclasses.replace(xlstm, unroll_scan=True), device="cpu")
     with pytest.raises(ValueError, match="unknown block type"):
         Transformer(dataclasses.replace(cfg, period=("attn", "conv")), device="cpu")
+    for arch, kw in (("qwen3-8b", dict(attn_impl="chunked", attn_chunk=8)),
+                     ("xlstm-1.3b", dict(unroll_scan=True))):
+        jcfg = dataclasses.replace(jconfigs.get_reduced(arch), **kw)
+        pcfg = dataclasses.replace(configs.get_reduced(arch), **kw)
+        jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+        model = Transformer.from_params(
+            pcfg, lm_params_from_reference(jax.tree.map(np.asarray, jp), pcfg), device="cpu")
+        toks = _tokens(pcfg, (2, 16))
+        want, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, jcfg)
+        with torch.no_grad():
+            got, _ = model(torch.from_numpy(toks))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def test_layers_match_reference():

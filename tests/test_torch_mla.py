@@ -131,8 +131,22 @@ def test_mla_attends_head_major_aligned(monkeypatch):
 
 
 def test_chunked_impl_raises():
+    """Only an unknown attention implementation raises now; the chunked one
+    (once raising, item 14h) builds, and its block forward matches the
+    reference's chunked MLA (``jmla.forward`` through
+    ``attention._chunked_attention``) at the parity tolerance, both at
+    chunks of 4 over S = 12 and ragged (chunk 5)."""
     cfg = configs.get_reduced("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="item 14h"):
-        Transformer(dataclasses.replace(cfg, attn_impl="chunked"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14h"):
-        mla.MLA(16, cfg.mla._replace(impl="chunked"), torch.float32, "cpu")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        Transformer(dataclasses.replace(cfg, attn_impl="flash"), device="cpu")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        mla.MLA(16, cfg.mla._replace(impl="flash"), torch.float32, "cpu")
+    Transformer(dataclasses.replace(cfg, attn_impl="chunked"), device="cpu")
+    jdims, jp, block, x, pos = _carried("dv-differs")
+    for chunk in (4, 5):
+        block.dims = block.dims._replace(impl="chunked", chunk=chunk)
+        want = jmla.forward(jp, jnp.asarray(x), jdims._replace(impl="chunked", chunk=chunk),
+                            jnp.asarray(pos))
+        with torch.no_grad():
+            got, _ = block(torch.from_numpy(x), torch.from_numpy(pos.copy()))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)

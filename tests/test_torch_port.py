@@ -73,12 +73,16 @@ SLICE_MODULES = [
     "repro_torch.launch",
     "repro_torch.launch.chaos_vi",
     "repro_torch.launch.continuous_vi",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.hlo_analysis",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.obs_report",
     "repro_torch.launch.serve",
     "repro_torch.launch.serve_vi",
     "repro_torch.launch.train",
     "repro_torch.models",
     "repro_torch.models.attention",
+    "repro_torch.models.hints",
     "repro_torch.models.layers",
     "repro_torch.models.mla",
     "repro_torch.models.model",

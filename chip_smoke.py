@@ -211,6 +211,30 @@ Phases, each reported on its own lines:
    ``launch.train.train`` of Qwen2-1.5B cut to 2 periods, 2 steps of 4 x
    1,024, under ``make_local_mesh()`` (an NCCL world of one) and with no
    mesh, deterministic algorithms on: the losses bit for bit equal.
+18. LM serving and training over two ranks (``runtime/data_parallel.py``,
+   ``serve(mesh=)``, ``make_sharded_train_state`` / ``make_step``, the MoE
+   across ranks): two gloo ranks on the one card (spawned processes; NCCL
+   refuses two ranks on one device), a (data 2, model 1) mesh, each held
+   against a one-device run in this process: (a) ``serve`` of Qwen2-1.5B at
+   full width and depth, batch 4 x 1,024 prompt tokens, 32 generated, two
+   rows a rank: each rank's prefill logits within ``LM_FACTOR`` of the
+   one-device run's rows, one flash launch a layer a rank, the generated
+   tokens that differ reported; (b) Qwen2-1.5B cut to 2 periods, 3 steps of
+   4 x 1,024 with the parameters and fp32 moments cut by ``param_specs`` /
+   ``state_specs``: the ranks' losses and gathered parameters bit-equal, the
+   losses within ``MESH_LOSS_RTOL`` of one device's and the gathered
+   parameters within ``MESH_PARAM_RTOL`` of one device's (relative to how
+   far its steps moved them), two flash launches a layer a step,
+   ``memory_allocated`` between steps within 5% of the plan's at-rest
+   bytes, the collectives issued equal to the plan's, step and collective
+   seconds (gloo through the host); (c) DeepSeek-V2-Lite cut to 2 periods,
+   2 steps, the one-device run's routes replayed: the aux loss and the
+   global dispatch plan over both ranks, the same gates on its losses and
+   parameters.  Controls that must fail the gates: each run again on the
+   ranks with every sharded gradient left unreduced (a rank's own block of
+   its own gradient), and 18b's cut on one device at learning rate 0.
+   18b-c's optimizer takes no warm-up step, so every step after the first
+   reads an update.
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -223,6 +247,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4364,6 +4389,11 @@ def run_dryrun():
             raise AssertionError(f"17c: {shape} counted {r['flops_total']} flops, "
                                  f"the products make {want}")
         flops[shape] = r["flops_total"]
+    coll = recs[(DRYRUN_ARCH, "train_4k")]["collective_bytes"]
+    log(f"  {DRYRUN_ARCH} train_4k collective bytes a device (the data-parallel plan, data axis "
+        f"only; the model axis waits for item 14j): {coll}")
+    if not coll["all-gather"] > 0:
+        raise AssertionError(f"17c: the train cell's collective bytes are off: {coll}")
     oavi = recs[("oavi-gram-step", "m4M_n57_L256_K64")]
     if not oavi["flops"] > 0 or oavi["collective_bytes"]["all-reduce"] != (256 * 64 + 64 * 64) * 4:
         raise AssertionError(f"17c: the OAVI record is off: {oavi}")
@@ -4542,6 +4572,423 @@ def main_path_optimized(dev, p6, p15):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: LM serving and training over two ranks (torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_SERVE_PROMPT, MESH_SERVE_GEN = 1024, 32
+MESH_STEPS, MESH_MOE_STEPS = 3, 2
+MESH_LR = 3e-4
+MESH_TIMEOUT_S = 300
+# 18b-c: two ranks against one device, the same bf16 weights and batches.
+# Each rank's products run on half the rows, and its bf16 gradients are
+# summed over the ranks and halved where one device sums every row at once:
+# each gradient entry moves by a few bf16 roundings (2^-8 relative).  At lr
+# 3e-4 a bf16 weight takes an update of ~2-3 units in its last place, so
+# some updates round one unit apart.  Both limits lie between the readings
+# of the sound runs and those of the controls (PERF.md).  Losses: the sound
+# runs' up to 2.3e-5 from one device's, 18b's controls' 1.3e-4 and more;
+# one update moves the next loss by only ~1.5e-4, so the losses cannot
+# tell every wrong update (18c's unreduced control reads 1.1e-5): the
+# parameters decide.
+MESH_LOSS_RTOL = 6e-5
+# |P - P1| / |P1 - P0| over every parameter entry, in fp32: P the ranks'
+# gathered parameters after the steps, P1 one device's, P0 the initial
+# ones.  The sound runs read 0.020 (18b) and 0.017 (18c), their unreduced
+# controls 0.92 and 0.98.
+MESH_PARAM_RTOL = 0.1
+# 18b: what a rank's torch.cuda.memory_allocated() grew by from before its
+# train state was built, read between steps, against the plan's at-rest
+# bytes (blocks, replicated leaves, fp32 moment blocks): the rest is the
+# backward thread's cuBLAS workspace (32 MiB, allocated in the first step)
+# and the next batch
+AT_REST_RTOL = 0.05
+
+MESH_RANK_PROGRAM = """
+import datetime, json, os, sys, time
+import numpy as np
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+rank, world, work, here = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+                        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=240))
+try:
+    sys.path.insert(0, here)
+    import chip_smoke as C
+    C.mesh_rank(rank, world, work)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _checksum(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in turn."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_cut(cfg_name, periods):
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get_config(cfg_name), n_periods=periods)
+
+
+def _mesh_opt(steps, lr=MESH_LR):
+    """18b-c's AdamW: no warm-up step (the first step's learning rate is
+    already ``lr``), so each loss after the first reads an update."""
+    from repro_torch.optim import AdamW
+
+    return AdamW(peak_lr=lr, warmup_steps=0, total_steps=steps)
+
+
+def _replaying(ids):
+    return contextlib.nullcontext() if ids is None else MoEProbe(replay=ids)
+
+
+def _param_gap(full, one) -> float:
+    """``|P - P1| / |P1 - P0|`` over every entry, in fp32: ``full`` the
+    parameters after a run's steps (P), ``one`` the one-device run's after
+    its steps (``p1``) and ``|P1 - P0|^2`` (``den``)."""
+    import torch
+
+    num = 0.0
+    for k, p1 in one["p1"].items():
+        diff = full[k].to("cuda", torch.float32) - p1.to("cuda", torch.float32)
+        num += float(torch.sum(torch.square(diff)))
+    return math.sqrt(num / one["den"])
+
+
+def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False):
+    """``steps`` steps of ``cfg`` on this rank's rows through
+    ``make_sharded_train_state`` / ``make_step`` (18b-c), ``replay``'s route
+    ids replayed: the losses, step and collective seconds, the bytes
+    allocated above the level before the state (before and between steps),
+    the launches and collectives of the steps, and the gathered parameters'
+    checksum and, on the rank given ``one``, their distance from one
+    device's.  ``unreduced`` is the control: each sharded leaf's gradient
+    left unreduced (this rank's block of its own gradient, over the world),
+    as a reduce_scatter that returned only the local sum would."""
+    import torch
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_sharded_train_state, make_step
+
+    opt = _mesh_opt(steps)
+    pipe = lm_data.PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # this process's before the state exists
+    model, params, st, plan = make_sharded_train_state(cfg, opt, mesh, seed=0)
+    if unreduced:
+        plan.sync_grads = lambda grads: {
+            k: (plan.comm.all_reduce(g, plan.batch_group) if plan.leaves[k].dim is None
+                else plan.cut(k, g)).div_(plan.world) for k, g in grads.items()}
+    step = make_step(model, opt, plan)
+    torch.cuda.synchronize()
+    rest = [torch.cuda.memory_allocated() - held]
+    ops.reset_launch_counts()
+    plan.comm.reset()
+    losses, step_s, coll_s = [], [], []
+    with _replaying(replay):
+        for i in range(steps):
+            batch = {"tokens": lm_data.batch_for_mesh(pipe, i, mesh, device="cuda")}
+            c0, t0 = plan.comm.seconds, time.perf_counter()
+            loss, params, st = step(params, st, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            coll_s.append(plan.comm.seconds - c0)
+            del batch
+            torch.cuda.synchronize()
+            rest.append(torch.cuda.memory_allocated() - held)
+    launches, issued = ops.launch_counts(), dict(plan.comm.bytes)
+    full = plan.full_state({"params": params})["params"]
+    out = dict(losses=losses, step_s=step_s, collective_s=coll_s, allocated=rest,
+               at_rest=plan.at_rest_bytes(), launches=launches, issued=issued,
+               want=plan.collective_bytes("train", TRAIN_BATCH, TRAIN_SEQ),
+               checksum=_checksum(full[k] for k in sorted(full)),
+               sharded=len(plan.sharded()), leaves=len(plan.leaves),
+               param_gap=_param_gap(full, one) if one else None)
+    del model, params, st, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, work):
+    """One rank of phase 18 (two gloo ranks on the one card): 18a serves,
+    18b trains the dense cut and 18c the MoE cut (the one-device run's
+    routes replayed), each then again as the unreduced control.  Writes
+    what it got to ``work/rank<rank>.pt``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.set_device(0)
+    mesh = init_device_mesh("cuda", (world, 1), mesh_dim_names=("data", "model"))
+    out = {}
+
+    # 18a: serve Qwen2-1.5B, this rank's rows of the prompt batch; serve's
+    # own prefill logits of them go back
+    cfg = configs.get_config(TRAIN_ARCH)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = serve(cfg, batch=TRAIN_BATCH, prompt_len=MESH_SERVE_PROMPT,
+                   gen_tokens=MESH_SERVE_GEN, seed=0, mesh=mesh)
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out["serve"] = dict(logits=served["prefill_logits"].float().cpu(),
+                        generated=served["generated"], prefill_s=served["prefill_s"],
+                        decode_s=served["decode_s"], tokens_per_s=served["tokens_per_s"],
+                        serve_s=serve_s, launches=launches)
+    del served
+    torch.cuda.empty_cache()
+
+    # 18b and 18c, each with its control; rank 0 measures the parameters'
+    # distance from one device's
+    n = TRAIN_BATCH // world
+    for key, cfg, steps in (("train", _mesh_cut(TRAIN_ARCH, MESH_TRAIN_PERIODS), MESH_STEPS),
+                            ("moe", _mesh_cut(MLA_ARCH, 2), MESH_MOE_STEPS)):
+        one = torch.load(os.path.join(work, f"one_{key}.pt")) if rank == 0 else None
+        replay = None
+        if key == "moe":  # this rank's rows of each route call's ids
+            ids = torch.load(os.path.join(work, "moe_ids.pt"), map_location="cuda")
+            replay = [e[rank * n * TRAIN_SEQ:(rank + 1) * n * TRAIN_SEQ] for e in ids]
+        out[key] = _rank_train(cfg, mesh, steps, one, replay=replay)
+        out[key + "_control"] = _rank_train(cfg, mesh, steps, one, replay=replay,
+                                            unreduced=True)
+        del one
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _one_device_train(cfg, lr, steps, dev, work=None, key=None):
+    """``steps`` steps of ``cfg`` on one device through the ranks' pieces
+    (``mesh=None``): the losses and step seconds; with ``work``, the
+    parameters after the steps and their squared distance from the initial
+    ones to ``work/one_<key>.pt`` (:func:`_param_gap`'s reference)."""
+    import torch
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch.train import make_sharded_train_state, make_step
+
+    opt = _mesh_opt(steps, lr)
+    pipe = lm_data.PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ + 1,
+                                  global_batch=TRAIN_BATCH, seed=0)
+    model, params, st, plan = make_sharded_train_state(cfg, opt, None, seed=0, device=dev)
+    p0 = {k: v.detach().clone() for k, v in params.items()} if work else None
+    step = make_step(model, opt, plan)
+    losses, step_s = [], []
+    for i in range(steps):
+        batch = {"tokens": lm_data.batch_for_mesh(pipe, i, None, device=dev)}
+        t0 = time.perf_counter()
+        loss, params, st = step(params, st, batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    if work:
+        den = sum(float(torch.sum(torch.square(params[k].detach().float() - p0[k].float())))
+                  for k in params)
+        torch.save(dict(p1={k: v.detach().cpu() for k, v in params.items()}, den=den),
+                   os.path.join(work, f"one_{key}.pt"))
+    del model, params, st, p0
+    torch.cuda.empty_cache()
+    return losses, step_s
+
+
+def mesh_one_device(dev, work):
+    """18a-c's one-device runs: Qwen2-1.5B's served tokens and prefill
+    logits (bf16 through the kernel, and an fp32 copy); the dense and the
+    MoE cut's losses and parameters (to ``work``), the MoE's route ids
+    recorded; and the dense cut at learning rate 0 (a control)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    served = serve(cfg, batch=TRAIN_BATCH, prompt_len=MESH_SERVE_PROMPT,
+                   gen_tokens=MESH_SERVE_GEN, seed=0)
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, MESH_SERVE_PROMPT)), device=dev)
+    S_max = MESH_SERVE_PROMPT + MESH_SERVE_GEN
+    with torch.inference_mode():
+        lk, _ = model.prefill(prompts, S_max)
+        model32 = Transformer.from_params(dataclasses.replace(cfg, dtype="float32"),
+                                          model.state_dict(), device=dev)
+        del model
+        l32, _ = model32.prefill(prompts, S_max, use_kernel=False)
+        del model32
+    one = dict(generated=served["generated"], prefill_s=served["prefill_s"],
+               decode_s=served["decode_s"], logits=lk[:, -1].float().cpu(),
+               fp32=l32[:, -1].float().cpu())
+    del lk, l32, served
+    torch.cuda.empty_cache()
+    cut = _mesh_cut(TRAIN_ARCH, MESH_TRAIN_PERIODS)
+    dense, dense_s = _one_device_train(cut, MESH_LR, MESH_STEPS, dev, work, "train")
+    dense_lr0 = _one_device_train(cut, 0.0, MESH_STEPS, dev)[0]
+    with MoEProbe() as probe:
+        moe_run, moe_s = _one_device_train(_mesh_cut(MLA_ARCH, 2), MESH_LR, MESH_MOE_STEPS,
+                                           dev, work, "moe")
+    torch.save(probe.ids, os.path.join(work, "moe_ids.pt"))
+    return dict(serve=one, train=dense, train_step_s=dense_s, train_lr0=dense_lr0,
+                moe=moe_run, moe_step_s=moe_s, moe_route_calls=len(probe.ids))
+
+
+def main_path_mesh(dev):
+    """Phase 18: LM serving and training over two gloo ranks on the one card
+    (spawned processes; NCCL refuses two ranks on one device), held against
+    one-device runs in this process."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    log(f"phase 18: {MESH_RANKS} gloo ranks on the one card, a (data {MESH_RANKS}, model 1) "
+        f"mesh: (a) serve {TRAIN_ARCH} at full width and depth, batch {TRAIN_BATCH} x "
+        f"{MESH_SERVE_PROMPT} prompt tokens, {MESH_SERVE_GEN} generated; (b) {TRAIN_ARCH} cut "
+        f"to {MESH_TRAIN_PERIODS} periods, {MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"(leaves and fp32 moments cut by param_specs/state_specs); (c) {MLA_ARCH} cut to 2 "
+        f"periods, {MESH_MOE_STEPS} steps, routes replayed from the one-device run, the aux "
+        "loss and the global dispatch plan over both ranks")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        one = mesh_one_device(dev, work)
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK_PROGRAM, str(r),
+                                   str(MESH_RANKS), work, HERE], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(MESH_RANKS)]
+        try:
+            errs = [p.communicate(timeout=MESH_TIMEOUT_S)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t1
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"18: a rank failed: {[e[-3000:] for e in errs]}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(MESH_RANKS)]
+
+    # 18a
+    cfg = configs.get_config(TRAIN_ARCH)
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    ref = one["serve"]
+    limit = LM_FACTOR * float((ref["logits"] - ref["fp32"]).abs().max())
+    gaps, n = [], TRAIN_BATCH // MESH_RANKS
+    for rank, r in enumerate(ranks):  # rank r serves rows [r n, (r + 1) n) of the batch
+        if r["serve"]["logits"].shape != (n, cfg.vocab_size):
+            raise AssertionError(f"18a: rank {rank}'s prefill logits are "
+                                 f"{tuple(r['serve']['logits'].shape)}")
+        gaps.append(float((r["serve"]["logits"] - ref["logits"][rank * n:(rank + 1) * n])
+                          .abs().max()))
+        if r["serve"]["launches"]["flash_attention"] != n_attn:
+            raise AssertionError(f"18a: a rank launched flash "
+                                 f"{r['serve']['launches']['flash_attention']} times, expected "
+                                 f"{n_attn}")
+        if r["serve"]["generated"].shape != (TRAIN_BATCH, MESH_SERVE_GEN):
+            raise AssertionError("18a: a rank's gathered tokens are not the whole batch's")
+    if not np.array_equal(ranks[0]["serve"]["generated"], ranks[1]["serve"]["generated"]):
+        raise AssertionError("18a: the ranks returned different tokens")
+    differ = int(np.sum(ranks[0]["serve"]["generated"] != ref["generated"]))
+    log(f"  18a: serve's prefill last-token logits against the one-device run's rows: max "
+        f"|gap| {[round(g, 6) for g in gaps]} (limit {LM_FACTOR} x the one-device bf16 vs fp32 "
+        f"gap = {limit:.6g}); generated tokens differing from one device's: {differ} of "
+        f"{ref['generated'].size}; rank prefill s {[r['serve']['prefill_s'] for r in ranks]} "
+        f"(one device {ref['prefill_s']:.4f}), decode tokens/s "
+        f"{[round(r['serve']['tokens_per_s'], 2) for r in ranks]}; flash launches a rank "
+        f"{[r['serve']['launches']['flash_attention'] for r in ranks]}")
+    if max(gaps) > limit:
+        raise AssertionError("18a: a rank's prefill logits are off")
+
+    # 18b-c: the ranks agree bit for bit; their losses and gathered
+    # parameters agree with one device's; each control fails the gates
+    def loss_gap(losses, ref):
+        return float(np.max(np.abs(np.subtract(losses, ref)) / np.abs(ref)))
+
+    n_flash = {"train": 2 * MESH_TRAIN_PERIODS * cfg.period.count("attn") * MESH_STEPS,
+               "moe": 2 * 2 * configs.get_config(MLA_ARCH).period.count("mla") * MESH_MOE_STEPS}
+    found = {}
+    for key, tag in (("train", "18b"), ("moe", "18c")):
+        runs, ctrl = [r[key] for r in ranks], ranks[0][key + "_control"]
+        gap, ctrl_gap = loss_gap(runs[0]["losses"], one[key]), loss_gap(ctrl["losses"], one[key])
+        log(f"  {tag}: losses rank 0 {runs[0]['losses']}, rank 1 {runs[1]['losses']}, one "
+            f"device {one[key]} (largest relative gap {gap:.3g}, limit {MESH_LOSS_RTOL}); "
+            f"gathered parameters |P - P1| / |P1 - P0| {runs[0]['param_gap']:.6g} (limit "
+            f"{MESH_PARAM_RTOL}); control with unreduced sharded gradients: losses "
+            f"{ctrl['losses']} (gap {ctrl_gap:.3g}), parameters {ctrl['param_gap']:.6g}; "
+            f"checksums equal: {runs[0]['checksum'] == runs[1]['checksum']}; "
+            f"{runs[0]['sharded']} of {runs[0]['leaves']} leaves sharded; step seconds a rank "
+            f"{[[round(x, 4) for x in t['step_s']] for t in runs]} (one device "
+            f"{[round(x, 4) for x in one[key + '_step_s']]}), of which collectives (gloo "
+            f"through the host) {[[round(x, 4) for x in t['collective_s']] for t in runs]}; "
+            f"bytes allocated above the level before the state, read before and between steps "
+            f"{[t['allocated'] for t in runs]}, against the plan's at-rest {runs[0]['at_rest']}; "
+            f"collectives issued {runs[0]['issued']}, the plan's a step {runs[0]['want']}; "
+            f"flash launches a rank {[t['launches']['flash_attention'] for t in runs]}")
+        for t in runs:
+            if t["losses"] != runs[0]["losses"] or t["checksum"] != runs[0]["checksum"]:
+                raise AssertionError(f"{tag}: the ranks' losses or gathered parameters differ")
+            if t["launches"]["flash_attention"] != n_flash[key]:
+                raise AssertionError(f"{tag}: {t['launches']['flash_attention']} flash "
+                                     f"launches, expected {n_flash[key]}")
+        if gap > MESH_LOSS_RTOL or not np.isfinite(runs[0]["losses"]).all():
+            raise AssertionError(f"{tag}: the two ranks' losses are off the one-device run's")
+        if not runs[0]["param_gap"] <= MESH_PARAM_RTOL:
+            raise AssertionError(f"{tag}: the two ranks' parameters are off the one-device run's")
+        if not ctrl["param_gap"] > MESH_PARAM_RTOL:  # else the gate cannot see a wrong update
+            raise AssertionError(f"{tag}: the unreduced control passed the parameter gate "
+                                 f"({ctrl['param_gap']})")
+        found[key] = dict(losses=runs[0]["losses"], one=one[key], gap=gap,
+                          param_gap=runs[0]["param_gap"], control_gap=ctrl_gap,
+                          control_param_gap=ctrl["param_gap"],
+                          step_s=[t["step_s"] for t in runs],
+                          collective_s=[t["collective_s"] for t in runs],
+                          issued=runs[0]["issued"])
+    # 18b's memory and collectives against the plan, and its lr-0 control
+    tr = [r["train"] for r in ranks]
+    for t in tr:
+        if any(abs(a - t["at_rest"]) > AT_REST_RTOL * t["at_rest"] for a in t["allocated"]):
+            raise AssertionError(f"18b: allocated {t['allocated']} between steps, the plan "
+                                 f"holds {t['at_rest']}")
+        want = {k: v * MESH_STEPS for k, v in t["want"].items() if k != "total"}
+        if t["issued"] != want:
+            raise AssertionError(f"18b: collectives {t['issued']}, the plan's {want}")
+    lr0_gap = loss_gap(one["train_lr0"], one["train"])
+    log(f"  18b's control at lr 0 on one device: losses {one['train_lr0']} (gap {lr0_gap:.3g}, "
+        f"limit {MESH_LOSS_RTOL})")
+    if not lr0_gap > MESH_LOSS_RTOL:
+        raise AssertionError(f"18b: the lr-0 control passed the loss gate ({lr0_gap})")
+    out = dict(serve_gaps=gaps, serve_limit=limit, tokens_differing=differ,
+               serve_prefill_s=[r["serve"]["prefill_s"] for r in ranks],
+               serve_tokens_per_s=[r["serve"]["tokens_per_s"] for r in ranks],
+               train=found["train"], moe=found["moe"], train_lr0_gap=lr0_gap,
+               allocated=[t["allocated"] for t in tr], at_rest=tr[0]["at_rest"],
+               collective_bytes=tr[0]["want"], ranks_s=ranks_s,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 18: {out['seconds']:.1f} s ({ranks_s:.1f} s of it the ranks, start-up "
+        "included)")
+    launches = {"serve": ranks[0]["serve"]["launches"], "train": ranks[0]["train"]["launches"],
+                "moe": ranks[0]["moe"]["launches"]}
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -4636,6 +5083,7 @@ def main() -> int:
     moe_run, moe_launches = main_path_moe(dev, keep=p15)
     families, family_launches = main_path_families(dev)
     optimized = main_path_optimized(dev, p6, p15)
+    mesh_run, mesh_launches = main_path_mesh(dev)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -4705,6 +5153,11 @@ def main() -> int:
                              train_launches=family_launches["hubert_train"]["flash_attention"],
                              **flash["hubert_d80"]),
              scalar_24_16=flash["scalar_24_16"],
+             # phase 18, each of the two ranks (rank 0's count; both gated):
+             # its rows' prefill, the dense cut's steps, the MoE cut's steps
+             mesh_serve_launches=mesh_launches["serve"]["flash_attention"],
+             mesh_train_launches=mesh_launches["train"]["flash_attention"],
+             mesh_moe_train_launches=mesh_launches["moe"]["flash_attention"],
              **flash["serve"]),
     ]
     for entry in kernels:
@@ -4737,6 +5190,7 @@ def main() -> int:
         "moe": moe_run,
         "families": families,
         "optimized": optimized,
+        "mesh": mesh_run,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

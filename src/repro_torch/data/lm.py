@@ -12,11 +12,12 @@ for line, and give its tokens bit for bit:
 * **structured** -- a degree-2 Markov chain over the vocabulary rather than
   iid noise, so cross-entropy actually decreases during training.
 
-Where the reference places the batch under a mesh's sharding
-(``batch_for_mesh``), the port places it on one device
-(:func:`batch_for_device`): training over several devices is ROADMAP
-item 14i.  :func:`targets_from_tokens` and :func:`frame_embeddings` return
-tensors.
+Where the reference places the global batch under a mesh's sharding
+(``batch_for_mesh``), each process of the port holds its own rows:
+:func:`batch_for_mesh` builds this rank's block of the batch with
+:func:`host_batch_at`, the multi-host form the reference's docstring
+describes; :func:`batch_for_device` puts the whole batch on one device.
+:func:`targets_from_tokens` and :func:`frame_embeddings` return tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..core import distributed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +108,25 @@ def batch_for_device(cfg: PipelineConfig, step: int, device=None) -> torch.Tenso
     (``None``: the CUDA card)."""
     dev = _device.resolve(device)
     return torch.from_numpy(global_batch_at(cfg, step)).to(device=dev, dtype=torch.long)
+
+
+def batch_for_mesh(cfg: PipelineConfig, step: int, mesh, batch_axes: Tuple[str, ...] = ("data",),
+                   device=None) -> torch.Tensor:
+    """This rank's rows ``[i * B / w, (i + 1) * B / w)`` of the global batch
+    at ``step`` as an int64 tensor on ``device`` (``None``: the CUDA card),
+    ``i`` the rank's index over ``batch_axes`` of ``mesh`` (row-major) and
+    ``w`` their size; a mesh of one device (or ``None``) takes every row.  A
+    batch the ranks do not divide raises ``ValueError``."""
+    shards, index = 1, 0
+    if mesh is not None and mesh.size() > 1:
+        lay = distributed.layout(mesh, batch_axes)
+        shards, index = lay.shards, lay.index
+    if cfg.global_batch % shards:
+        raise ValueError(f"a batch of {cfg.global_batch} rows does not split over "
+                         f"{shards} ranks of {batch_axes}")
+    n = cfg.global_batch // shards
+    rows = host_batch_at(cfg, step, index * n, n)
+    return torch.from_numpy(rows).to(device=_device.resolve(device), dtype=torch.long)
 
 
 def targets_from_tokens(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

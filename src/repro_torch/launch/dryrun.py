@@ -39,9 +39,21 @@ What each number is:
   leaf's bytes divided by the mesh sizes its spec names (after the
   divisibility fix).
 * ``temp_size_bytes``, ``generated_code_size_bytes``, ``time_compile_s``:
-  only a compiler can give them, so they are ``null``; so is an LM cell's
-  ``collective_bytes``: the port has no multi-device LM plan (ROADMAP item
-  14i).  ``why`` says so for each.
+  only a compiler can give them, so they are ``null``; ``why`` says so for
+  each.
+* ``collective_bytes``: the result bytes a device's collectives receive in
+  the step under the port's data-parallel plan
+  (:class:`repro_torch.runtime.data_parallel.DataParallelPlan`, the object
+  the training and serving drivers run), by kind: a train step's parameter
+  all_gathers, gradient reduce_scatters and all_reduces and its two
+  scalars, and every cell's MoE all_reduces (the aux loss) and all_gathers
+  (the global plan's counts).  They are counted on the mesh's ``pod`` and
+  ``data`` axes, each leaf at the bytes of its block over a ``model`` axis
+  (16 on the production mesh): what one device of that mesh moves.  The
+  model axis's own collectives (tensor parallelism) wait for ROADMAP item
+  14j, and ``why`` says so.  The reference's counts are GSPMD's, with its model axis, so
+  the two differ.  No HLO is parsed (``launch/hlo_analysis.py`` reads the
+  reference's modules).
 
 ``run_oavi_cell`` is the paper's degree step (m = 4,194,304, n = 57,
 L = 256, K = 64) on ``meta``, at the rows of one device of the mesh; its
@@ -76,12 +88,16 @@ from .. import configs
 from ..models import hints
 from ..models import model as M
 from ..optim import AdamW
+from ..runtime.data_parallel import DataParallelPlan
 from . import mesh as mesh_mod
 
 _COMPILER_ONLY = ("only an XLA compile reports it; the port's dry run compiles nothing "
                   "(eager PyTorch on meta tensors)")
-_NO_LM_PLAN = ("the port has no multi-device LM plan yet (ROADMAP item 14i): no collective "
-               "is issued, so none is counted")
+_LM_PLAN = ("runtime/data_parallel.py DataParallelPlan.collective_bytes: the data-parallel "
+            "plan's collectives on the mesh's pod and data axes")
+_MODEL_AXIS = ("; a leaf's bytes are those of its block over the model axis, what a device of "
+               "this mesh moves over the data axes; the model axis's own collectives (tensor "
+               "parallelism) are not counted: they wait for ROADMAP item 14j")
 
 
 class ByteCounter(TorchDispatchMode):
@@ -217,6 +233,12 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
     t_lower = time.perf_counter() - t0
     cost = count_step(cell.step, mesh)
     devices = mesh.size()
+    shape = configs.SHAPES[shape_name]
+    plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh,
+                            AdamW() if shape.kind == "train" else None)
+    coll = plan.collective_bytes(shape.kind, shape.global_batch, shape.seq_len)
+    why_coll = _LM_PLAN + (_MODEL_AXIS if hints.mesh_axis_sizes(mesh).get("model", 1) > 1
+                           else "")
     return {
         **meta,
         "mesh": mesh_name,
@@ -226,7 +248,7 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
         "time_count_s": round(cost["seconds"], 2),
         "flops_raw": cost["flops"] / devices,
         "bytes_raw": cost["bytes"] / devices,
-        "collective_bytes_raw": None,
+        "collective_bytes_raw": coll,
         "memory": {
             "argument_size_bytes": per_device_bytes(cell.arguments, mesh),
             "output_size_bytes": per_device_bytes(cell.outputs, mesh),
@@ -237,7 +259,7 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
         "flops_total": cost["flops"],
         "bytes_accessed": cost["bytes"] / devices,
         "bytes_accessed_total": cost["bytes"],
-        "collective_bytes": None,
+        "collective_bytes": coll,
         "cost_detail": {
             "n_periods": cfg.n_periods,
             "dispatched_ops": cost["ops"],
@@ -254,8 +276,8 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
             "time_compile_s": _COMPILER_ONLY,
             "temp_size_bytes": _COMPILER_ONLY,
             "generated_code_size_bytes": _COMPILER_ONLY,
-            "collective_bytes": _NO_LM_PLAN,
-            "collective_bytes_raw": _NO_LM_PLAN,
+            "collective_bytes": why_coll,
+            "collective_bytes_raw": why_coll,
         },
     }
 

@@ -6,12 +6,13 @@ model=16), 256 devices; multi-pod: (pod=2, data=16, model=16), 512, the
 ``pod`` axis extending data parallelism.
 
 A ``torch.distributed`` mesh has one device a rank, so the devices there are
-is the world of the initialised process group.  :func:`make_local_mesh`
+the world of the initialised process group.  :func:`make_local_mesh`
 builds its ``DeviceMesh`` as ``repro_torch.api`` builds the sharded fit's
-(``init_device_mesh``); with no process group initialised it first starts a
-world of one in this process (an in-process ``HashStore``: no port, no
-file).  The dry run needs no devices: :class:`AbstractMesh` carries axis
-names and sizes only, which is all the sharding rules read.
+(``init_device_mesh``); with no process group initialised it first joins
+the world a launcher (``torchrun``) started this rank in or, without one,
+starts a world of one in this process (an in-process ``HashStore``: no
+port, no file).  The dry run needs no devices: :class:`AbstractMesh`
+carries axis names and sizes only, which is all the sharding rules read.
 
 Functions, not module constants: importing this module touches no device
 and starts no process group.
@@ -20,6 +21,7 @@ and starts no process group.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -56,15 +58,27 @@ def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh(*production_mesh_shape(multi_pod=multi_pod))
 
 
+def _launched() -> bool:
+    """This process is one of several ranks a launcher (``torchrun``:
+    ``WORLD_SIZE`` > 1 in the environment) started."""
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
 def _world(device_type: str) -> int:
-    """The initialised process group's world size, after starting a world
-    of one when none is initialised."""
+    """The initialised process group's world size, after joining the world
+    a launcher started this rank in (:func:`_launched`), or else starting
+    a world of one, when none is initialised."""
     dist = torch.distributed
     if not dist.is_initialized():
         backend = "nccl" if device_type == "cuda" else "gloo"
-        if device_type == "cuda":
-            torch.cuda.set_device(0)
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+        if _launched():
+            if device_type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dist.init_process_group(backend)  # the launcher's env:// rendezvous
+        else:
+            if device_type == "cuda":
+                torch.cuda.set_device(0)
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     return dist.get_world_size()
 
 
@@ -98,3 +112,9 @@ def make_local_mesh(model_parallel: int = 1, device=None):
         raise ValueError(f"model_parallel={model_parallel} does not divide {n} devices")
     return init_device_mesh(device_type, (n // model_parallel, model_parallel),
                             mesh_dim_names=("data", "model"))
+
+
+def launcher_mesh(device=None):
+    """The launcher's ranks as :func:`make_local_mesh`'s mesh when a launcher
+    started this process as one of several, else ``None`` (one device)."""
+    return make_local_mesh(device=device) if _launched() else None

@@ -9,6 +9,14 @@ prompts.  On the card every prefill attention layer (GQA or MLA) runs the
 hand-written flash kernel.  After an SSM block the prefill leaves a fresh
 state, as the reference's does; an encoder (HuBERT) raises.
 
+With ``mesh`` (a ``DeviceMesh`` of ``pod`` x ``data`` ranks; every rank
+calls :func:`serve`) each rank prefills and decodes its block of the
+prompt batch's rows, the reference's batch sharding under ``with mesh:``;
+a MoE plans its tokens as its share of the reference's plan over every
+rank's (:mod:`repro_torch.models.moe`).  The parameters are replicated, as
+the reference's serve leaves them, and the generated tokens are gathered,
+so every rank returns the whole batch's.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --reduced \\
@@ -29,8 +37,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import _device, configs
+from .. import configs
 from ..models.model import Transformer
+from ..runtime.data_parallel import DataParallelPlan, mesh_device
 
 
 def _sync(device: torch.device) -> None:
@@ -49,47 +58,55 @@ def serve(
     greedy: bool = True,
     device=None,
     params: Optional[Dict] = None,
+    mesh=None,
 ) -> Dict:
     """Serve one batch of random prompts; ``params`` (a state dict, e.g. from
     :func:`repro_torch.convert.lm_params_from_reference`) replaces the random
-    weights.  Returns the generated tokens (batch, gen_tokens) and timings."""
+    weights.  Returns the generated tokens (batch, gen_tokens), the prefill's
+    last-token logits of this rank's rows (rows, vocab; the whole batch's on
+    one device) and timings (this rank's)."""
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only; no decode path")
-    dev = _device.resolve(device)
+    dev = mesh_device(mesh, device)
     S_max = prompt_len + gen_tokens
     rng = np.random.default_rng(seed)
     if params is None:
         model = Transformer(cfg, device=dev, seed=seed)
     else:
         model = Transformer.from_params(cfg, params, device=dev)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+    plan = DataParallelPlan(cfg, model, mesh)
+    lo, rows = plan.rows(batch)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len))[lo:lo + rows],
                               dtype=torch.long, device=dev)
     sampler = None if greedy else torch.Generator(device=dev).manual_seed(seed)
 
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, S_max)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    with plan.scope():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompts, S_max)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
 
-    tok = torch.argmax(logits[:, -1, :], dim=-1)
-    out_tokens = [tok]
-    t0 = time.perf_counter()
-    for i in range(gen_tokens - 1):
-        pos = torch.full((batch,), prompt_len + i, dtype=torch.long, device=dev)
-        logits, cache = model.decode_step(cache, tok, pos)
-        if greedy:
-            tok = torch.argmax(logits[:, 0, :], dim=-1)
-        else:  # not the JAX package's bits: its sampler draws from jax.random
-            probs = torch.softmax(logits[:, 0, :].float(), dim=-1)
-            tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
-        out_tokens.append(tok)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
+        first = logits[:, -1, :]
+        tok = torch.argmax(first, dim=-1)
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        for i in range(gen_tokens - 1):
+            pos = torch.full((rows,), prompt_len + i, dtype=torch.long, device=dev)
+            logits, cache = model.decode_step(cache, tok, pos)
+            if greedy:
+                tok = torch.argmax(logits[:, 0, :], dim=-1)
+            else:  # not the JAX package's bits: its sampler draws from jax.random
+                probs = torch.softmax(logits[:, 0, :].float(), dim=-1)
+                tok = torch.multinomial(probs, 1, generator=sampler)[:, 0]
+            out_tokens.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
 
-    generated = torch.stack(out_tokens, dim=1).cpu().numpy()
+    generated = plan.gather_rows(torch.stack(out_tokens, dim=1)).cpu().numpy()
     return {
         "generated": generated,
+        "prefill_logits": first,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "tokens_per_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),

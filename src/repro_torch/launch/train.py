@@ -1,29 +1,36 @@
 """Training entry point of the LM (every token-frontend family): config +
-data pipeline + AdamW + fault tolerance, on one device.
+data pipeline + AdamW + fault tolerance, on one device or over a mesh.
 
 Counterpart of ``src/repro/launch/train.py``::
 
-    config -> init params (random, from the seed) -> deterministic token
-    pipeline -> train step (loss, gradients, AdamW in place) -> TrainLoop
-    (async checkpoints, resume, straggler detection)
+    config -> init params (random, from the seed; sharded) -> deterministic
+    token pipeline -> train step (gather, loss, gradients, their sync, AdamW
+    on the shards) -> TrainLoop (async checkpoints, resume, straggler
+    detection)
 
-The reference runs the same code on a device mesh under GSPMD
-(``param_specs``/``batch_specs``); the port trains on one device
-(``mesh=None``, or a ``DeviceMesh`` of world 1 such as
-``launch.mesh.make_local_mesh()``, under which the steps run inside
-``models.hints.use_mesh``, the reference's ``with mesh:``; a world of one
-gives the same bits as no mesh).  Data-parallel and sharded training over
-``torch.distributed`` is ROADMAP item 14i.  On the card every
-attention layer's forward launches the hand-written flash kernel (twice a
-step under remat: the forward and its recompute); the backward is plain
-PyTorch.  The pipeline yields tokens only, as the reference's does: a frames
-encoder (HuBERT) trains through ``models.model.make_train_step`` on a batch
-of ``frames`` and ``labels``.
+The reference runs one program on a device mesh under GSPMD
+(``make_sharded_train_state``, ``make_step``, ``batch_for_mesh``).  The port
+runs one process a rank over ``torch.distributed``
+(:mod:`repro_torch.runtime.data_parallel`): every rank builds the same model
+from the seed, keeps between steps only its blocks of the leaves that
+``param_specs`` / ``AdamW.state_specs`` cut over ``data`` (parameters and
+moments), takes its rows of the ``(seed, step)`` batch, and averages the
+gradients over the ranks.  ``mesh=None``, or a ``DeviceMesh`` of world 1
+such as ``launch.mesh.make_local_mesh()``, is one device: no collective, and
+the same bits either way.  Meshes of ``pod`` x ``data`` ranks run; a
+``model`` axis larger than 1 (tensor parallelism) is ROADMAP item 14j.  On
+the card every attention layer's forward launches the hand-written flash
+kernel (twice a step under remat: the forward and its recompute); the
+backward is plain PyTorch.  The pipeline yields tokens only, as the
+reference's does: a frames encoder (HuBERT) trains through
+``models.model.make_train_step`` on a batch of ``frames`` and ``labels``.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
         --device cpu --steps 20 --batch 2 --seq 32 --ckpt-dir /tmp/run1
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen2-1.5b --reduced --device cpu --steps 20 --batch 4 --seq 32   # 2 gloo ranks
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 8 --batch 4 --seq 1024                                  # on the card
 """
@@ -36,33 +43,54 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .. import _device, configs
+from .. import configs
 from ..data import lm as lm_data
-from ..models import hints
 from ..models import model as M
 from ..optim import AdamW
 from ..runtime import TrainLoop, TrainLoopConfig
-
-_MULTI_DEVICE = ("training over a device mesh of more than one device (data-parallel "
-                 "and sharded training over torch.distributed) is ROADMAP item 14i")
-
-
-def mesh_device(mesh, device=None) -> torch.device:
-    """The one device training runs on: ``device`` without a mesh, the
-    device of a ``DeviceMesh`` of world 1; a larger mesh raises."""
-    if mesh is None:
-        return _device.resolve(device)
-    if mesh.size() > 1:
-        raise NotImplementedError(_MULTI_DEVICE)
-    dev = _device.resolve(mesh.device_type)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+from ..runtime.data_parallel import DataParallelPlan, mesh_device
+from . import mesh as mesh_mod
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def make_sharded_train_state(cfg, opt: AdamW, mesh, seed: int = 0, *, device=None,
+                             params: Optional[Dict] = None):
+    """The model from ``seed`` (or ``params``, a state dict), this rank's
+    parameters and optimizer state cut by the plan, and the plan:
+    ``(model, params, opt_state, plan)``.  Between steps the model holds no
+    full tensor of a sharded leaf."""
+    dev = mesh_device(mesh, device)
+    if params is None:
+        model = M.Transformer(cfg, device=dev, seed=seed)
+    else:
+        model = M.Transformer.from_params(cfg, params, device=dev)
+    plan = DataParallelPlan(cfg, model, mesh, opt)
+    params = plan.shard_params(model)
+    return model, params, opt.init(params), plan
+
+
+def make_step(model, opt: AdamW, plan: DataParallelPlan):
+    """``step(params, opt_state, batch) -> (loss, params, opt_state)`` on this
+    rank's rows: the sharded leaves gathered, ``models.model.loss_and_grads``
+    (the one-device step's body), the gradients averaged over the ranks,
+    the clip scale from the global norm, AdamW on this rank's blocks, the
+    full tensors freed.  ``loss`` is the ranks' mean, detached."""
+
+    def train_step(params, opt_state, batch):
+        with plan.scope():
+            plan.gather_params(model, params)
+            loss, grads = M.loss_and_grads(model, batch)
+            grads = plan.sync_grads(grads)
+            sq = plan.sq_norm(grads) if opt.clip_norm is not None else None
+            params, opt_state = opt.update(params, grads, opt_state, sq_norm=sq)
+            plan.release_params(model)
+            return plan.mean_loss(loss.detach()), params, opt_state
+
+    return train_step
 
 
 def train(
@@ -78,60 +106,66 @@ def train(
     log_every: int = 10,
     opt: Optional[AdamW] = None,
     device=None,
+    params: Optional[Dict] = None,
 ) -> Dict[str, Any]:
-    """Train ``cfg`` from random weights (``seed``) for ``steps`` steps of
-    ``global_batch`` sequences of ``seq_len`` tokens.  With ``ckpt_dir`` the
+    """Train ``cfg`` from random weights (``seed``; ``params``, a state dict
+    such as :func:`repro_torch.convert.lm_params_from_reference`'s, replaces
+    them) for ``steps`` steps of ``global_batch`` sequences of ``seq_len``
+    tokens, on ``mesh``'s ranks (every rank calls it).  With ``ckpt_dir`` the
     steps run in a :class:`~repro_torch.runtime.TrainLoop` that resumes from
     the newest checkpoint there and saves every ``ckpt_every`` steps.
 
-    Returns the loop's report plus ``losses`` (one a step run) and
-    ``step_seconds`` (host time of each step, which ends in reading its
-    loss)."""
+    Returns the loop's report plus ``losses`` (one a step run: the ranks'
+    mean), ``step_seconds`` (host time of each step, which ends in reading
+    its loss), ``collective_bytes`` and ``collective_seconds`` (this rank's
+    collectives, checkpoints' gathers included)."""
     if cfg.frontend != "tokens":
         raise ValueError(f"{cfg.name}: the token pipeline cannot feed a {cfg.frontend!r} "
                          "frontend; train it through models.model.make_train_step")
     dev = mesh_device(mesh, device)
     opt = opt or AdamW(peak_lr=3e-4, warmup_steps=min(50, steps // 10 + 1),
                        total_steps=steps)
-    model = M.Transformer(cfg, device=dev, seed=seed)
-    live = dict(model.named_parameters())
-    step_fn = M.make_train_step(opt)
+    model, params, opt_state, plan = make_sharded_train_state(cfg, opt, mesh, seed,
+                                                              device=device, params=params)
+    step_fn = make_step(model, opt, plan)
     pipe = lm_data.PipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq_len + 1,
                                   global_batch=global_batch, seed=seed)
-
+    axes = ("data",) if mesh is None else M.batch_axes(mesh)
+    live = {"params": params}
     losses, step_seconds = [], []
-    state = {"params": live, "opt": opt.init(live)}
+    state = {"params": params, "opt": opt_state}
 
     def batch_fn(step: int):
-        return {"tokens": lm_data.batch_for_device(pipe, step, dev)}
+        return {"tokens": lm_data.batch_for_mesh(pipe, step, mesh, axes, device=dev)}
 
     def wrapped_step(state, batch):
-        if state["params"] is not live:  # a restore replaced the tree
-            model.load_params(state["params"])
-            state = {"params": live, "opt": state["opt"]}
+        if state["params"] is not live["params"]:  # a restore replaced the tree
+            live["params"] = plan.adopt(model, state["params"])
         t0 = time.perf_counter()
-        loss, opt_state = step_fn(model, state["opt"], batch)
+        loss, live["params"], opt_state = step_fn(live["params"], state["opt"], batch)
         loss = float(loss)  # waits for the step
         step_seconds.append(time.perf_counter() - t0)
         losses.append(loss)
-        return {"params": live, "opt": opt_state}, {"loss": loss}
+        return {"params": live["params"], "opt": opt_state}, {"loss": loss}
 
-    with hints.use_mesh(mesh):
-        if ckpt_dir is not None:
-            loop = TrainLoop(TrainLoopConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
-                             wrapped_step, batch_fn, state)
-            loop.try_resume()
-            report = loop.run(steps)
-        else:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                state, m = wrapped_step(state, batch_fn(i))
-                if i % log_every == 0:
-                    print(f"step {i:5d} loss {m['loss']:.4f}", flush=True)
-            _sync(dev)
-            report = {"final_step": steps, "seconds": time.perf_counter() - t0}
+    plan.comm.reset()
+    if ckpt_dir is not None:
+        loop = TrainLoop(TrainLoopConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
+                         wrapped_step, batch_fn, state, sharding=plan)
+        loop.try_resume()
+        report = loop.run(steps)
+    else:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, m = wrapped_step(state, batch_fn(i))
+            if i % log_every == 0 and plan.index == 0:
+                print(f"step {i:5d} loss {m['loss']:.4f}", flush=True)
+        _sync(dev)
+        report = {"final_step": steps, "seconds": time.perf_counter() - t0}
     report["losses"] = losses
     report["step_seconds"] = step_seconds
+    report["collective_bytes"] = dict(plan.comm.bytes)
+    report["collective_seconds"] = plan.comm.seconds
     return report
 
 
@@ -152,7 +186,7 @@ def main(argv=None) -> Dict[str, Any]:
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get_config(args.arch)
     report = train(cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,
-                   device=args.device)
+                   mesh=mesh_mod.launcher_mesh(device=args.device), device=args.device)
     losses = report["losses"]
     print(f"done: {report.get('final_step')} steps; "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")

@@ -14,17 +14,71 @@ with axis names and sizes: a ``torch.distributed.device_mesh.DeviceMesh``
 (``mesh_dim_names``, ``shape``) or an object with ``axis_names`` and
 ``shape[axis]`` (:class:`repro_torch.launch.mesh.AbstractMesh`, the dry
 run's mesh without devices).
+
+Under GSPMD one program sees every token of the batch; over
+``torch.distributed`` each process holds only its rows.  A driver that
+splits the batch's rows over several processes enters
+:func:`use_token_shards` beside :func:`use_mesh`: the MoE then reads
+:func:`token_shards` to plan a rank's tokens as its share of the reference's
+global plan (one row of the rowwise dispatch; the global dispatch's
+capacity, positions and aux loss over every rank's tokens).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+_SHARDS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_token_shards",
+                                                         default=None)
+
+
+class TokenShards(NamedTuple):
+    """The batch's rows split over ``ranks`` processes, this one at
+    ``index`` (rank ``i`` holds the ``i``-th contiguous block of rows, so of
+    the tokens in batch-major order); ``group`` is their process group and
+    ``comm`` the transport that counts each collective
+    (:class:`repro_torch.runtime.data_parallel.Collectives`)."""
+    group: Any
+    ranks: int
+    index: int
+    comm: Any
+
+
+@contextlib.contextmanager
+def use_token_shards(shards: Optional[TokenShards]) -> Iterator[None]:
+    """The token split the code inside runs under; ``None`` (one process
+    holds every token) leaves none active."""
+    token = _SHARDS.set(shards)
+    try:
+        yield
+    finally:
+        _SHARDS.reset(token)
+
+
+def token_shards() -> Optional[TokenShards]:
+    """The split entered by :func:`use_token_shards`, or None."""
+    return _SHARDS.get()
+
+
+def recompute_context(base=None):
+    """``base`` (a context manager, or None) entered together with the mesh
+    and token split active now: the context a checkpointed region's
+    recompute runs under.  The backward of CUDA ops, and with it a remat
+    recompute, runs on autograd's device thread, which does not see this
+    thread's context."""
+    mesh, shards = current_mesh(), token_shards()
+
+    @contextlib.contextmanager
+    def entered():
+        with base or contextlib.nullcontext(), use_mesh(mesh), use_token_shards(shards):
+            yield
+
+    return entered()
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:

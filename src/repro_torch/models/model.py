@@ -257,12 +257,16 @@ class Transformer(nn.Module):
         B, S, _ = x.shape
         positions = self._positions(B, S, x.device)
         remat = cfg.remat and torch.is_grad_enabled()
-        context_fn = _ckpt.noop_context_fn
+        policy_fn = _ckpt.noop_context_fn
         if remat and cfg.remat_policy == "dots":
-            context_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts,
-                                           _save_dots)
+            policy_fn = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                          _save_dots)
         elif remat and cfg.remat_policy != "full":
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+        def context_fn():  # the recompute keeps the forward's mesh and token split
+            forward_ctx, recompute_ctx = policy_fn()
+            return forward_ctx, hints.recompute_context(recompute_ctx)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_periods):
             if remat:
@@ -441,18 +445,25 @@ def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel
     return torch.mean(lse - gold) + aux
 
 
+def loss_and_grads(model: Transformer, batch: Dict[str, torch.Tensor], *,
+                   use_kernel: Optional[bool] = None):
+    """``(loss, grads)``: the loss of ``batch`` and every parameter's
+    gradient by name (``torch.autograd.grad``; nothing is left in
+    ``.grad``).  The body of every train step, on one device or a rank."""
+    params = dict(model.named_parameters())
+    loss = loss_fn(model, batch, use_kernel=use_kernel)
+    return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
 def make_train_step(optimizer, *, use_kernel: Optional[bool] = None) -> Callable:
-    """``train_step(model, opt_state, batch) -> (loss, opt_state)``: the loss
-    and every parameter's gradient (``torch.autograd.grad``; nothing is left
-    in ``.grad``), then ``optimizer.update``, which writes the new
+    """``train_step(model, opt_state, batch) -> (loss, opt_state)``:
+    :func:`loss_and_grads`, then ``optimizer.update``, which writes the new
     parameters into the model in place.  ``loss`` is a detached scalar
     tensor on the model's device."""
 
     def train_step(model: Transformer, opt_state, batch: Dict[str, torch.Tensor]):
-        params = dict(model.named_parameters())
-        loss = loss_fn(model, batch, use_kernel=use_kernel)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        _, opt_state = optimizer.update(params, dict(zip(params, grads)), opt_state)
+        loss, grads = loss_and_grads(model, batch, use_kernel=use_kernel)
+        _, opt_state = optimizer.update(dict(model.named_parameters()), grads, opt_state)
         return loss.detach(), opt_state
 
     return train_step

@@ -33,12 +33,25 @@ routing and the aux loss stay global, as the reference's.  Without a mesh
 (or where rows do not divide T) there is one row, which is the global
 dispatch at ``capacity(T)``, the reference's own single-device identity,
 and the same code path and bits as ``dispatch="global"``.
+
+Across ranks (:func:`.hints.use_token_shards`: each process holds an equal
+block of the batch's rows, so of its tokens in batch-major order), a rank's
+tokens are its share of the reference's plan over every rank's tokens
+(:func:`layout`): one row of the rowwise dispatch at ``capacity(T_all /
+rows)``; or, where one row spans the ranks (the global dispatch), positions
+that continue those of the lower ranks (the expert counts ``all_gather``ed)
+at ``capacity(T_all)``, which keeps exactly the one-device plan's pairs in
+an ``(E, capacity(T_all), d)`` buffer of which the rank fills its own
+slots.  A dropless plan keeps every pair whatever the positions, so it is
+planned locally.  The aux loss is the global one: the mean probabilities'
+numerators are summed by an ``all_reduce`` whose backward is one too, the
+expert counts by a plain one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,14 +73,54 @@ class MoEDims(NamedTuple):
 
 
 def rows_of(T: int, dims: MoEDims) -> int:
-    """Rows of the rowwise dispatch for ``T`` tokens: the active mesh's
-    ``pod`` x ``data`` size where it divides T, else 1 (and 1 for the
-    global dispatch)."""
+    """Rows of the rowwise dispatch for ``T`` tokens (every rank's, under
+    token shards): the active mesh's ``pod`` x ``data`` size where it
+    divides T, else 1 (and 1 for the global dispatch)."""
     if dims.dispatch != "rowwise":
         return 1
     sizes = hints.axis_sizes()
     rows = sizes.get("pod", 1) * sizes.get("data", 1)
     return rows if T % rows == 0 else 1
+
+
+class Layout(NamedTuple):
+    """How a rank plans its tokens: ``rows`` rows of its own, each at
+    ``C`` slots an expert, or (``spans``) one row shared with the other
+    ranks, its positions continuing theirs."""
+    rows: int
+    C: int
+    spans: bool
+
+
+def layout(T: int, dims: MoEDims, ranks: int = 1) -> Layout:
+    """The plan of ``T`` tokens of this rank when ``ranks`` ranks hold equal
+    shares of the batch: the reference's rows over the ``T * ranks`` tokens
+    (:func:`rows_of`), each rank holding ``rows / ranks`` of them, or one
+    row spanning every rank."""
+    T_all = T * ranks
+    rows = rows_of(T_all, dims)
+    if rows % ranks == 0:
+        local = rows // ranks
+        return Layout(local, capacity(T // local, dims), False)
+    if rows != 1:
+        raise ValueError(f"{rows} dispatch rows over {ranks} ranks: a rank must hold whole rows")
+    if dims.capacity_factor <= 0:  # dropless: every pair is kept, whatever its position
+        return Layout(1, capacity(T, dims), False)
+    return Layout(1, capacity(T_all, dims), True)
+
+
+def collectives(T: int, dims: MoEDims, ranks: int) -> Dict[str, int]:
+    """Result bytes of the collectives one forward of a MoE block issues on
+    a rank of ``T`` tokens among ``ranks``: the aux loss's ``all_reduce`` of
+    the probabilities' sums (fp32) and of the counts (int64), and the
+    ``all_gather`` of the counts where a row spans the ranks."""
+    if ranks == 1:
+        return {}
+    E = dims.num_experts
+    out = {"all-reduce": E * 4 + E * 8}
+    if layout(T, dims, ranks).spans:
+        out["all-gather"] = ranks * E * 8
+    return out
 
 
 def capacity(T: int, dims: MoEDims) -> int:
@@ -119,19 +172,38 @@ def route(h: torch.Tensor, router: torch.Tensor,
     return probs, gates_at(probs, eidx), eidx
 
 
-def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, dims: MoEDims) -> torch.Tensor:
+def aux_loss(probs: torch.Tensor, eidx: torch.Tensor, dims: MoEDims,
+             shards: Optional[hints.TokenShards] = None) -> torch.Tensor:
     """Switch-style load balance: ``aux_coef * E * sum(mean prob x routed
-    fraction)`` over the experts."""
+    fraction)`` over the experts; with ``shards``, both means over every
+    rank's tokens."""
     E = dims.num_experts
-    me = probs.mean(dim=0)
-    ce = expert_counts(eidx, E).float() / eidx.numel()
+    if shards is None:
+        me = probs.mean(dim=0)
+        ce = expert_counts(eidx, E).float() / eidx.numel()
+    else:
+        me = shards.comm.all_reduce_grad(probs.sum(dim=0), shards.group) / (
+            probs.shape[0] * shards.ranks)
+        counts = shards.comm.all_reduce(expert_counts(eidx, E), shards.group)
+        ce = counts.float() / (eidx.numel() * shards.ranks)
     return dims.aux_coef * E * torch.sum(me * ce)
 
 
-def dispatch_plan(eidx: torch.Tensor, E: int, C: int) -> Plan:
+def global_offsets(eidx: torch.Tensor, E: int, shards: hints.TokenShards) -> torch.Tensor:
+    """(E,) pairs the lower ranks route to each expert: where this rank's
+    positions start in the global token order (one ``all_gather``)."""
+    counts = expert_counts(eidx, E)
+    every = counts.new_empty((shards.ranks * E,))
+    shards.comm.all_gather(every, counts, shards.group)
+    return every.view(shards.ranks, E)[:shards.index].sum(dim=0)
+
+
+def dispatch_plan(eidx: torch.Tensor, E: int, C: int,
+                  offset: Optional[torch.Tensor] = None) -> Plan:
     """Steps 2-3: sort the pairs by expert (stable, so an expert's pairs stay
     in token order), rank them within their expert, keep the first ``C`` of
-    each, and map the kept slots back to their tokens."""
+    each, and map the kept slots back to their tokens.  ``offset`` (E,)
+    starts each expert's positions there (:func:`global_offsets`)."""
     T, k = eidx.shape
     flat_e = eidx.reshape(T * k)
     order = torch.argsort(flat_e, stable=True)
@@ -140,6 +212,8 @@ def dispatch_plan(eidx: torch.Tensor, E: int, C: int) -> Plan:
     seg_start = torch.cumsum(counts, 0) - counts  # first sorted rank of each expert
     rank = torch.arange(T * k, device=flat_e.device)
     pos_in_e = rank - seg_start[sorted_e]
+    if offset is not None:
+        pos_in_e = pos_in_e + offset[sorted_e]
     keep = pos_in_e < C
     slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)
     # the buffer's rows by source token: kept slots are unique, so this
@@ -213,13 +287,14 @@ class MoE(layers.Stateless, nn.Module):
         B, S, d = x.shape
         T = B * S
         E = self.dims.num_experts
-        rows = rows_of(T, self.dims)
-        C = capacity(T // rows, self.dims)
+        shards = hints.token_shards()
+        rows, C, spans = layout(T, self.dims, 1 if shards is None else shards.ranks)
         h = layers.rms_norm(x, self.norm_scale).reshape(T, d)
         probs, gates, eidx = route(h, self.router, self.dims)
-        aux = aux_loss(probs, eidx, self.dims)
+        aux = aux_loss(probs, eidx, self.dims, shards)
         if rows == 1:
-            plan = dispatch_plan(eidx, E, C)
+            offset = global_offsets(eidx, E, shards) if spans else None
+            plan = dispatch_plan(eidx, E, C, offset)
             y = experts(dispatch(h, plan, E, C), self.w_in, self.w_out)
             out = combine(y, gates, plan)
         else:

@@ -98,15 +98,22 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               state: AdamWState) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
+               state: AdamWState, *, sq_norm: Optional[torch.Tensor] = None
+               ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
         """One step.  Writes the new values into ``params`` (and the fp32
-        moments) in place and returns ``(params, new_state)``."""
+        moments) in place and returns ``(params, new_state)``.  ``params``
+        and ``grads`` may be whole leaves or a rank's blocks of them: then
+        ``sq_norm``, the sum of every squared gradient entry of the whole
+        model (``runtime.data_parallel.DataParallelPlan.sq_norm``), sets the
+        clip scale; by default it is summed from ``grads``."""
         step = int(state.step) + 1
         lr = self._lr(step)
         scale = None
         if self.clip_norm is not None:
-            sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-            gn = torch.sqrt(torch.sum(torch.stack(sq)))
+            if sq_norm is None:
+                sq_norm = torch.sum(torch.stack(
+                    [torch.sum(torch.square(g.float())) for g in grads.values()]))
+            gn = torch.sqrt(sq_norm)
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
         f32 = torch.float32
         t = torch.tensor(float(step), dtype=f32)

@@ -18,6 +18,15 @@ Where the reference's restored leaves are arrays that work from the host,
 the port's step functions take tensors: a resume with ``shardings=None``
 puts each tensor leaf back on the device its counterpart in the current
 state lies on.
+
+On several ranks (``sharding``, a
+:class:`~repro_torch.runtime.data_parallel.DataParallelPlan` of world > 1)
+the state holds each rank's blocks of the sharded leaves.  A checkpoint
+gathers them leaf by leaf on every rank and rank 0 alone writes it, in the
+one-device format (so a run resumes on any number of ranks); a resume reads
+it on every rank and cuts each rank's blocks.  A ``StepFailure`` then ends
+the run at once: a retry on one rank alone would leave the ranks'
+collectives out of step.
 """
 
 from __future__ import annotations
@@ -81,8 +90,10 @@ class TrainLoop:
         batch_fn: Callable[[int], Any],
         state: Any,
         failure_injector: Optional[Callable[[int], None]] = None,
+        sharding=None,
     ):
         self.config = config
+        self.sharding = sharding if sharding is not None and sharding.world > 1 else None
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.state = state
@@ -110,9 +121,13 @@ class TrainLoop:
         steps = store.committed_steps(self.config.ckpt_dir)
         for latest in reversed(steps):
             try:
-                self.state, meta = store.restore(
-                    self.config.ckpt_dir, latest, self.state, shardings
-                )
+                if self.sharding is None:
+                    self.state, meta = store.restore(
+                        self.config.ckpt_dir, latest, self.state, shardings
+                    )
+                else:
+                    tree, meta = store.restore(self.config.ckpt_dir, latest, self.state)
+                    self.state = store.place(self.sharding.shard_state(tree), shardings)
             except IntegrityError as e:
                 self.integrity_fallbacks += 1
                 log.warning("checkpoint step %d is corrupt (%s); trying older", latest, e)
@@ -123,8 +138,10 @@ class TrainLoop:
         return False
 
     def _checkpoint(self):
-        self.saver.save(self.config.ckpt_dir, self.step, self.state)
-        store.cleanup(self.config.ckpt_dir, self.config.keep_last)
+        tree = self.state if self.sharding is None else self.sharding.full_state(self.state)
+        if self.sharding is None or self.sharding.index == 0:
+            self.saver.save(self.config.ckpt_dir, self.step, tree)
+            store.cleanup(self.config.ckpt_dir, self.config.keep_last)
 
     # -- main loop -----------------------------------------------------------
 
@@ -142,6 +159,8 @@ class TrainLoop:
                     _sync(self.state)
                     break
                 except StepFailure:
+                    if self.sharding is not None:
+                        raise
                     retries += 1
                     self.restarts += 1
                     if retries > self.config.max_retries_per_step:
@@ -159,6 +178,8 @@ class TrainLoop:
                 self._checkpoint()
         self._checkpoint()
         self.saver.wait()
+        if self.sharding is not None:  # every rank resumes only from a finished save
+            self.sharding.barrier()
         return {
             "final_step": self.step,
             "restarts": self.restarts,

@@ -1,0 +1,206 @@
+"""The rank program of ``tests/test_torch_train_mesh.py``, and the steps it
+shares with the test's one-device runs.
+
+Run as ``python _torch_train_mesh_ranks.py RANK WORLD WORKDIR``: the ranks
+meet through a gloo ``FileStore`` in WORKDIR, read ``cases.json`` and each
+case's initial parameters (``<arch>.npz``, the JAX package's init converted)
+and route ids (``*.pt``) from it, run every case of their world on the
+CPU, and write what they got to ``world<WORLD>_rank<RANK>.pt``.  Nothing here imports
+JAX.
+"""
+
+import dataclasses
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.data import lm as lm_data
+from repro_torch.launch import serve as serve_mod
+from repro_torch.launch import train as train_mod
+from repro_torch.models import moe
+from repro_torch.models import model as M
+from repro_torch.models.model import Transformer
+from repro_torch.optim import AdamW
+from repro_torch.runtime.data_parallel import DataParallelPlan
+
+STEPS, BATCH, SEQ = 3, 4, 16
+SERVE = dict(batch=BATCH, prompt_len=SEQ, gen_tokens=4, seed=0)
+
+
+def config(case):
+    """The reduced config of a case: its arch, with ``dispatch`` replaced
+    where the case names one."""
+    cfg = configs.get_reduced(case["arch"])
+    if case.get("dispatch"):
+        cfg = dataclasses.replace(cfg, moe=cfg.moe._replace(dispatch=case["dispatch"]))
+    return cfg
+
+
+def optimizer(case=None):
+    """The cases' AdamW; a case with ``"clip": null`` runs unclipped (a
+    clipped step is the same whatever the gradients' common scale)."""
+    clip = (case or {}).get("clip", 1.0)
+    return AdamW(peak_lr=1e-3, warmup_steps=1, total_steps=6, clip_norm=clip)
+
+
+def pipe(cfg):
+    return lm_data.PipelineConfig(vocab_size=cfg.vocab_size, seq_len=SEQ + 1,
+                                  global_batch=BATCH, seed=0)
+
+
+def load_params(work, arch):
+    with np.load(os.path.join(work, f"{arch}.npz")) as f:
+        return {k: torch.from_numpy(f[k]) for k in f.files}
+
+
+def run_steps(cfg, params, mesh, opt, steps=STEPS):
+    """The driver's pieces (``make_sharded_train_state``, ``make_step``,
+    ``batch_for_mesh``) for ``steps`` steps: the losses, this rank's
+    collective bytes, the expected ones, and the full state afterwards as
+    numpy (``p/``, ``mu/``, ``nu/`` + name)."""
+    model, p, st, plan = train_mod.make_sharded_train_state(cfg, opt, mesh, device="cpu",
+                                                            params=params)
+    step = train_mod.make_step(model, opt, plan)
+    axes = ("data",) if mesh is None else M.batch_axes(mesh)
+    losses = []
+    plan.comm.reset()
+    for i in range(steps):
+        batch = {"tokens": lm_data.batch_for_mesh(pipe(cfg), i, mesh, axes, device="cpu")}
+        loss, p, st = step(p, st, batch)
+        losses.append(float(loss))
+    issued = dict(plan.comm.bytes)
+    want = {k: steps * v for k, v in plan.collective_bytes("train", BATCH, SEQ).items()
+            if k != "total"}
+    full = plan.full_state({"params": p, "mu": st.mu, "nu": st.nu})
+    state = {f"{part}/{k}": v.detach().cpu().numpy().copy()
+             for part in ("params", "mu", "nu") for k, v in full[part].items()}
+    return dict(losses=losses, issued=issued, want=want, state=state, at_rest=plan.at_rest_bytes())
+
+
+class Keeps:
+    """While entered: every ``moe.dispatch_plan`` call's kept-pair mask in
+    ``keeps``; with ``replay`` (a list of expert ids), ``moe.route`` hands
+    those ids back in order."""
+
+    def __init__(self, replay=None):
+        self.keeps, self.ids = [], []
+        self.replay = None if replay is None else iter(replay)
+
+    def __enter__(self):
+        self._plan, self._route = moe.dispatch_plan, moe.route
+
+        def plan(*args):
+            out = self._plan(*args)
+            self.keeps.append(out.keep.clone())
+            return out
+
+        def route(h, router, dims):
+            probs, gates, eidx = self._route(h, router, dims)
+            if self.replay is not None:
+                eidx = next(self.replay)
+                gates = moe.gates_at(probs, eidx)
+            self.ids.append(eidx)
+            return probs, gates, eidx
+
+        moe.dispatch_plan, moe.route = plan, route
+        return self
+
+    def __exit__(self, *exc):
+        moe.dispatch_plan, moe.route = self._plan, self._route
+
+
+def moe_block_input(cfg, batch=BATCH, seq=SEQ):
+    """A fixed (batch, seq, d_model) input for one MoE block."""
+    x = np.random.default_rng(7).standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def moe_block(cfg, params):
+    """The first MoE block of ``cfg`` holding ``params``."""
+    model = Transformer.from_params(cfg, params, device="cpu")
+    return next(b for b in model.blocks if isinstance(b, moe.MoE))
+
+
+def moe_aux_and_grads(blk, x):
+    """A MoE block's output, aux loss and the aux's gradients (router,
+    norm scale) on ``x`` under the active mesh and token split."""
+    out, aux = blk(x)
+    grads = torch.autograd.grad(aux, [blk.router, blk.norm_scale])
+    return out.detach(), aux.detach(), [g.detach() for g in grads]
+
+
+def main(rank, world, work):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with open(os.path.join(work, "cases.json")) as f:
+        spec = json.load(f)[str(world)]
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, f"store{world}"),
+                                                         world),
+                            rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cpu", tuple(spec["shape"]), mesh_dim_names=tuple(spec["axes"]))
+        out = {}
+        for case in spec["cases"]:
+            cfg = config(case)
+            params = load_params(work, case["arch"])
+            name = case["name"]
+            if case["kind"] == "train":
+                out[name] = run_steps(cfg, params, mesh, optimizer(case))
+                if case.get("driver"):  # the entry point runs the same steps
+                    rep = train_mod.train(cfg, steps=STEPS, global_batch=BATCH, seq_len=SEQ,
+                                          mesh=mesh, opt=optimizer(), params=params,
+                                          device="cpu")
+                    out[name]["driver"] = dict(losses=rep["losses"],
+                                               issued=rep["collective_bytes"])
+            elif case["kind"] == "keeps":  # the global plan's kept pairs, routes replayed
+                plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh)
+                lo, n = plan.rows(BATCH)
+                ids = torch.load(os.path.join(work, f"{name}_ids.pt"))
+                mine = [e[lo * SEQ:(lo + n) * SEQ] for e in ids]
+                toks = lm_data.global_batch_at(pipe(cfg), 0)[lo:lo + n, :-1]
+                model = Transformer.from_params(cfg, params, device="cpu")
+                with Keeps(replay=mine) as k, torch.no_grad(), plan.scope():
+                    model(torch.from_numpy(toks).long())
+                out[name] = dict(keeps=k.keeps, rows=(lo, n))
+            elif case["kind"] == "block":  # one MoE block: output, aux and its gradient
+                plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh)
+                lo, n = plan.rows(BATCH)
+                blk = moe_block(cfg, params)
+                with plan.scope():
+                    y, aux, grads = moe_aux_and_grads(blk, moe_block_input(cfg)[lo:lo + n])
+                    layout = moe.layout(n * SEQ, cfg.moe, plan.world)
+                for g in grads:  # the drivers' average over the ranks
+                    plan.comm.all_reduce(g, plan.batch_group).div_(plan.world)
+                out[name] = dict(out=y, aux=aux, grads=grads, rows=(lo, n),
+                                 layout=tuple(layout))
+            elif case["kind"] == "serve":  # every rank gets the whole batch's tokens
+                served = serve_mod.serve(cfg, params=params, mesh=mesh, device="cpu", **SERVE)
+                out[name] = dict(generated=served["generated"],
+                                 logits=served["prefill_logits"])
+            elif case["kind"] == "ckpt":
+                kw = dict(global_batch=BATCH, seq_len=SEQ, mesh=mesh, opt=optimizer(),
+                          params=params, device="cpu")
+                d = os.path.join(work, "ck2")
+                first = train_mod.train(cfg, steps=4, ckpt_dir=d, ckpt_every=2, **kw)
+                resumed = train_mod.train(cfg, steps=2, ckpt_dir=d, ckpt_every=2, **kw)
+                whole = train_mod.train(cfg, steps=6, **kw)
+                # a one-device checkpoint at step 2 (the test's), resumed here
+                from_one = train_mod.train(cfg, steps=2, ckpt_dir=os.path.join(work, "ck1"),
+                                           ckpt_every=2, **kw)
+                out[name] = dict(first=first["losses"], resumed=resumed["losses"],
+                                 final_step=resumed["final_step"], whole=whole["losses"],
+                                 from_one=from_one["losses"],
+                                 from_one_step=from_one["final_step"])
+        torch.save(out, os.path.join(work, f"world{world}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

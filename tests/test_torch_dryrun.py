@@ -32,6 +32,7 @@ from repro_torch import configs
 from repro_torch.launch import dryrun, hlo_analysis, mesh as mesh_mod
 from repro_torch.models import model as M
 from repro_torch.optim import AdamW
+from repro_torch.runtime.data_parallel import DataParallelPlan
 
 ALL_ARCHS = sorted(configs.ARCHS)
 MESHES = {
@@ -272,13 +273,38 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
     ref_keys = {"arch", "shape", "kind", "mesh", "devices", "time_lower_s", "time_compile_s",
                 "flops_raw", "bytes_raw", "collective_bytes_raw", "memory", "flops",
                 "bytes_accessed", "collective_bytes", "cost_detail"}
+    mesh = mesh_mod.abstract_production_mesh()
     for key in (("qwen2-1.5b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k")):
         r = by[key]
         assert ref_keys <= set(r) and r["devices"] == 256
         assert r["flops"] > 0 and r["bytes_accessed"] > 0
         assert r["flops_total"] == r["flops"] * 256
-        assert r["collective_bytes"] is None and "14i" in r["why"]["collective_bytes"]
+        # the LM cells' collectives are the data-parallel plan's, on the data
+        # axis only: the production mesh's model axis waits for item 14j
+        cfg, shape = configs.get_config(key[0]), configs.SHAPES[key[1]]
+        plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh,
+                                AdamW() if shape.kind == "train" else None)
+        want = plan.collective_bytes(shape.kind, shape.global_batch, shape.seq_len)
+        assert r["collective_bytes"] == r["collective_bytes_raw"] == want
+        assert "14j" in r["why"]["collective_bytes"]
         assert r["memory"]["temp_size_bytes"] is None and r["time_compile_s"] is None
+    train = by[("qwen2-1.5b", "train_4k")]["collective_bytes"]
+    # counted by hand: every matrix of Qwen2-1.5B is cut 16 ways over data
+    # and 16 over model, so a device gathers each one's model block (1/16 of
+    # it) and receives 1/256 of its gradient; the vectors (norms, biases)
+    # are all_reduced whole, or as their 16-way model blocks (the biases)
+    leaves = dict(M.abstract_params(configs.get_config("qwen2-1.5b")).named_parameters())
+    mats = sum(p.numel() * 2 for p in leaves.values() if p.dim() == 2)
+    vecs = sum(p.numel() * 2 // (16 if k.split(".")[-1] in ("bq", "bk", "bv") else 1)
+               for k, p in leaves.items() if p.dim() == 1)
+    assert train == {"all-gather": mats // 16, "reduce-scatter": mats // 256,
+                     "all-reduce": vecs + 8, "total": mats // 16 + mats // 256 + vecs + 8}
+    decode = by[("deepseek-v2-lite-16b", "decode_32k")]["collective_bytes"]
+    # 27 MoE blocks: the aux loss's two all_reduces (64 fp32 sums, 64 int64
+    # counts) and, the global dispatch at capacity factor 1.25 planning one
+    # row over the 16 ranks, the all_gather of every rank's 64 counts
+    assert decode == {"all-reduce": 27 * 64 * 12, "all-gather": 27 * 16 * 64 * 8,
+                      "reduce-scatter": 0, "total": 27 * 64 * (12 + 16 * 8)}
     # the full-size train cell's count is every product of the step
     assert by[("qwen2-1.5b", "train_4k")]["flops_total"] == dense_matmul_flops(
         configs.get_config("qwen2-1.5b"), configs.SHAPES["train_4k"])

@@ -106,6 +106,7 @@ SLICE_MODULES = [
     "repro_torch.resilience.integrity",
     "repro_torch.resilience.journal",
     "repro_torch.runtime",
+    "repro_torch.runtime.data_parallel",
     "repro_torch.runtime.fault_tolerance",
     "repro_torch.serving",
     "repro_torch.serving.batcher",

@@ -370,17 +370,25 @@ def test_train_driver_quantized_resume(tmp_path):
 
 
 class _WorldMesh:
-    def __init__(self, world):
+    def __init__(self, world, axes=None):
         self.world, self.device_type = world, "cpu"
+        if axes is not None:
+            self.mesh_dim_names, self.shape = tuple(axes), tuple(axes.values())
 
     def size(self):
         return self.world
 
 
 def test_train_driver_mesh_and_device_rule(monkeypatch):
+    """A model axis > 1 is item 14j; a mesh of several ranks needs its ranks
+    on named axes and a process group; a world of one trains."""
     cfg = configs.get_reduced("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="item 14i"):
+    with pytest.raises(NotImplementedError, match="item 14j"):
+        train_mod.train(cfg, steps=1, mesh=_WorldMesh(2, {"data": 1, "model": 2}))
+    with pytest.raises(ValueError, match="pod, data and model"):
         train_mod.train(cfg, steps=1, mesh=_WorldMesh(2))
+    with pytest.raises(RuntimeError, match="initialise torch.distributed"):
+        train_mod.train(cfg, steps=1, mesh=_WorldMesh(2, {"data": 2, "model": 1}))
     report = train_mod.train(cfg, steps=2, global_batch=1, seq_len=8, mesh=_WorldMesh(1))
     assert report["final_step"] == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

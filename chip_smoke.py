@@ -235,6 +235,25 @@ Phases, each reported on its own lines:
    its own gradient), and 18b's cut on one device at learning rate 0.
    18b-c's optimizer takes no warm-up step, so every step after the first
    reads an update.
+19. Tensor parallelism (``runtime/tensor_parallel.py``, a ``model`` axis of
+   2: heads, FFN columns, experts and the vocabulary cut over it, Megatron's
+   ``f`` / ``g``): gloo ranks on the one card, held against one-device runs:
+   (a) ``serve`` of Qwen3-8B at full width and depth on (data 1, model 2),
+   batch 4 x 1,024 prompt tokens, 32 generated: 36 flash launches a rank at
+   16/4 heads, the gathered logits within ``LM_FACTOR`` of the fp32 copy,
+   the tokens that differ reported, the weight bytes a rank holds against
+   the plan's; then the same cut weights' decode fed one device's tokens
+   (teacher forcing), every step's gathered logits within ``LM_FACTOR`` of
+   the fp32 copy's; (b) 18b's cut, 3 steps on (1, 2) and (2, 2), 18b's
+   gates, the collectives equal to the plan's (model axis included), with
+   two controls that must fail them (the model axis's sum of partial
+   gradients left out; a sum added where every rank holds the whole
+   gradient); (c) 18c's cut on (1, 2), 32 experts and 8 MLA heads a rank,
+   routes replayed, 18c's gates, with the sum left out as its control; then
+   the cut in fp32 on the ranks and on one device, held far closer (each
+   leaf's parameters within ``TP_FP32_PARAM_RTOL``), with two controls of
+   the aux loss (counted twice in the loss and its gradient; counted once
+   in the loss, its gradient twice).
 
 Every check that fails raises, and the script exits non-zero before its last
 line.  It needs a CUDA card and the repository's ``src/`` beside it.  The last
@@ -4390,8 +4409,8 @@ def run_dryrun():
                                  f"the products make {want}")
         flops[shape] = r["flops_total"]
     coll = recs[(DRYRUN_ARCH, "train_4k")]["collective_bytes"]
-    log(f"  {DRYRUN_ARCH} train_4k collective bytes a device (the data-parallel plan, data axis "
-        f"only; the model axis waits for item 14j): {coll}")
+    log(f"  {DRYRUN_ARCH} train_4k collective bytes a device (the plan's, over the data axis "
+        f"and the model axis's Megatron plan): {coll}")
     if not coll["all-gather"] > 0:
         raise AssertionError(f"17c: the train cell's collective bytes are off: {coll}")
     oavi = recs[("oavi-gram-step", "m4M_n57_L256_K64")]
@@ -4653,20 +4672,40 @@ def _replaying(ids):
     return contextlib.nullcontext() if ids is None else MoEProbe(replay=ids)
 
 
-def _param_gap(full, one) -> float:
-    """``|P - P1| / |P1 - P0|`` over every entry, in fp32: ``full`` the
-    parameters after a run's steps (P), ``one`` the one-device run's after
-    its steps (``p1``) and ``|P1 - P0|^2`` (``den``)."""
+def _gap_parts(full, one):
+    """Each leaf's ``|P - P1|^2``, in fp32: ``full`` the parameters after a
+    run's steps (P), ``one`` the one-device run's file, its parameters after
+    its steps (``p1``) and each leaf's ``|P1 - P0|^2`` (``dens``, P0 the
+    initial ones)."""
     import torch
 
-    num = 0.0
-    for k, p1 in one["p1"].items():
-        diff = full[k].to("cuda", torch.float32) - p1.to("cuda", torch.float32)
-        num += float(torch.sum(torch.square(diff)))
-    return math.sqrt(num / one["den"])
+    return {k: float(torch.sum(torch.square(full[k].to("cuda", torch.float32)
+                                            - p1.to("cuda", torch.float32))))
+            for k, p1 in one["p1"].items()}
 
 
-def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False):
+def _param_gap(parts, one) -> float:
+    """``|P - P1| / |P1 - P0|`` over every entry."""
+    return math.sqrt(sum(parts.values()) / sum(one["dens"].values()))
+
+
+def _leaf_gap(parts, one):
+    """The largest ``|P - P1| / |P1 - P0|`` of one leaf, and that leaf."""
+    gaps = {k: math.sqrt(v / one["dens"][k]) if one["dens"][k] else (math.inf if v else 0.0)
+            for k, v in parts.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def _gap_leaves(parts, n=4):
+    """The ``n`` leaves that add most to :func:`_param_gap`'s numerator, each
+    with its share of it."""
+    total = sum(parts.values()) or 1.0
+    top = sorted(parts, key=parts.get, reverse=True)[:n]
+    return [(k, round(parts[k] / total, 4)) for k in top]
+
+
+def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False, control=None):
     """``steps`` steps of ``cfg`` on this rank's rows through
     ``make_sharded_train_state`` / ``make_step`` (18b-c), ``replay``'s route
     ids replayed: the losses, step and collective seconds, the bytes
@@ -4675,7 +4714,8 @@ def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False):
     checksum and, on the rank given ``one``, their distance from one
     device's.  ``unreduced`` is the control: each sharded leaf's gradient
     left unreduced (this rank's block of its own gradient, over the world),
-    as a reduce_scatter that returned only the local sum would."""
+    as a reduce_scatter that returned only the local sum would; ``control``
+    names a :class:`TPControl` patched in for the steps (phase 19)."""
     import torch
 
     from repro_torch.data import lm as lm_data
@@ -4698,7 +4738,8 @@ def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False):
     ops.reset_launch_counts()
     plan.comm.reset()
     losses, step_s, coll_s = [], [], []
-    with _replaying(replay):
+    fault = TPControl(control) if control else contextlib.nullcontext()
+    with _replaying(replay), fault:
         for i in range(steps):
             batch = {"tokens": lm_data.batch_for_mesh(pipe, i, mesh, device="cuda")}
             c0, t0 = plan.comm.seconds, time.perf_counter()
@@ -4715,8 +4756,11 @@ def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False):
                at_rest=plan.at_rest_bytes(), launches=launches, issued=issued,
                want=plan.collective_bytes("train", TRAIN_BATCH, TRAIN_SEQ),
                checksum=_checksum(full[k] for k in sorted(full)),
-               sharded=len(plan.sharded()), leaves=len(plan.leaves),
-               param_gap=_param_gap(full, one) if one else None)
+               sharded=len(plan.sharded()), leaves=len(plan.leaves))
+    if one:
+        parts = _gap_parts(full, one)
+        out.update(param_gap=_param_gap(parts, one), leaf_gap=_leaf_gap(parts, one),
+                   gap_leaves=_gap_leaves(parts))
     del model, params, st, full
     torch.cuda.empty_cache()
     return out
@@ -4775,8 +4819,8 @@ def mesh_rank(rank, world, work):
 def _one_device_train(cfg, lr, steps, dev, work=None, key=None):
     """``steps`` steps of ``cfg`` on one device through the ranks' pieces
     (``mesh=None``): the losses and step seconds; with ``work``, the
-    parameters after the steps and their squared distance from the initial
-    ones to ``work/one_<key>.pt`` (:func:`_param_gap`'s reference)."""
+    parameters after the steps and each leaf's squared distance from the
+    initial ones to ``work/one_<key>.pt`` (:func:`_gap_parts`' reference)."""
     import torch
 
     from repro_torch.data import lm as lm_data
@@ -4796,9 +4840,9 @@ def _one_device_train(cfg, lr, steps, dev, work=None, key=None):
         losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)
     if work:
-        den = sum(float(torch.sum(torch.square(params[k].detach().float() - p0[k].float())))
-                  for k in params)
-        torch.save(dict(p1={k: v.detach().cpu() for k, v in params.items()}, den=den),
+        dens = {k: float(torch.sum(torch.square(params[k].detach().float() - p0[k].float())))
+                for k in params}
+        torch.save(dict(p1={k: v.detach().cpu() for k, v in params.items()}, dens=dens),
                    os.path.join(work, f"one_{key}.pt"))
     del model, params, st, p0
     torch.cuda.empty_cache()
@@ -4846,12 +4890,30 @@ def mesh_one_device(dev, work):
                 moe=moe_run, moe_step_s=moe_s, moe_route_calls=len(probe.ids))
 
 
-def main_path_mesh(dev):
+def run_ranks(tag, program, world, work, timeout=MESH_TIMEOUT_S):
+    """``world`` processes of ``program`` (argv: rank, world, work, this
+    directory), each a gloo rank on the one card; raises with their errors'
+    tails if one fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", program, str(r), str(world), work, HERE],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{tag}: a rank failed: {[e[-3000:] for e in errs]}")
+
+
+def main_path_mesh(dev, work):
     """Phase 18: LM serving and training over two gloo ranks on the one card
     (spawned processes; NCCL refuses two ranks on one device), held against
-    one-device runs in this process."""
-    import tempfile
-
+    one-device runs in this process; those runs' parameters and route ids
+    stay in ``work`` for phase 19."""
     import torch
 
     from repro_torch import configs
@@ -4865,26 +4927,13 @@ def main_path_mesh(dev):
         f"periods, {MESH_MOE_STEPS} steps, routes replayed from the one-device run, the aux "
         "loss and the global dispatch plan over both ranks")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as work:
-        one = mesh_one_device(dev, work)
-        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-        t1 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK_PROGRAM, str(r),
-                                   str(MESH_RANKS), work, HERE], env=env,
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for r in range(MESH_RANKS)]
-        try:
-            errs = [p.communicate(timeout=MESH_TIMEOUT_S)[1] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        ranks_s = time.perf_counter() - t1
-        if any(p.returncode for p in procs):
-            raise AssertionError(f"18: a rank failed: {[e[-3000:] for e in errs]}")
-        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-                 for r in range(MESH_RANKS)]
+    one = mesh_one_device(dev, work)
+    np.savez(os.path.join(work, "one_losses.npz"), train=one["train"], moe=one["moe"])
+    t1 = time.perf_counter()
+    run_ranks("18", MESH_RANK_PROGRAM, MESH_RANKS, work)
+    ranks_s = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(MESH_RANKS)]
 
     # 18a
     cfg = configs.get_config(TRAIN_ARCH)
@@ -4989,7 +5038,411 @@ def main_path_mesh(dev):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor parallelism (a model axis of 2) over gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+TP_SERVE_ARCH = "qwen3-8b"
+TP_PROMPT, TP_GEN = 1024, 32
+TP_TIMEOUT_S = 420
+# 19c's fp32 witness: the same cut, steps and replayed routes in fp32, on the
+# ranks and on one device.  Without bf16's roundings of each row-parallel
+# partial, the two differ only by the order of fp32 sums (relative 1e-7 an
+# entry), so an update can flip only where a gradient entry is that close to
+# zero: the limits sit far below bf16's and far above that.  The parameter
+# limit holds every leaf, so a fault in a small leaf (the router) shows.
+TP_FP32_LOSS_RTOL = 1e-5
+TP_FP32_PARAM_RTOL = 0.01
+# 19c's controls in bf16 and in fp32 (TPControl's names)
+TP_MOE_CONTROLS = {"moe": ("no_sum",), "moe32": ("aux_k", "aux_grad")}
+
+TP_RANK_PROGRAM = """
+import datetime, os, sys
+import torch.distributed as dist
+
+rank, world, work, here = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", store=dist.FileStore(os.path.join(work, f"tp_store{world}"),
+                                                     world),
+                        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+try:
+    sys.path.insert(0, here)
+    import chip_smoke as C
+    C.tp_rank(rank, world, work)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+class TPControl:
+    """A fault of the model axis patched in while entered: 19b-c's controls,
+    which must fail the gates, and the CPU tests' (``tests/
+    _torch_tensor_parallel_ranks.py`` imports this one definition).
+    ``no_sum`` leaves out ``f``'s sum of the partial gradients; ``times_k``
+    gives ``g`` a backward sum where every model rank already holds the
+    whole gradient (x k upstream); ``aux_k`` sums the MoE aux loss, the same
+    on every model rank, over the axis both ways (counted k times in the
+    loss and in its gradient); ``aux_grad`` counts it once in the loss but
+    sums its gradient over the axis (the router's aux part x k, the loss's
+    value unchanged)."""
+
+    NAMES = ("no_sum", "times_k", "aux_k", "aux_grad")
+
+    def __init__(self, name):
+        if name not in self.NAMES:
+            raise ValueError(f"unknown control {name!r}")
+        self.name = name
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.runtime import tensor_parallel as tp
+
+        self._mods = (tp, moe)
+        self._saved = (tp.copy_to_model, tp.reduce_from_model, moe.aux_loss)
+        aux, f = moe.aux_loss, tp.copy_to_model
+
+        def two_way(t):
+            ms = tp.active()
+            return t if ms is None else ms.comm.all_reduce_grad(t, ms.group)
+
+        if self.name == "no_sum":
+            tp.copy_to_model = lambda t: t
+        elif self.name == "times_k":
+            tp.reduce_from_model = two_way
+        elif self.name == "aux_k":
+            moe.aux_loss = lambda *a, **kw: two_way(aux(*a, **kw))
+        else:
+            moe.aux_loss = lambda *a, **kw: f(aux(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        tp, moe = self._mods
+        tp.copy_to_model, tp.reduce_from_model, moe.aux_loss = self._saved
+
+
+def tp_rank(rank, world, work):
+    """One rank of phase 19 on the one card.  A world of 2 is a (data 1,
+    model 2) mesh: 19a serves Qwen3-8B and decodes fed one device's tokens,
+    19b trains Qwen2-1.5B's 2-period cut (and its two controls), 19c
+    DeepSeek-V2-Lite's (routes replayed, and its control), then in fp32 (and
+    the aux loss's two controls); a world of 4 is (data 2, model 2): 19b's
+    cut again.
+    Writes what it got to ``work/tp_w<world>_rank<rank>.pt``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+    from repro_torch.runtime.data_parallel import DataParallelPlan
+
+    torch.cuda.set_device(0)
+    shape = (1, 2) if world == 2 else (2, 2)
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    # cuBLAS allocates a 32 MiB workspace for each thread's first product (the
+    # step's forward here, its backward on autograd's device thread): make
+    # both before any at-rest reading, which holds the plan's bytes only
+    w = torch.ones((64, 64), dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    torch.autograd.grad((w @ w).sum(), w)
+    del w
+    out = {}
+    cut = _mesh_cut(TRAIN_ARCH, MESH_TRAIN_PERIODS)
+    one = torch.load(os.path.join(work, "one_train.pt")) if rank == 0 else None
+    if world == 2:  # every rank holds every row
+        # 19a: serve Qwen3-8B at full width and depth, every rank all 4 rows
+        cfg = configs.get_config(TP_SERVE_ARCH)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = serve(cfg, batch=TRAIN_BATCH, prompt_len=TP_PROMPT, gen_tokens=TP_GEN, seed=0,
+                       mesh=mesh)
+        serve_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        logits = served.pop("prefill_logits").float().cpu()
+        torch.cuda.empty_cache()
+        # what a rank holds of the weights: the model from the seed, cut
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = Transformer(cfg, device="cuda", seed=0)
+        plan = DataParallelPlan(cfg, model, mesh)
+        plan.gather_params(model, plan.shard_params(model))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        # the same cut weights' decode fed one device's served tokens
+        forced = _forced_logits(model, _tp_prompts(cfg, "cuda"),
+                                np.load(os.path.join(work, "tp_generated.npy")), plan)
+        del model, plan
+        torch.cuda.empty_cache()
+        out["serve"] = dict(logits=logits, generated=served["generated"],
+                            prefill_s=served["prefill_s"], decode_s=served["decode_s"],
+                            tokens_per_s=served["tokens_per_s"], serve_s=serve_s,
+                            launches=launches, held=held, at_rest=served["at_rest_bytes"],
+                            forced=forced)
+        # 19b on (1, 2), then its two controls
+        out["train"] = _rank_train(cut, mesh, MESH_STEPS, one)
+        for control in ("no_sum", "times_k"):
+            out[f"train_{control}"] = _rank_train(cut, mesh, MESH_STEPS, one, control=control)
+        # 19c, each rank replaying every route call's ids, and its control; then
+        # the cut in fp32 with the aux loss's two controls
+        moe_cut = _mesh_cut(MLA_ARCH, 2)
+        for key, cfg_c in (("moe", moe_cut), ("moe32", _fp32(moe_cut))):
+            one_c = torch.load(os.path.join(work, f"one_{key}.pt")) if rank == 0 else None
+            ids = torch.load(os.path.join(work, f"{key}_ids.pt"), map_location="cuda")
+            out[key] = _rank_train(cfg_c, mesh, MESH_MOE_STEPS, one_c, replay=ids)
+            for control in TP_MOE_CONTROLS[key]:
+                out[f"{key}_{control}"] = _rank_train(cfg_c, mesh, MESH_MOE_STEPS, one_c,
+                                                      replay=ids, control=control)
+    else:
+        out["train"] = _rank_train(cut, mesh, MESH_STEPS, one)
+    torch.save(out, os.path.join(work, f"tp_w{world}_rank{rank}.pt"))
+
+
+def _fp32(cfg):
+    return dataclasses.replace(cfg, dtype="float32")
+
+
+def _tp_prompts(cfg, dev):
+    """19a's prompts, serve's draw from seed 0."""
+    import torch
+
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TP_PROMPT)), device=dev)
+
+
+def _forced_logits(model, prompts, forced, plan=None, use_kernel=None):
+    """Decode fed ``forced``'s tokens (B, n), each step's instead of its own
+    choice (teacher forcing), after a prefill of ``prompts`` as ``serve``'s:
+    the prefill's and each decode step's last-token logits, (n, B, V) fp32
+    on the host, gathered over the model axis under ``plan``."""
+    import torch
+
+    B, P = prompts.shape
+    n = forced.shape[1]
+    tokens = torch.as_tensor(forced, device=prompts.device)
+    gather = (lambda t: t) if plan is None else plan.gather_vocab
+    with torch.inference_mode(), (contextlib.nullcontext() if plan is None else plan.scope()):
+        logits, cache = model.prefill(prompts, P + n, use_kernel)
+        out = [gather(logits[:, -1]).float().cpu()]
+        for i in range(n - 1):
+            pos = torch.full((B,), P + i, dtype=torch.long, device=prompts.device)
+            logits, cache = model.decode_step(cache, tokens[:, i], pos)
+            out.append(gather(logits[:, 0]).float().cpu())
+    return torch.stack(out)
+
+
+def tp_one_device(dev, work):
+    """19a's and 19c's one-device runs: Qwen3-8B's served tokens (to
+    ``work/tp_generated.npy``, which the ranks' decode is fed) and the same
+    weights' logits at the prefill and at each decode step fed those tokens,
+    through the kernel (bf16) and an fp32 copy; 19c's cut in fp32, its
+    parameters and route ids to ``work`` as phase 18 leaves the bf16 cut's."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Transformer
+
+    cfg = configs.get_config(TP_SERVE_ARCH)
+    served = serve(cfg, batch=TRAIN_BATCH, prompt_len=TP_PROMPT, gen_tokens=TP_GEN, seed=0)
+    np.save(os.path.join(work, "tp_generated.npy"), served["generated"])
+    model = Transformer(cfg, device=dev, seed=0)
+    prompts = _tp_prompts(cfg, dev)
+    forced = _forced_logits(model, prompts, served["generated"])
+    model32 = Transformer.from_params(_fp32(cfg), model.state_dict(), device=dev)
+    del model
+    forced32 = _forced_logits(model32, prompts, served["generated"], use_kernel=False)
+    del model32
+    one = dict(generated=served["generated"], prefill_s=served["prefill_s"],
+               decode_s=served["decode_s"], tokens_per_s=served["tokens_per_s"],
+               forced=forced, forced32=forced32)
+    del served
+    torch.cuda.empty_cache()
+    with MoEProbe() as probe:
+        one["moe32"] = _one_device_train(_fp32(_mesh_cut(MLA_ARCH, 2)), MESH_LR,
+                                         MESH_MOE_STEPS, dev, work, "moe32")[0]
+    torch.save(probe.ids, os.path.join(work, "moe32_ids.pt"))
+    return one
+
+
+def _tp_train_gates(tag, runs, one_losses, steps, n_flash, controls, loss_rtol=MESH_LOSS_RTOL,
+                    param_rtol=MESH_PARAM_RTOL, leaf_rtol=None):
+    """18b-c's gates on a (data, model) world's runs of one cut: every rank's
+    losses and gathered parameters bit-equal; losses within ``loss_rtol`` of
+    one device's, parameters within ``param_rtol`` (and, with ``leaf_rtol``,
+    each leaf's within that); the flash launches, the collectives (the
+    plan's, model axis included) and the bytes held between steps; each
+    control off a gate."""
+    def rel(losses):
+        return float(np.max(np.abs(np.subtract(losses, one_losses)) / np.abs(one_losses)))
+
+    def passes(t):
+        return (rel(t["losses"]) <= loss_rtol and t["param_gap"] <= param_rtol
+                and (leaf_rtol is None or t["leaf_gap"][0] <= leaf_rtol))
+
+    gap = rel(runs[0]["losses"])
+    log(f"  {tag}: losses {[t['losses'] for t in runs]}, one device {list(one_losses)} "
+        f"(largest relative gap {gap:.3g}, limit {loss_rtol}); gathered parameters "
+        f"|P - P1| / |P1 - P0| {runs[0]['param_gap']:.6g} (limit {param_rtol}; the "
+        f"leaves adding most to it, with their shares: {runs[0]['gap_leaves']}; the largest "
+        f"of one leaf {runs[0]['leaf_gap'][0]:.6g}, {runs[0]['leaf_gap'][1]}, limit "
+        f"{leaf_rtol}); step seconds a rank {[[round(x, 4) for x in t['step_s']] for t in runs]}"
+        f", of which collectives (gloo through the host) "
+        f"{[[round(x, 4) for x in t['collective_s']] for t in runs]}; bytes allocated above the "
+        f"level before the state, before and between steps {[t['allocated'] for t in runs]}, "
+        f"the plan's at-rest {runs[0]['at_rest']}; collectives issued {runs[0]['issued']}, the "
+        f"plan's a step {runs[0]['want']}; flash launches a rank "
+        f"{[t['launches']['flash_attention'] for t in runs]}")
+    for t in runs:
+        if t["losses"] != runs[0]["losses"] or t["checksum"] != runs[0]["checksum"]:
+            raise AssertionError(f"{tag}: the ranks' losses or gathered parameters differ")
+        if t["launches"]["flash_attention"] != n_flash:
+            raise AssertionError(f"{tag}: {t['launches']['flash_attention']} flash launches, "
+                                 f"expected {n_flash}")
+        want = {k: v * steps for k, v in t["want"].items() if k != "total"}
+        if t["issued"] != want:
+            raise AssertionError(f"{tag}: collectives {t['issued']}, the plan's {want}")
+        if any(abs(a - t["at_rest"]) > AT_REST_RTOL * t["at_rest"] for a in t["allocated"]):
+            raise AssertionError(f"{tag}: allocated {t['allocated']} between steps, the plan "
+                                 f"holds {t['at_rest']}")
+    if not np.isfinite(runs[0]["losses"]).all() or not passes(runs[0]):
+        raise AssertionError(f"{tag}: the losses or the parameters are off the one-device "
+                             "run's")
+    found = dict(losses=runs[0]["losses"], gap=gap, param_gap=runs[0]["param_gap"],
+                 leaf_gap=runs[0]["leaf_gap"], step_s=[t["step_s"] for t in runs],
+                 collective_s=[t["collective_s"] for t in runs], issued=runs[0]["issued"],
+                 at_rest=runs[0]["at_rest"], allocated=[t["allocated"] for t in runs])
+    for name, ctrl in controls.items():
+        log(f"  {tag}'s control {name}: losses {ctrl['losses']} (gap {rel(ctrl['losses']):.3g})"
+            f", parameters {ctrl['param_gap']:.6g}, the largest of one leaf "
+            f"{ctrl['leaf_gap'][0]:.6g} ({ctrl['leaf_gap'][1]})")
+        if passes(ctrl):
+            raise AssertionError(f"{tag}: the control {name} passed the gates")
+        found[f"control_{name}"] = dict(gap=rel(ctrl["losses"]), param_gap=ctrl["param_gap"],
+                                        leaf_gap=ctrl["leaf_gap"])
+    return found
+
+
+def main_path_tp(dev, work):
+    """Phase 19: tensor parallelism over gloo ranks on the one card, held
+    against one-device runs (19a's and 19c's fp32 in this process, 19b-c's
+    phase 18's, whose parameters, losses and route ids are in ``work``)."""
+    import torch
+
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TP_SERVE_ARCH)
+    log(f"phase 19: tensor parallelism, gloo ranks on the one card: (a) serve {cfg.name} at "
+        f"full width and depth on (data 1, model 2), batch {TRAIN_BATCH} x {TP_PROMPT} prompt "
+        f"tokens, {TP_GEN} generated, {cfg.n_heads // 2}/{cfg.n_kv_heads // 2} heads a rank, "
+        f"and its decode fed one device's tokens; (b) {TRAIN_ARCH} cut to "
+        f"{MESH_TRAIN_PERIODS} periods, {MESH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} on "
+        f"(1, 2) and (2, 2), two controls; (c) {MLA_ARCH} cut to 2 periods, {MESH_MOE_STEPS} "
+        f"steps on (1, 2), routes replayed, one control; in fp32, two controls of the aux loss")
+    torch.cuda.empty_cache()
+    one = tp_one_device(dev, work)
+    t1 = time.perf_counter()
+    run_ranks("19", TP_RANK_PROGRAM, 2, work, TP_TIMEOUT_S)
+    t2 = time.perf_counter()
+    run_ranks("19", TP_RANK_PROGRAM, 4, work, TP_TIMEOUT_S)
+    ranks_s = [t2 - t1, time.perf_counter() - t2]
+    two = [torch.load(os.path.join(work, f"tp_w2_rank{r}.pt"), weights_only=False)
+           for r in range(2)]
+    four = [torch.load(os.path.join(work, f"tp_w4_rank{r}.pt"), weights_only=False)
+            for r in range(4)]
+
+    # 19a: the prefill's logits, then every decode step's fed one device's tokens
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    limit = LM_FACTOR * float((one["forced"][0] - one["forced32"][0]).abs().max())
+    dec_limit = LM_FACTOR * float((one["forced"] - one["forced32"]).abs().max())
+    sv = [r["serve"] for r in two]
+    gaps = [float((r["logits"] - one["forced32"][0]).abs().max()) for r in sv]
+    vs_one = [float((r["logits"] - one["forced"][0]).abs().max()) for r in sv]
+    dec_gaps = [float((r["forced"] - one["forced32"]).abs().max()) for r in sv]
+    step_gaps = (sv[0]["forced"] - one["forced32"]).abs().amax(dim=(1, 2))
+    one_steps = (one["forced"] - one["forced32"]).abs().amax(dim=(1, 2))
+    diff = sv[0]["generated"] != one["generated"]
+    first_off = [int(np.argmax(row)) if row.any() else None for row in diff]
+
+    def picks_off(logits):  # argmax under forcing against one device's served token
+        return int(np.sum(logits.argmax(-1).T.numpy() != one["generated"]))
+
+    log(f"  19a: gathered prefill last-token logits against the fp32 copy: max |gap| "
+        f"{[round(g, 6) for g in gaps]} (limit {LM_FACTOR} x the one-device bf16 vs fp32 gap = "
+        f"{limit:.6g}), against the one-device bf16 run {[round(g, 6) for g in vs_one]}; "
+        f"decode fed one device's tokens, {TP_GEN} steps with the prefill: max |gap| from the "
+        f"fp32 copy {[round(g, 6) for g in dec_gaps]} (limit {LM_FACTOR} x the one-device bf16 "
+        f"gap over the steps = {dec_limit:.6g}), a step's {float(step_gaps.min()):.6g}-"
+        f"{float(step_gaps.max()):.6g} (one device's {float(one_steps.min()):.6g}-"
+        f"{float(one_steps.max()):.6g}); its argmax off one device's token at "
+        f"{picks_off(sv[0]['forced'])} of {one['generated'].size} steps (the fp32 copy's "
+        f"{picks_off(one['forced32'])}, one device's bf16 {picks_off(one['forced'])}); "
+        f"generated tokens differing from one device's: {int(diff.sum())} of "
+        f"{one['generated'].size}, first at step {first_off} of each row; prefill s a rank "
+        f"{[round(r['prefill_s'], 4) for r in sv]} (one device {one['prefill_s']:.4f}), decode "
+        f"tokens/s {[round(r['tokens_per_s'], 2) for r in sv]} (one device "
+        f"{one['tokens_per_s']:.2f}); flash launches a rank "
+        f"{[r['launches']['flash_attention'] for r in sv]} at ({TRAIN_BATCH * cfg.n_heads // 2}, "
+        f"{TP_PROMPT}, {cfg.d_head}), group {cfg.n_heads // cfg.n_kv_heads}; weight bytes a "
+        f"rank holds {[r['held'] for r in sv]}, the plan's at-rest {sv[0]['at_rest']}")
+    for rank, r in enumerate(sv):
+        if r["logits"].shape != (TRAIN_BATCH, cfg.vocab_size) or not bool(
+                torch.isfinite(r["logits"]).all()):
+            raise AssertionError(f"19a: rank {rank}'s gathered logits are "
+                                 f"{tuple(r['logits'].shape)} or not finite")
+        if r["forced"].shape != one["forced32"].shape or not torch.equal(r["forced"],
+                                                                         sv[0]["forced"]):
+            raise AssertionError(f"19a: rank {rank}'s decode logits are "
+                                 f"{tuple(r['forced'].shape)} or not the other rank's")
+        if r["launches"]["flash_attention"] != n_attn:
+            raise AssertionError(f"19a: rank {rank} launched flash "
+                                 f"{r['launches']['flash_attention']} times, expected {n_attn}")
+        if r["generated"].shape != (TRAIN_BATCH, TP_GEN) or not np.array_equal(
+                r["generated"], sv[0]["generated"]):
+            raise AssertionError("19a: the ranks' tokens differ or are not the whole batch's")
+        if abs(r["held"] - r["at_rest"]) > AT_REST_RTOL * r["at_rest"]:
+            raise AssertionError(f"19a: rank {rank} holds {r['held']} bytes of weights, the "
+                                 f"plan {r['at_rest']}")
+    if max(gaps) > limit:
+        raise AssertionError("19a: the gathered logits are off the fp32 copy's")
+    if not max(dec_gaps) <= dec_limit:
+        raise AssertionError("19a: the decode's gathered logits are off the fp32 copy's")
+
+    # 19b-c
+    n_flash = 2 * MESH_TRAIN_PERIODS * configs.get_config(TRAIN_ARCH).period.count("attn")
+    n_mla = 2 * 2 * configs.get_config(MLA_ARCH).period.count("mla")
+    with np.load(os.path.join(work, "one_losses.npz")) as f:
+        one_losses = {k: f[k] for k in f.files}
+    found = {
+        "1x2": _tp_train_gates("19b (1, 2)", [r["train"] for r in two], one_losses["train"],
+                               MESH_STEPS, n_flash * MESH_STEPS,
+                               {c: two[0][f"train_{c}"] for c in ("no_sum", "times_k")}),
+        "2x2": _tp_train_gates("19b (2, 2)", [r["train"] for r in four], one_losses["train"],
+                               MESH_STEPS, n_flash * MESH_STEPS, {}),
+        "moe": _tp_train_gates("19c (1, 2)", [r["moe"] for r in two], one_losses["moe"],
+                               MESH_MOE_STEPS, n_mla * MESH_MOE_STEPS,
+                               {c: two[0][f"moe_{c}"] for c in TP_MOE_CONTROLS["moe"]}),
+        "moe32": _tp_train_gates("19c fp32 (1, 2)", [r["moe32"] for r in two], one["moe32"],
+                                 MESH_MOE_STEPS, n_mla * MESH_MOE_STEPS,
+                                 {c: two[0][f"moe32_{c}"] for c in TP_MOE_CONTROLS["moe32"]},
+                                 TP_FP32_LOSS_RTOL, TP_FP32_PARAM_RTOL, TP_FP32_PARAM_RTOL),
+    }
+    out = dict(serve_gaps=gaps, serve_limit=limit, serve_vs_one=vs_one,
+               decode_gaps=dec_gaps, decode_limit=dec_limit, tokens_differing=int(diff.sum()),
+               serve_prefill_s=[r["prefill_s"] for r in sv],
+               serve_tokens_per_s=[r["tokens_per_s"] for r in sv],
+               serve_held=[r["held"] for r in sv], serve_at_rest=sv[0]["at_rest"],
+               train=found, ranks_s=ranks_s, seconds=time.perf_counter() - t0)
+    log(f"  phase 19: {out['seconds']:.1f} s ({ranks_s[0]:.1f} + {ranks_s[1]:.1f} s of it the "
+        "two worlds, start-up included)")
+    launches = {"serve": sv[0]["launches"], "train": two[0]["train"]["launches"],
+                "train_2x2": four[0]["train"]["launches"], "moe": two[0]["moe"]["launches"]}
+    return out, launches
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -5083,7 +5536,9 @@ def main() -> int:
     moe_run, moe_launches = main_path_moe(dev, keep=p15)
     families, family_launches = main_path_families(dev)
     optimized = main_path_optimized(dev, p6, p15)
-    mesh_run, mesh_launches = main_path_mesh(dev)
+    with tempfile.TemporaryDirectory() as work:  # phase 18's one-device runs, for 19 too
+        mesh_run, mesh_launches = main_path_mesh(dev, work)
+        tp_run, tp_launches = main_path_tp(dev, work)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -5158,6 +5613,14 @@ def main() -> int:
              mesh_serve_launches=mesh_launches["serve"]["flash_attention"],
              mesh_train_launches=mesh_launches["train"]["flash_attention"],
              mesh_moe_train_launches=mesh_launches["moe"]["flash_attention"],
+             # phase 19, each rank of a model axis of 2 at its local heads
+             # (rank 0's count; every rank gated): Qwen3-8B's prefill at
+             # (64, 1024, 128) group 4, the dense cut's steps on (1, 2) and
+             # (2, 2), the MoE cut's (MLA at d = 192 / dv = 128, 8 heads)
+             tp_serve_launches=tp_launches["serve"]["flash_attention"],
+             tp_train_launches=tp_launches["train"]["flash_attention"],
+             tp_train_2x2_launches=tp_launches["train_2x2"]["flash_attention"],
+             tp_moe_train_launches=tp_launches["moe"]["flash_attention"],
              **flash["serve"]),
     ]
     for entry in kernels:
@@ -5191,6 +5654,7 @@ def main() -> int:
         "families": families,
         "optimized": optimized,
         "mesh": mesh_run,
+        "tensor_parallel": tp_run,
     }, default=str))
     # the launches of phases 12-13's paths, each read after its own run with
     # the counts set to 0 before it (the ranks of 13b count in their processes)

@@ -42,18 +42,24 @@ What each number is:
   only a compiler can give them, so they are ``null``; ``why`` says so for
   each.
 * ``collective_bytes``: the result bytes a device's collectives receive in
-  the step under the port's data-parallel plan
+  the step under the port's plan
   (:class:`repro_torch.runtime.data_parallel.DataParallelPlan`, the object
-  the training and serving drivers run), by kind: a train step's parameter
-  all_gathers, gradient reduce_scatters and all_reduces and its two
-  scalars, and every cell's MoE all_reduces (the aux loss) and all_gathers
-  (the global plan's counts).  They are counted on the mesh's ``pod`` and
-  ``data`` axes, each leaf at the bytes of its block over a ``model`` axis
-  (16 on the production mesh): what one device of that mesh moves.  The
-  model axis's own collectives (tensor parallelism) wait for ROADMAP item
-  14j, and ``why`` says so.  The reference's counts are GSPMD's, with its model axis, so
-  the two differ.  No HLO is parsed (``launch/hlo_analysis.py`` reads the
-  reference's modules).
+  the training and serving drivers run), by kind.  Over the ``pod`` and
+  ``data`` axes: a train step's parameter all_gathers, gradient
+  reduce_scatters and all_reduces (each leaf at the bytes of its block over
+  the ``model`` axis, 16 on the production mesh) and its two scalars, and
+  every cell's MoE all_reduces (the aux loss) and all_gathers (the global
+  plan's counts).  Over the ``model`` axis, the Megatron plan of
+  :mod:`repro_torch.runtime.tensor_parallel`: each attention, MLA, MLP and
+  MoE sub-block's and the embedding's ``all_reduce`` of a rank's
+  activations (again under remat), in training the ``f``'s backward ones
+  and the CE's three reductions a token, in serving the logits' gather,
+  and the gathered KV leaves' and partial norms' collectives.  A config
+  with SSM mixers or a frames frontend does not run on a model axis (item
+  14k): its mixers' model-axis collectives are not counted, and ``why``
+  says so.  The reference's counts are GSPMD's, another plan over the same
+  axes (``tests/test_torch_tensor_parallel.py`` puts both side by side on a
+  reduced step), so the two differ.  No HLO is parsed here.
 
 ``run_oavi_cell`` is the paper's degree step (m = 4,194,304, n = 57,
 L = 256, K = 64) on ``meta``, at the rows of one device of the mesh; its
@@ -88,16 +94,20 @@ from .. import configs
 from ..models import hints
 from ..models import model as M
 from ..optim import AdamW
+from ..runtime import tensor_parallel
 from ..runtime.data_parallel import DataParallelPlan
 from . import mesh as mesh_mod
 
 _COMPILER_ONLY = ("only an XLA compile reports it; the port's dry run compiles nothing "
                   "(eager PyTorch on meta tensors)")
-_LM_PLAN = ("runtime/data_parallel.py DataParallelPlan.collective_bytes: the data-parallel "
-            "plan's collectives on the mesh's pod and data axes")
+_LM_PLAN = ("runtime/data_parallel.py DataParallelPlan.collective_bytes: the plan's "
+            "collectives on the mesh's pod and data axes")
 _MODEL_AXIS = ("; a leaf's bytes are those of its block over the model axis, what a device of "
-               "this mesh moves over the data axes; the model axis's own collectives (tensor "
-               "parallelism) are not counted: they wait for ROADMAP item 14j")
+               "this mesh moves over the data axes; over the model axis, the Megatron plan of "
+               "runtime/tensor_parallel.py (sub-block, embedding and CE all_reduces, the "
+               "gathered KV leaves, the served logits' gather), not GSPMD's")
+_MODEL_AXIS_14K = ("; this config's SSM mixers and frames frontend do not run on a model axis "
+                   "(ROADMAP item 14k): their model-axis collectives are not counted")
 
 
 class ByteCounter(TorchDispatchMode):
@@ -237,8 +247,11 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
     plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh,
                             AdamW() if shape.kind == "train" else None)
     coll = plan.collective_bytes(shape.kind, shape.global_batch, shape.seq_len)
-    why_coll = _LM_PLAN + (_MODEL_AXIS if hints.mesh_axis_sizes(mesh).get("model", 1) > 1
-                           else "")
+    why_coll = _LM_PLAN
+    if hints.mesh_axis_sizes(mesh).get("model", 1) > 1:
+        why_coll += _MODEL_AXIS
+        if set(cfg.period) - set(tensor_parallel.SUPPORTED) or cfg.frontend != "tokens":
+            why_coll += _MODEL_AXIS_14K
     return {
         **meta,
         "mesh": mesh_name,

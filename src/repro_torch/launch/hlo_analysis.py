@@ -5,7 +5,8 @@ A copy of ``src/repro/launch/hlo_analysis.py`` (which imports no jax
 either), kept so that the port imports nothing of the JAX package.  The
 port's dry run (:mod:`repro_torch.launch.dryrun`) compiles no HLO, so it
 does not call these parsers; they read the reference's compiled modules,
-for instance a dump written next to the port's records.
+as ``tests/test_torch_tensor_parallel.py`` does to put GSPMD's collectives
+beside the port's tensor-parallel plan.
 """
 
 from __future__ import annotations

@@ -114,7 +114,8 @@ def make_local_mesh(model_parallel: int = 1, device=None):
                             mesh_dim_names=("data", "model"))
 
 
-def launcher_mesh(device=None):
-    """The launcher's ranks as :func:`make_local_mesh`'s mesh when a launcher
-    started this process as one of several, else ``None`` (one device)."""
-    return make_local_mesh(device=device) if _launched() else None
+def launcher_mesh(device=None, model_parallel: int = 1):
+    """The launcher's ranks as :func:`make_local_mesh`'s mesh (``model`` of
+    size ``model_parallel``) when a launcher started this process as one of
+    several, else ``None`` (one device)."""
+    return make_local_mesh(model_parallel, device=device) if _launched() else None

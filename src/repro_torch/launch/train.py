@@ -17,11 +17,14 @@ from the seed, keeps between steps only its blocks of the leaves that
 moments), takes its rows of the ``(seed, step)`` batch, and averages the
 gradients over the ranks.  ``mesh=None``, or a ``DeviceMesh`` of world 1
 such as ``launch.mesh.make_local_mesh()``, is one device: no collective, and
-the same bits either way.  Meshes of ``pod`` x ``data`` ranks run; a
-``model`` axis larger than 1 (tensor parallelism) is ROADMAP item 14j.  On
-the card every attention layer's forward launches the hand-written flash
-kernel (twice a step under remat: the forward and its recompute); the
-backward is plain PyTorch.  The pipeline yields tokens only, as the
+the same bits either way.  Meshes of ``pod`` x ``data`` x ``model`` ranks
+run: a ``model`` axis larger than 1 cuts heads, FFN columns, experts and the
+vocabulary over its ranks, Megatron-style
+(:mod:`repro_torch.runtime.tensor_parallel`), and the ranks of a model group
+share rows and losses.  On the card every attention layer's forward
+launches the hand-written flash kernel at the rank's heads (twice a step
+under remat: the forward and its recompute); the backward is plain
+PyTorch.  The pipeline yields tokens only, as the
 reference's does: a frames encoder (HuBERT) trains through
 ``models.model.make_train_step`` on a batch of ``frames`` and ``labels``.
 
@@ -31,6 +34,9 @@ Usage::
         --device cpu --steps 20 --batch 2 --seq 32 --ckpt-dir /tmp/run1
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch qwen2-1.5b --reduced --device cpu --steps 20 --batch 4 --seq 32   # 2 gloo ranks
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen2-1.5b --reduced --device cpu --steps 20 --batch 4 --seq 32 \\
+        --model-parallel 2                                 # (data 2, model 2)
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 8 --batch 4 --seq 1024                                  # on the card
 """
@@ -62,8 +68,9 @@ def make_sharded_train_state(cfg, opt: AdamW, mesh, seed: int = 0, *, device=Non
     """The model from ``seed`` (or ``params``, a state dict), this rank's
     parameters and optimizer state cut by the plan, and the plan:
     ``(model, params, opt_state, plan)``.  Between steps the model holds no
-    full tensor of a sharded leaf."""
-    dev = mesh_device(mesh, device)
+    full tensor of a sharded leaf; a leaf cut over a model axis is held as
+    this rank's block."""
+    dev = mesh_device(mesh, device, cfg)
     if params is None:
         model = M.Transformer(cfg, device=dev, seed=seed)
     else:
@@ -115,14 +122,14 @@ def train(
     steps run in a :class:`~repro_torch.runtime.TrainLoop` that resumes from
     the newest checkpoint there and saves every ``ckpt_every`` steps.
 
-    Returns the loop's report plus ``losses`` (one a step run: the ranks'
-    mean), ``step_seconds`` (host time of each step, which ends in reading
+    Returns the loop's report plus ``losses`` (one a step run: the batch
+    ranks' mean), ``step_seconds`` (host time of each step, which ends in reading
     its loss), ``collective_bytes`` and ``collective_seconds`` (this rank's
     collectives, checkpoints' gathers included)."""
     if cfg.frontend != "tokens":
         raise ValueError(f"{cfg.name}: the token pipeline cannot feed a {cfg.frontend!r} "
                          "frontend; train it through models.model.make_train_step")
-    dev = mesh_device(mesh, device)
+    dev = mesh_device(mesh, device, cfg)
     opt = opt or AdamW(peak_lr=3e-4, warmup_steps=min(50, steps // 10 + 1),
                        total_steps=steps)
     model, params, opt_state, plan = make_sharded_train_state(cfg, opt, mesh, seed,
@@ -158,7 +165,7 @@ def train(
         t0 = time.perf_counter()
         for i in range(steps):
             state, m = wrapped_step(state, batch_fn(i))
-            if i % log_every == 0 and plan.index == 0:
+            if i % log_every == 0 and plan.writer:
                 print(f"step {i:5d} loss {m['loss']:.4f}", flush=True)
         _sync(dev)
         report = {"final_step": steps, "seconds": time.perf_counter() - t0}
@@ -181,12 +188,15 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks of the mesh's model axis under a launcher")
     args = ap.parse_args(argv)
 
     cfg = configs.get_reduced(args.arch) if args.reduced else configs.get_config(args.arch)
+    mesh = mesh_mod.launcher_mesh(device=args.device, model_parallel=args.model_parallel)
     report = train(cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,
-                   mesh=mesh_mod.launcher_mesh(device=args.device), device=args.device)
+                   mesh=mesh, device=args.device)
     losses = report["losses"]
     print(f"done: {report.get('final_step')} steps; "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")

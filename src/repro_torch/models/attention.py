@@ -13,6 +13,14 @@ not a plain version of the flash kernel).  Decode is dense one-token
 attention over the cache in plain PyTorch ops, as in the JAX package (it
 reads the whole cache once and is bound by that read).  Weights keep the JAX
 layout, ``(in, out)``, so ``x @ w``.
+
+Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`) a rank holds
+``H / k`` query heads (its columns of ``wq``, rows of ``wo``) and computes
+the KV heads they read: its block of ``Hkv / k`` heads, or, where ``k`` does
+not divide ``Hkv``, those of its query heads out of the whole ``wk`` / ``wv``
+(gathered by the plan), expanded to one a query head where the grouping is
+uneven.  The normed input goes through ``f`` and ``wo``'s output through
+``g``; a decode cache holds the rank's KV heads.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
+from ..runtime import tensor_parallel as tp
 from . import hints, layers
 
 
@@ -128,17 +137,49 @@ class Attention(nn.Module):
             self.q_norm = layers.param(layers.init_rms_scale(dh, dtype, device))
             self.k_norm = layers.param(layers.init_rms_scale(dh, dtype, device))
 
+    def _heads(self) -> Tuple[int, Optional[Tuple[int, int]], Optional[torch.Tensor]]:
+        """``(H, kv, expand)``: the query heads this rank computes, the range
+        of KV heads they read (None: every KV head, one device), and where
+        that range groups unevenly over them, the KV head of each query
+        head within it."""
+        d = self.dims
+        ms = tp.active()
+        if ms is None:
+            return d.n_heads, None, None
+        H = d.n_heads // ms.ranks
+        group = d.n_heads // d.n_kv_heads
+        lo, hi = ms.index * H // group, ((ms.index + 1) * H - 1) // group + 1
+        expand = None
+        if H % group and group % H:
+            expand = (ms.index * H + torch.arange(H, device=self.wq.device)) // group - lo
+        return H, (lo, hi), expand
+
+    def _kv_weight(self, w: torch.Tensor, kv) -> torch.Tensor:
+        """This rank's KV columns of ``w``: its block as held, or cut out
+        of the whole leaf (the plan gathers it where ``k`` does not divide
+        the KV heads)."""
+        dh = self.dims.d_head
+        if kv is None or w.shape[-1] == (kv[1] - kv[0]) * dh:
+            return w
+        return w[..., kv[0] * dh:kv[1] * dh]
+
     def _project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
         B, S, _ = x.shape
         d = self.dims
+        H, kv, expand = self._heads()
+        Hkv = d.n_kv_heads if kv is None else kv[1] - kv[0]
         q = x @ self.wq
-        k = x @ self.wk
-        v = x @ self.wv
+        k = x @ self._kv_weight(self.wk, kv)
+        v = x @ self._kv_weight(self.wv, kv)
         if d.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, d.n_heads, d.d_head)
-        k = k.reshape(B, S, d.n_kv_heads, d.d_head)
-        v = v.reshape(B, S, d.n_kv_heads, d.d_head)
+            q = q + self.bq
+            k = k + self._kv_weight(self.bk, kv)
+            v = v + self._kv_weight(self.bv, kv)
+        q = q.reshape(B, S, H, d.d_head)
+        k = k.reshape(B, S, Hkv, d.d_head)
+        v = v.reshape(B, S, Hkv, d.d_head)
+        if expand is not None:
+            k, v = k[:, :, expand], v[:, :, expand]
         if d.qk_norm:
             q = layers.rms_norm(q, self.q_norm)
             k = layers.rms_norm(k, self.k_norm)
@@ -156,13 +197,13 @@ class Attention(nn.Module):
         """Attention over the whole sequence: (output, k, v), k and v in the
         cache layout (B, S, Hkv, dh)."""
         B, S, _ = x.shape
-        h = layers.rms_norm(x, self.norm_scale)
+        h = tp.copy_to_model(layers.rms_norm(x, self.norm_scale))
         q, k, v = self._project_qkv(h, positions)
         out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      self.dims, use_kernel)
-        out = out.transpose(1, 2).reshape(B, S, self.dims.n_heads * self.dims.d_head)
+        out = out.transpose(1, 2).reshape(B, S, q.shape[2] * self.dims.d_head)
         # the reference pins the batch axes here (a no-op in eager code)
-        return x + hints.constrain_batch(out) @ self.wo, k, v
+        return x + tp.reduce_from_model(hints.constrain_batch(out) @ self.wo), k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
@@ -171,13 +212,16 @@ class Attention(nn.Module):
         return self._attend_full(x, positions, use_kernel)[0], None
 
     def init_cache(self, B: int, S_max: int, dtype, device) -> KVCache:
-        return init_cache(B, S_max, self.dims, dtype, device)
+        """An empty cache of the KV heads this rank computes."""
+        H, kv, expand = self._heads()
+        Hkv = self.dims.n_kv_heads if kv is None else (H if expand is not None else kv[1] - kv[0])
+        return init_cache(B, S_max, self.dims._replace(n_kv_heads=Hkv), dtype, device)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, KVCache]:
         """Forward + cache fill (cache zero-padded to S_max)."""
         y, k, v = self._attend_full(x, positions, use_kernel)
-        cache = init_cache(x.shape[0], S_max, self.dims, k.dtype, k.device)
+        cache = self.init_cache(x.shape[0], S_max, k.dtype, k.device)
         S = x.shape[1]
         cache.k[:, :S] = k
         cache.v[:, :S] = v
@@ -195,10 +239,10 @@ class Attention(nn.Module):
         one new slot), so the two give the same cache.
         """
         B = x.shape[0]
-        d = self.dims
-        H, Hkv, dh = d.n_heads, d.n_kv_heads, d.d_head
+        dh = self.dims.d_head
         h = layers.rms_norm(x, self.norm_scale)
         q, k_new, v_new = self._project_qkv(h, pos[:, None])
+        H, Hkv = q.shape[2], k_new.shape[2]
         rows = torch.arange(B, device=x.device)
         cache.k[rows, pos] = k_new[:, 0]
         cache.v[rows, pos] = v_new[:, 0]
@@ -212,4 +256,4 @@ class Attention(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhgqs,bshd->bqhgd", probs.to(cache.v.dtype), cache.v)
         out = out.reshape(B, 1, H * dh)
-        return x + out @ self.wo, cache
+        return x + tp.reduce_from_model(out @ self.wo), cache

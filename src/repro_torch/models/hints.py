@@ -22,6 +22,12 @@ splits the batch's rows over several processes enters
 :func:`token_shards` to plan a rank's tokens as its share of the reference's
 global plan (one row of the rowwise dispatch; the global dispatch's
 capacity, positions and aux loss over every rank's tokens).
+
+A driver that cuts the weights over a ``model`` axis of ranks (tensor
+parallelism, :mod:`repro_torch.runtime.tensor_parallel`) enters
+:func:`use_model_shards` as well: the blocks then read
+:func:`model_shards` to run on their heads, columns and experts and to
+issue the model axis's sums.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ import torch
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
 _SHARDS: contextvars.ContextVar = contextvars.ContextVar("repro_torch_token_shards",
                                                          default=None)
+_MODEL: contextvars.ContextVar = contextvars.ContextVar("repro_torch_model_shards",
+                                                        default=None)
 
 
 class TokenShards(NamedTuple):
@@ -65,17 +73,45 @@ def token_shards() -> Optional[TokenShards]:
     return _SHARDS.get()
 
 
+class ModelShards(NamedTuple):
+    """The weights cut over ``ranks`` processes of a ``model`` axis, this
+    one at ``index``; ``group`` is their process group and ``comm`` the
+    counting transport.  Every rank of the group holds the same rows."""
+    group: Any
+    ranks: int
+    index: int
+    comm: Any
+
+
+@contextlib.contextmanager
+def use_model_shards(shards: Optional[ModelShards]) -> Iterator[None]:
+    """The model axis the code inside runs under; ``None`` (the whole
+    weights in one process) leaves none active."""
+    token = _MODEL.set(shards)
+    try:
+        yield
+    finally:
+        _MODEL.reset(token)
+
+
+def model_shards() -> Optional[ModelShards]:
+    """The model axis entered by :func:`use_model_shards`, or None."""
+    return _MODEL.get()
+
+
 def recompute_context(base=None):
-    """``base`` (a context manager, or None) entered together with the mesh
-    and token split active now: the context a checkpointed region's
-    recompute runs under.  The backward of CUDA ops, and with it a remat
-    recompute, runs on autograd's device thread, which does not see this
-    thread's context."""
-    mesh, shards = current_mesh(), token_shards()
+    """``base`` (a context manager, or None) entered together with the mesh,
+    token split and model axis active now: the context a checkpointed
+    region's recompute runs under.  The backward of CUDA ops, and with it a
+    remat recompute, runs on autograd's device thread, which does not see
+    this thread's context (a recompute without the model axis would run a
+    sub-block's local weights without its sums)."""
+    mesh, shards, model = current_mesh(), token_shards(), model_shards()
 
     @contextlib.contextmanager
     def entered():
-        with base or contextlib.nullcontext(), use_mesh(mesh), use_token_shards(shards):
+        with base or contextlib.nullcontext(), use_mesh(mesh), use_token_shards(shards), \
+                use_model_shards(model):
             yield
 
     return entered()

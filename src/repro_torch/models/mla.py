@@ -9,6 +9,14 @@ expands K and V from the latent and attends through
 kernel on the card, at d = nope + rope and dv = v_head_dim), or through
 attention's chunked online softmax with ``impl="chunked"``, and each decode
 step expands the whole latent cache again and attends in plain PyTorch ops.
+
+Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`) ``wq``,
+``w_uk``, ``w_uv`` and ``wo`` hold this rank's ``H / k`` heads; ``w_dkv``
+and ``kv_norm`` are replicated, so every rank computes the whole latent.
+The latent ``c_kv`` and the rotary key ``k_pe`` feed every rank's heads, so
+each goes through ``f`` (their gradients are summed over the axis), as does
+the normed input on its way to ``wq``; ``wo``'s output goes through ``g``.
+The latent cache is whole on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 from torch import nn
 
 from ..kernels.ref import NEG_INF
+from ..runtime import tensor_parallel as tp
 from . import layers
 from .attention import attend
 
@@ -84,7 +93,7 @@ class MLA(nn.Module):
         """(q_nope (B, S, H, nope), q_pe (B, S, H, rope) rotated)."""
         B, S, _ = h.shape
         d = self.dims
-        q = (h @ self.wq).reshape(B, S, d.n_heads, d.qk_nope_dim + d.qk_rope_dim)
+        q = (h @ self.wq).reshape(B, S, -1, d.qk_nope_dim + d.qk_rope_dim)
         q_nope, q_pe = q.split([d.qk_nope_dim, d.qk_rope_dim], dim=-1)
         return q_nope, layers.apply_rope(q_pe, positions, d.rope_theta)
 
@@ -92,8 +101,8 @@ class MLA(nn.Module):
         """(k_nope (B, S, H, nope), v (B, S, H, dv)) from the latent."""
         B, S, _ = c_kv.shape
         d = self.dims
-        k_nope = (c_kv @ self.w_uk).reshape(B, S, d.n_heads, d.qk_nope_dim)
-        v = (c_kv @ self.w_uv).reshape(B, S, d.n_heads, d.v_head_dim)
+        k_nope = (c_kv @ self.w_uk).reshape(B, S, -1, d.qk_nope_dim)
+        v = (c_kv @ self.w_uv).reshape(B, S, -1, d.v_head_dim)
         return k_nope, v
 
     # -- full sequence ---------------------------------------------------------
@@ -108,17 +117,18 @@ class MLA(nn.Module):
         heads, written once a layer."""
         B, S, _ = x.shape
         d = self.dims
-        H = d.n_heads
         h = layers.rms_norm(x, self.norm_scale)
         c_kv, k_pe = self._latent(h, positions)
-        q_nope, q_pe = self._q_heads(h, positions)
+        c_kv, k_pe = tp.copy_to_model(c_kv), tp.copy_to_model(k_pe)
+        q_nope, q_pe = self._q_heads(tp.copy_to_model(h), positions)
         k_nope, v = self._expand_kv(c_kv)
+        H = q_nope.shape[2]
         q = torch.cat([q_nope.transpose(1, 2), q_pe.transpose(1, 2)], dim=-1)
         k = torch.cat([k_nope.transpose(1, 2),
                        k_pe[:, None].expand(B, H, S, d.qk_rope_dim)], dim=-1)
         out = attend(q, k, v.transpose(1, 2), d, use_kernel)
         out = out.transpose(1, 2).reshape(B, S, H * d.v_head_dim)
-        return x + out @ self.wo, c_kv, k_pe
+        return x + tp.reduce_from_model(out @ self.wo), c_kv, k_pe
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
@@ -152,7 +162,6 @@ class MLA(nn.Module):
         and the scores are fp32 with entries past ``pos`` masked."""
         B = x.shape[0]
         d = self.dims
-        H = d.n_heads
         h = layers.rms_norm(x, self.norm_scale)
         c_new, kpe_new = self._latent(h, pos[:, None])
         rows = torch.arange(B, device=x.device)
@@ -161,6 +170,7 @@ class MLA(nn.Module):
         S_max = cache.c_kv.shape[1]
         q_nope, q_pe = self._q_heads(h, pos[:, None])
         k_nope, v = self._expand_kv(cache.c_kv)  # (B, S_max, H, ...)
+        H = q_nope.shape[2]
         scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
                   + torch.einsum("bqhd,bsd->bhqs", q_pe, cache.k_pe)).float()
         scores = scores / ((d.qk_nope_dim + d.qk_rope_dim) ** 0.5)
@@ -169,4 +179,4 @@ class MLA(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
         out = out.reshape(B, 1, H * d.v_head_dim)
-        return x + out @ self.wo, cache
+        return x + tp.reduce_from_model(out @ self.wo), cache

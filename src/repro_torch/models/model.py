@@ -37,6 +37,14 @@ sharding rules -- :func:`param_specs`, :func:`batch_specs`,
 :func:`cache_specs` -- give the reference's spec for every leaf, a spec
 being a tuple of ``None | axis | tuple of axes``.  ``forward`` pins the
 batch axes before every block (:mod:`.hints`), as the reference does.
+
+Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`; a driver
+enters ``hints.use_model_shards`` and hands the model its blocks) the MLP
+is column- then row-parallel, the embedding and the unembedding are
+vocabulary-parallel (``embed``'s rows, an untied ``head``'s columns), the
+logits a rank returns are its vocabulary block, and the cross-entropy, plain
+or chunked, reduces over the axis.  A config with other sub-blocks or a
+frames frontend raises there (item 14k).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as _ckpt
 
+from ..runtime import tensor_parallel as tp
 from . import attention, hints, layers, mla, moe, ssm
 
 
@@ -132,7 +141,9 @@ def _check_decodes(cfg: ModelConfig) -> None:
 
 
 class MLP(layers.Stateless, nn.Module):
-    """Pre-norm SwiGLU sub-block: ``x + swiglu(norm(x))``."""
+    """Pre-norm SwiGLU sub-block: ``x + swiglu(norm(x))``; under a model
+    axis ``w_in`` holds this rank's ``[gate_r | up_r]`` columns and
+    ``w_out`` its rows, between ``f`` and ``g``."""
 
     def __init__(self, d_model: int, d_ff: int, dtype, device,
                  gen: Optional[torch.Generator] = None):
@@ -143,8 +154,8 @@ class MLP(layers.Stateless, nn.Module):
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
-        h = layers.rms_norm(x, self.norm_scale)
-        return x + layers.swiglu(h, self.w_in, self.w_out), None
+        h = tp.copy_to_model(layers.rms_norm(x, self.norm_scale))
+        return x + tp.reduce_from_model(layers.swiglu(h, self.w_in, self.w_out)), None
 
 
 # one entry per sub-block: a KV cache (attn), a latent cache (mla), a
@@ -222,11 +233,11 @@ class Transformer(nn.Module):
         if isinstance(inputs, Mapping):
             inputs = inputs["tokens" if self.cfg.frontend == "tokens" else "frames"]
         if self.cfg.frontend == "tokens":
-            return self.embed[inputs]
+            return tp.embed_lookup(self.embed, inputs)
         return inputs.to(self.embed_proj.dtype) @ self.embed_proj
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.rms_norm(x, self.final_norm)
+        x = tp.copy_to_model(layers.rms_norm(x, self.final_norm))
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
         return x @ self.head
@@ -253,6 +264,8 @@ class Transformer(nn.Module):
         ``cfg`` (default ``self.cfg``) supplies ``remat`` and
         ``remat_policy``; remat applies only while autograd records."""
         cfg = cfg or self.cfg
+        if tp.active() is not None:
+            tp.check_config(self.cfg, tp.active().ranks)
         x = self._embed(inputs)
         B, S, _ = x.shape
         positions = self._positions(B, S, x.device)
@@ -320,7 +333,7 @@ class Transformer(nn.Module):
         tokens as one batch (T = B, its capacity from that), as the
         reference does.  A recurrent block's state advances in place."""
         _check_decodes(self.cfg)
-        x = self.embed[token[:, None]]
+        x = self._embed(token[:, None])
         for blk, c in zip(self.blocks, cache):
             x, _ = blk.decode_step(x, c, pos)
         return self._unembed(x), cache
@@ -381,7 +394,8 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     package's ``cfg`` argument does.  The plain CE is written as the JAX
     package writes it, as reductions over the vocabulary: the max (without
     gradient), the sum of exponentials and the one-hot sum of the gold
-    logits.
+    logits (``tensor_parallel.cross_entropy``, over the model axis where
+    there is one).
     """
     cfg = cfg or model.cfg
     if cfg.causal and cfg.frontend == "tokens":
@@ -394,12 +408,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     if cfg.ce_impl != "plain":
         raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
     logits, aux = model(inputs, use_kernel, cfg)
-    logits = logits.float()
-    mx = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - mx), dim=-1)) + mx[..., 0]
-    onehot = labels[..., None] == torch.arange(logits.shape[-1], device=logits.device)
-    gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
-    return torch.mean(lse - gold) + aux
+    return torch.mean(tp.cross_entropy(logits.float(), labels)) + aux
 
 
 def _ce_chunk(m_run, s_run, gold, x, head_c, labels, start: int):
@@ -424,24 +433,28 @@ def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel
 
     The JAX package pads the head to a multiple of the chunk and masks the
     padded logits with -1e30; the port's last chunk is a shorter slice,
-    which adds the same exact zeros to the running sum.
+    which adds the same exact zeros to the running sum.  Under a model axis
+    the chunks run over this rank's vocabulary block, and the running
+    triple is combined over the axis once (``tensor_parallel.combine_chunks``).
     """
     x, aux = model.hidden(inputs, use_kernel, cfg)
-    x = layers.rms_norm(x, model.final_norm)
+    x = tp.copy_to_model(layers.rms_norm(x, model.final_norm))
     head = model.embed.T if cfg.tie_embeddings else model.head  # (d, V)
     B, S, _ = x.shape
     m_run = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
     s_run = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    first = tp.vocab_start(head.shape[1])  # the vocabulary block's first id
     for start in range(0, head.shape[1], cfg.ce_chunk):
         head_c = head[:, start:start + cfg.ce_chunk]
         if torch.is_grad_enabled():
             m_run, s_run, gold = _ckpt.checkpoint(
-                _ce_chunk, m_run, s_run, gold, x, head_c, labels, start,
+                _ce_chunk, m_run, s_run, gold, x, head_c, labels, first + start,
                 use_reentrant=False)
         else:
-            m_run, s_run, gold = _ce_chunk(m_run, s_run, gold, x, head_c, labels, start)
-    lse = m_run + torch.log(torch.clamp(s_run, min=1e-30))
+            m_run, s_run, gold = _ce_chunk(m_run, s_run, gold, x, head_c, labels,
+                                           first + start)
+    lse, gold = tp.combine_chunks(m_run, s_run, gold)
     return torch.mean(lse - gold) + aux
 
 

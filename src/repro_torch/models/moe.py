@@ -46,6 +46,19 @@ slots.  A dropless plan keeps every pair whatever the positions, so it is
 planned locally.  The aux loss is the global one: the mean probabilities'
 numerators are summed by an ``all_reduce`` whose backward is one too, the
 expert counts by a plain one.
+
+Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`: expert
+parallelism) a rank holds ``E / k`` experts, the stacks' block of their
+leading axis, and its block of the shared experts' columns.  Every rank of
+the model group holds the same tokens, and the router is replicated, so
+each computes the same routes and the same plan (the normed input is the
+output of the previous block's ``all_reduce``); no all-to-all is needed.
+:func:`dispatch` fills only this rank's experts' slots, :func:`combine`
+sums only their gated outputs, and ``g`` sums the ranks'.  The expert input
+and the gates go through ``f``: each rank's combine sees only its experts'
+gates, so their gradients (and through them the router's) are summed over
+the axis, while the aux loss, the same on every rank, stays outside any
+model-axis sum and is counted once.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime import tensor_parallel as tp
 from . import hints, layers
 
 
@@ -225,14 +239,15 @@ def dispatch_plan(eidx: torch.Tensor, E: int, C: int,
     return Plan(keep=keep[back].reshape(T, k), slot=slot[back].reshape(T, k), src=src)
 
 
-def dispatch(h: torch.Tensor, plan: Plan, E: int, C: int) -> torch.Tensor:
-    """Step 4: the ``(E, C, d)`` expert buffer, each row gathered from its
-    token (a zero row where no pair filled it).  The reference scatter-adds
-    the kept pairs into zeros; kept slots are unique, so a row gather gives
-    the same buffer with no adds at all."""
+def dispatch(h: torch.Tensor, plan: Plan, E: int, C: int, first: int = 0) -> torch.Tensor:
+    """Step 4: the ``(E, C, d)`` buffer of experts ``first .. first + E - 1``
+    (every expert by default), each row gathered from its token (a zero row
+    where no pair filled it).  The reference scatter-adds the kept pairs
+    into zeros; kept slots are unique, so a row gather gives the same buffer
+    with no adds at all."""
     d = h.shape[-1]
     rows = torch.cat([h, h.new_zeros((1, d))])
-    return rows[plan.src].reshape(E, C, d)
+    return rows[plan.src[first * C:(first + E) * C]].reshape(E, C, d)
 
 
 def experts(buf: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
@@ -241,16 +256,19 @@ def experts(buf: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch
     return torch.bmm(F.silu(gate) * up, w_out)
 
 
-def combine(y: torch.Tensor, gates: torch.Tensor, plan: Plan) -> torch.Tensor:
+def combine(y: torch.Tensor, gates: torch.Tensor, plan: Plan, first: int = 0) -> torch.Tensor:
     """Step 6: ``(T, d)``, each pair's expert output gathered in token-major
-    order and weighted by its gate (0 for a dropped pair), a token's k
-    choices summed in choice order in ``y``'s type (the reference adds them
-    into a zero buffer of that type, by scatter-add)."""
+    order and weighted by its gate (0 for a dropped pair, and for a pair of
+    an expert outside ``y``'s, which holds experts ``first ..``), a token's
+    k choices summed in choice order in ``y``'s type (the reference adds
+    them into a zero buffer of that type, by scatter-add)."""
     T, k = gates.shape
     E, C, d = y.shape
     flat = y.reshape(E * C, d)
-    pair_out = torch.where(plan.keep[..., None],
-                           flat[torch.clamp(plan.slot, max=E * C - 1)], 0.0)
+    slot = plan.slot - first * C
+    keep = plan.keep & (slot >= 0) & (slot < E * C)
+    pair_out = torch.where(keep[..., None],
+                           flat[torch.clamp(slot, min=0, max=E * C - 1)], 0.0)
     weighted = pair_out * gates[..., None].to(y.dtype)
     out = weighted[:, 0]
     for j in range(1, k):
@@ -292,32 +310,36 @@ class MoE(layers.Stateless, nn.Module):
         h = layers.rms_norm(x, self.norm_scale).reshape(T, d)
         probs, gates, eidx = route(h, self.router, self.dims)
         aux = aux_loss(probs, eidx, self.dims, shards)
+        first = self.w_in.shape[0] * tp.model_index()  # this rank's first expert
+        h, gates = tp.copy_to_model(h), tp.copy_to_model(gates)
         if rows == 1:
             offset = global_offsets(eidx, E, shards) if spans else None
             plan = dispatch_plan(eidx, E, C, offset)
-            y = experts(dispatch(h, plan, E, C), self.w_in, self.w_out)
-            out = combine(y, gates, plan)
+            y = experts(dispatch(h, plan, self.w_in.shape[0], C, first), self.w_in, self.w_out)
+            out = combine(y, gates, plan, first)
         else:
-            out = self._rowwise(h, gates, eidx, rows, C)
+            out = self._rowwise(h, gates, eidx, rows, C, first)
         if self.dims.n_shared > 0:
             out = out + layers.swiglu(h, self.sw_in, self.sw_out)
-        return x + out.reshape(B, S, d), aux
+        return x + tp.reduce_from_model(out).reshape(B, S, d), aux
 
     def _rowwise(self, h: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor,
-                 rows: int, C: int) -> torch.Tensor:
+                 rows: int, C: int, first: int = 0) -> torch.Tensor:
         """Steps 2-6 row by row: each row of ``T / rows`` tokens gets its own
-        plan, its own (E, C, d) buffer and its own combine; the experts run
-        once over every row's buffer (the reference's ``recd,edf->recf``
-        einsum), the rows laid end to end along each expert's slots."""
+        plan, its own (E, C, d) buffer of this rank's experts (from
+        ``first``) and its own combine; the experts run once over every
+        row's buffer (the reference's ``recd,edf->recf`` einsum), the rows
+        laid end to end along each expert's slots."""
         T, d = h.shape
-        E = self.dims.num_experts
+        E, El = self.dims.num_experts, self.w_in.shape[0]
         Tr = T // rows
         # rows over the batch axes, as the reference pins them (a no-op here)
         hr = hints.constrain_batch(h.reshape(rows, Tr, d))
         parts = [slice(r * Tr, (r + 1) * Tr) for r in range(rows)]
         plans = [dispatch_plan(eidx[p], E, C) for p in parts]
-        buf = torch.stack([dispatch(hr[r], plans[r], E, C) for r in range(rows)])
-        y = experts(buf.transpose(0, 1).reshape(E, rows * C, d), self.w_in, self.w_out)
-        y = y.reshape(E, rows, C, d).transpose(0, 1)  # (rows, E, C, d)
-        out = torch.stack([combine(y[r], gates[p], plans[r]) for r, p in enumerate(parts)])
+        buf = torch.stack([dispatch(hr[r], plans[r], El, C, first) for r in range(rows)])
+        y = experts(buf.transpose(0, 1).reshape(El, rows * C, d), self.w_in, self.w_out)
+        y = y.reshape(El, rows, C, d).transpose(0, 1)  # (rows, El, C, d)
+        out = torch.stack([combine(y[r], gates[p], plans[r], first)
+                           for r, p in enumerate(parts)])
         return out.reshape(T, d)

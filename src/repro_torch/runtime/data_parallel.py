@@ -1,43 +1,55 @@
-"""Data-parallel and sharded LM training and serving over ``torch.distributed``.
+"""Data-parallel, sharded and tensor-parallel LM training and serving over
+``torch.distributed``.
 
 Counterpart of the reference's GSPMD placement in ``src/repro/launch/train.py``
 (``make_sharded_train_state``: parameters and moments put into the
-``param_specs`` / ``AdamW.state_specs`` shardings) for meshes whose ``model``
-axis is 1.  One process a rank, each holding the same model code; the
-batch's rows are split over the batch axes (``pod`` x ``data``, row-major,
-the group of :func:`repro_torch.core.distributed.layout`).
+``param_specs`` / ``AdamW.state_specs`` shardings) on meshes of ``pod``,
+``data`` and ``model`` axes.  One process a rank, each holding the same
+model code; the batch's rows are split over the batch axes (``pod`` x
+``data``, row-major, the group of
+:func:`repro_torch.core.distributed.layout`), and every rank of a model
+group (the ranks that share a data index) holds the same rows.
 
 :class:`DataParallelPlan` is the per-leaf plan.  A parameter whose spec
 (after ``fit_spec``'s divisibility rule) cuts a dimension over ``data``, and
 whose moments' spec cuts the same one, is *sharded*: between steps a rank
 keeps only its contiguous block of that dimension, of the parameter and of
-both fp32 moments.  Every other leaf is *replicated* (the int8 moments'
-blocks cut across the parameter's shape, so with them every leaf is).  A
-``pod`` axis replicates every parameter: the reference's specs name only
-``data`` and ``model``.  A step (:func:`repro_torch.launch.train.make_step`)
-runs
+both fp32 moments.  Every other leaf is *replicated* over ``data`` (the int8
+moments' blocks cut across the parameter's shape, so with them every leaf
+is).  A ``pod`` axis replicates every parameter: the reference's specs name
+only ``data`` and ``model``.  A leaf whose spec names ``model`` is cut over
+a model axis larger than 1 as well (:mod:`.tensor_parallel`): a rank holds
+its block over both axes, and computes on its model block (a packed SwiGLU
+matrix's block is ``[gate_r | up_r]``), or on the whole leaf for attention
+KV leaves the KV heads do not divide.  A step
+(:func:`repro_torch.launch.train.make_step`) runs
 
 * :meth:`gather_params`: one ``all_gather_into_tensor`` a sharded leaf over
-  the data group, into the model's full tensor (a shard dimension other
-  than 0 goes through a contiguous staging tensor);
-* the loss and ``torch.autograd.grad`` on the rank's rows;
-* :meth:`sync_grads`: ``reduce_scatter_tensor(SUM)`` over data (then
-  ``all_reduce(SUM)`` over pod) for a sharded leaf, ``all_reduce(SUM)`` over
-  the batch group for a replicated one, each divided by the world (SUM and
-  a division: ``ReduceOp.AVG`` is not every backend's);
+  the data group, into the model's tensor of its model block (a shard
+  dimension other than 0 goes through a contiguous staging tensor), and one
+  over the model group for a gathered KV leaf;
+* the loss and ``torch.autograd.grad`` on the rank's rows, the blocks
+  issuing the model axis's sums (:mod:`.tensor_parallel`);
+* :meth:`sync_grads`: over the model group, ``reduce_scatter_tensor(SUM)``
+  of a gathered KV leaf and ``all_reduce(SUM)`` of a leaf each model rank
+  holds in part (``q_norm``, ``k_norm``); then ``reduce_scatter_tensor(SUM)``
+  over data (then ``all_reduce(SUM)`` over pod) for a sharded leaf,
+  ``all_reduce(SUM)`` over the batch group for a replicated one, each
+  divided by the batch world (SUM and a division: ``ReduceOp.AVG`` is not
+  every backend's);
 * :meth:`sq_norm`: the global sum of squared gradients for ``clip_norm``,
-  every shard once and every replicated leaf once, in one ``all_reduce``;
-* ``AdamW.update`` on the shards, then :meth:`release_params` frees the full
-  tensors again.
+  every block once, in one ``all_reduce`` over the mesh;
+* ``AdamW.update`` on the blocks, then :meth:`release_params` frees the
+  gathered tensors again.
 
 A world of one issues no collective and keeps the one-device step's bits:
 every leaf is replicated, the parameters are the model's own tensors, and
 :meth:`sq_norm` sums the squares as ``AdamW.update`` does.
 
-:class:`Collectives` is the transport: each collective of the plan and of
-the MoE across ranks (:mod:`repro_torch.models.moe`: the aux loss's two
-``all_reduce`` and the global dispatch's ``all_gather`` of expert counts)
-goes through it and is counted by kind in result bytes, as
+:class:`Collectives` is the transport: each collective of the plan, of the
+model axis and of the MoE across ranks (:mod:`repro_torch.models.moe`: the
+aux loss's two ``all_reduce`` and the global dispatch's ``all_gather`` of
+expert counts) goes through it and is counted by kind in result bytes, as
 ``launch/hlo_analysis.py``'s ``collective_bytes`` counts an HLO module's;
 :meth:`DataParallelPlan.collective_bytes` predicts those counts from shapes
 (the dry run's LM cells take them from here).  Gloo takes CUDA tensors for
@@ -59,17 +71,18 @@ from .. import _device
 from ..core import distributed
 from ..models import hints, moe
 from ..models import model as M
+from . import tensor_parallel as tp
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 
-MODEL_AXIS = ("a model axis larger than 1 (tensor-parallel training and serving, the "
-              "reference's make_local_mesh(model_parallel=k) under GSPMD) is ROADMAP item 14j")
 
-
-class _AllReduceSum(torch.autograd.Function):
-    """``all_reduce(SUM)`` whose backward is the ``all_reduce(SUM)`` of the
-    gradient (``torch.distributed.nn.functional.all_reduce``), both through
-    a :class:`Collectives`, so both are counted."""
+class _TwoWaySum(torch.autograd.Function):
+    """``all_reduce(SUM)`` forward and ``all_reduce(SUM)`` of the gradient
+    backward (``torch.distributed.nn.functional.all_reduce``), both through
+    a :class:`Collectives`, so both are counted.  Right for a sum every rank
+    goes on to use as its own (the MoE aux loss's global mean over the batch
+    ranks); not the model axis's ``g``, whose backward is the identity
+    (:mod:`.tensor_parallel`)."""
 
     @staticmethod
     def forward(ctx, comm, group, t):
@@ -80,7 +93,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return None, None, _AllReduceSum.apply(ctx.comm, ctx.group, grad)
+        return None, None, _TwoWaySum.apply(ctx.comm, ctx.group, grad)
 
 
 class Collectives:
@@ -103,16 +116,16 @@ class Collectives:
         self.seconds += time.perf_counter() - t0
         self.bytes[kind] += result.numel() * result.element_size()
 
-    def all_reduce(self, t: torch.Tensor, group) -> torch.Tensor:
-        """``t`` summed over ``group``, in place."""
-        self._issue("all-reduce", t, lambda: dist.all_reduce(t, op=dist.ReduceOp.SUM,
-                                                            group=group))
+    def all_reduce(self, t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``t`` reduced over ``group`` (a sum unless ``op`` says otherwise),
+        in place."""
+        self._issue("all-reduce", t, lambda: dist.all_reduce(t, op=op, group=group))
         return t
 
     def all_reduce_grad(self, t: torch.Tensor, group) -> torch.Tensor:
         """``t`` summed over ``group`` (a new tensor); the gradient flows
-        back through the same sum."""
-        return _AllReduceSum.apply(self, group, t)
+        back through the same sum (:class:`_TwoWaySum`)."""
+        return _TwoWaySum.apply(self, group, t)
 
     def all_gather(self, out: torch.Tensor, t: torch.Tensor, group) -> torch.Tensor:
         """Every rank's ``t`` laid end to end along dim 0 in ``out``."""
@@ -127,31 +140,31 @@ class Collectives:
         return out
 
 
-def check_mesh(mesh) -> Dict[str, int]:
+def check_mesh(mesh, cfg=None) -> Dict[str, int]:
     """The mesh's ``{axis: size}`` when this plan can run on it: its ranks
     lie on the ``pod``, ``data`` and ``model`` axes (a mesh of several ranks
     without them, or a ``DeviceMesh`` without axis names, raises
-    ``ValueError``) and ``model`` is 1 (else ``NotImplementedError``, item
-    14j)."""
+    ``ValueError``), and with ``cfg`` given, the config runs on its model
+    axis (:func:`.tensor_parallel.check_config`)."""
     sizes = hints.mesh_axis_sizes(mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(MODEL_AXIS)
     known = math.prod(sizes.get(a, 1) for a in ("pod", "data", "model"))
     if known != mesh.size():
         raise ValueError(f"a mesh of {mesh.size()} devices with axes {sizes or 'unnamed'}: "
                          "its ranks must lie on the pod, data and model axes")
+    if cfg is not None:
+        tp.check_config(cfg, sizes.get("model", 1))
     return sizes
 
 
-def mesh_device(mesh, device=None) -> torch.device:
+def mesh_device(mesh, device=None, cfg=None) -> torch.device:
     """The device this rank runs on: ``device`` without a mesh (``None``:
     the CUDA card), else the mesh's device type, on the card the rank's
-    current device.  The mesh must pass :func:`check_mesh`, and a mesh of
-    several ranks needs ``torch.distributed`` initialised (one process a
-    rank)."""
+    current device.  The mesh must pass :func:`check_mesh` (for ``cfg``),
+    and a mesh of several ranks needs ``torch.distributed`` initialised (one
+    process a rank)."""
     if mesh is None:
         return _device.resolve(device)
-    check_mesh(mesh)
+    check_mesh(mesh, cfg)
     if mesh.size() > 1 and not dist.is_initialized():
         raise RuntimeError(f"a mesh of {mesh.size()} ranks runs one process a rank: "
                            "initialise torch.distributed in each first")
@@ -165,7 +178,10 @@ class Leaf(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
     dim: Optional[int]  # the dimension cut over ``data``; None: replicated
-    model_share: int  # the ways its spec cuts it over ``model`` (1 on a run's mesh)
+    mdim: Optional[int] = None  # the dimension cut over ``model``; None: replicated
+    gathered: bool = False  # whole for compute: gathered over model, gradient scattered
+    partial: bool = False  # replicated over model, its gradient summed over model
+    packed: bool = False  # SwiGLU [gate | up]: model blocks of [gate_r | up_r]
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -179,42 +195,63 @@ def _data_dim(spec) -> Optional[int]:
     return None
 
 
-def _model_share(spec, sizes: Dict[str, int]) -> int:
-    return math.prod(sizes.get("model", 1) for entry in spec if "model" in _axes(entry))
+def _model_dim(spec) -> Optional[int]:
+    for dim, entry in enumerate(spec):
+        if "model" in _axes(entry):
+            return dim
+    return None
+
+
+def _leaf(cfg, name, p, spec, data_dim, k) -> Leaf:
+    mdim = _model_dim(spec) if k > 1 else None
+    kv = k > 1 and tp.uneven_kv_leaf(cfg, name, p.shape, k)
+    return Leaf(tuple(p.shape), p.dtype, data_dim, mdim, gathered=kv and mdim is not None,
+                partial=k > 1 and (tp.partial_leaf(name) or (kv and mdim is None)),
+                packed=mdim is not None and tp.packed_leaf(name, p.shape))
+
+
+def _cut(t: torch.Tensor, dim: int, ways: int, index: int) -> torch.Tensor:
+    n = t.shape[dim] // ways
+    return t.narrow(dim, index * n, n)
 
 
 class DataParallelPlan:
     """The per-leaf plan of ``cfg``'s parameters (a model or a dict of
     name -> tensor, on any device, ``meta`` included) on ``mesh``: sharded
     over ``data`` or replicated, as ``param_specs`` and ``opt.state_specs``
-    cut them.  ``opt=None`` plans serving: every leaf replicated, as the
-    reference's serve leaves its parameters.  ``mesh=None`` is a world of
-    one.  On a ``DeviceMesh`` the plan runs (its groups are the mesh's);
-    on an :class:`~repro_torch.launch.mesh.AbstractMesh` it only counts,
-    over the data axes, each leaf's block of a ``model`` axis (whose own
-    collectives are left to item 14j)."""
+    cut them, and cut over ``model`` where the spec names it.  ``opt=None``
+    plans serving: every leaf replicated over ``data``, as the reference's
+    serve leaves its parameters, and cut over ``model``.  ``mesh=None`` is
+    a world of one.  On a ``DeviceMesh`` the plan runs (its groups are the
+    mesh's); on an :class:`~repro_torch.launch.mesh.AbstractMesh` it only
+    counts."""
 
     def __init__(self, cfg, params_like, mesh=None, opt=None):
         runs = mesh is not None and hasattr(mesh, "get_group")
-        sizes = {} if mesh is None else (check_mesh(mesh) if runs
+        sizes = {} if mesh is None else (check_mesh(mesh, cfg) if runs
                                          else hints.mesh_axis_sizes(mesh))
         self.cfg, self.mesh, self.opt = cfg, mesh, opt
         self.shards = sizes.get("data", 1)  # ways a sharded leaf is cut
         self.pods = sizes.get("pod", 1)
         self.world = self.shards * self.pods  # ranks holding separate rows
+        self.model = sizes.get("model", 1)  # ranks sharing rows, each a block of the weights
+        self.ranks = self.world * self.model
+        if self.model > 1 and opt is not None and opt.quantize_states:
+            raise NotImplementedError(f"8-bit moments on a model axis of {self.model} are "
+                                      f"{tp.ITEM_14K}")
         params = dict(params_like.named_parameters()) if isinstance(
             params_like, torch.nn.Module) else dict(params_like)
-        dims, shares = dict.fromkeys(params), dict.fromkeys(params, 1)
+        pspecs = M.param_specs(cfg, params, mesh) if sizes else dict.fromkeys(params, ())
+        dims = dict.fromkeys(params)
         if self.shards > 1 and opt is not None:
-            pspecs = M.param_specs(cfg, params, mesh)
             mu_specs = opt.state_specs(pspecs).mu
             dims = {k: _data_dim(s) if mu_specs[k] == s else None for k, s in pspecs.items()}
-            shares = {k: _model_share(s, sizes) for k, s in pspecs.items()}
-        self.leaves = {k: Leaf(tuple(p.shape), p.dtype, dims[k], shares[k])
+        self.leaves = {k: _leaf(cfg, k, p, pspecs[k], dims[k], self.model)
                        for k, p in params.items()}
         self.comm = Collectives()
-        self.index = self.shard_index = self.pod_index = 0
+        self.index = self.shard_index = self.pod_index = self.model_index = 0
         self.batch_group = self.shard_group = self.pod_group = None
+        self.model_group = self.mesh_group = None
         if runs and self.world > 1:
             batch = distributed.layout(mesh, M.batch_axes(mesh))
             data = distributed.layout(mesh, ("data",))
@@ -223,6 +260,12 @@ class DataParallelPlan:
             if self.pods > 1:
                 pod = distributed.layout(mesh, ("pod",))
                 self.pod_group, self.pod_index = pod.group, pod.index
+        self.mesh_group = self.batch_group
+        if runs and self.model > 1:
+            lay = distributed.layout(mesh, ("model",))
+            self.model_group, self.model_index = lay.group, lay.index
+            self.mesh_group = (self.model_group if self.world == 1 else
+                               distributed.layout(mesh, tuple(mesh.mesh_dim_names)).group)
 
     # -- the batch's rows -----------------------------------------------------
 
@@ -238,11 +281,14 @@ class DataParallelPlan:
 
     @contextlib.contextmanager
     def scope(self) -> Iterator[None]:
-        """The mesh and the token split (none for a world of one) a step
-        runs under: the reference's ``with mesh:``."""
+        """The mesh, the token split and the model axis (none for a world
+        of one) a step runs under: the reference's ``with mesh:``."""
         shards = (None if self.world == 1 else
                   hints.TokenShards(self.batch_group, self.world, self.index, self.comm))
-        with hints.use_mesh(self.mesh), hints.use_token_shards(shards):
+        model = (None if self.model == 1 else
+                 hints.ModelShards(self.model_group, self.model, self.model_index, self.comm))
+        with hints.use_mesh(self.mesh), hints.use_token_shards(shards), \
+                hints.use_model_shards(model):
             yield
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -252,49 +298,98 @@ class DataParallelPlan:
         out = t.new_empty((t.shape[0] * self.world, *t.shape[1:]))
         return self.comm.all_gather(out, t.contiguous(), self.batch_group)
 
+    def gather_vocab(self, t: torch.Tensor) -> torch.Tensor:
+        """Vocabulary-parallel logits (last dim this rank's block) gathered
+        over the model axis into the whole vocabulary."""
+        return self._gather_dim(t, t.dim() - 1, self.model, self.model_group)
+
     # -- parameters -----------------------------------------------------------
 
     def sharded(self):
+        """The leaves cut over ``data``."""
         return [k for k, leaf in self.leaves.items() if leaf.dim is not None]
 
-    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a leaf (its own storage) or, replicated, the
-        leaf itself."""
-        dim = self.leaves[name].dim
-        if dim is None:
-            return full
-        n = full.shape[dim] // self.shards
-        return full.narrow(dim, self.shard_index * n, n).clone(
-            memory_format=torch.contiguous_format)
+    def _stepped(self):
+        """The leaves whose compute tensor is gathered for a step and freed
+        after it: those cut over data, and the gathered KV leaves."""
+        return [k for k, leaf in self.leaves.items() if leaf.dim is not None or leaf.gathered]
 
-    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
-        """The full leaf from every rank's block (one ``all_gather``)."""
-        dim = self.leaves[name].dim
-        if dim is None:
+    def _whole(self, name: str) -> bool:
+        """The leaf is replicated over every axis: a rank holds all of it."""
+        leaf = self.leaves[name]
+        return leaf.dim is None and leaf.mdim is None
+
+    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a leaf (its own storage) or, replicated over
+        every axis, the leaf itself."""
+        leaf = self.leaves[name]
+        if self._whole(name):
+            return full
+        if leaf.packed:
+            full = tp.pack_columns(full, self.model)
+        if leaf.mdim is not None:
+            full = _cut(full, leaf.mdim, self.model, self.model_index)
+        if leaf.dim is not None:
+            full = _cut(full, leaf.dim, self.shards, self.shard_index)
+        return full.clone(memory_format=torch.contiguous_format)
+
+    @torch.no_grad()
+    def _gather_dim(self, part: torch.Tensor, dim: int, ways: int, group) -> torch.Tensor:
+        if ways == 1:
             return part
         src = part.movedim(dim, 0).contiguous()
-        out = src.new_empty((src.shape[0] * self.shards, *src.shape[1:]))
-        self.comm.all_gather(out, src, self.shard_group)
+        out = src.new_empty((src.shape[0] * ways, *src.shape[1:]))
+        self.comm.all_gather(out, src, group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
+    def compute(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The tensor the model computes with from this rank's block: the
+        model block (gathered over data), or for a gathered KV leaf the
+        whole leaf."""
+        leaf = self.leaves[name]
+        if leaf.dim is not None:
+            part = self._gather_dim(part, leaf.dim, self.shards, self.shard_group)
+        if leaf.gathered:
+            part = self._gather_dim(part, leaf.mdim, self.model, self.model_group)
+        return part
+
+    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The whole leaf in the one-device layout from every rank's block."""
+        leaf = self.leaves[name]
+        if leaf.dim is not None:
+            part = self._gather_dim(part, leaf.dim, self.shards, self.shard_group)
+        if leaf.mdim is not None:
+            part = self._gather_dim(part, leaf.mdim, self.model, self.model_group)
+        return tp.unpack_columns(part, self.model) if leaf.packed else part
+
     def shard_params(self, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-        """The rank's parameters at rest: the model's own tensor of a
-        replicated leaf, its block of a sharded one; the model's full tensors
-        of the sharded leaves are freed (:meth:`release_params`)."""
-        out = {k: p if self.leaves[k].dim is None else self.cut(k, p.detach())
-               for k, p in model.named_parameters()}
+        """The rank's parameters at rest: the model's own tensor of a leaf
+        it computes on as held (replicated, or its model block, which then
+        becomes the model's tensor), its block of a sharded or gathered one;
+        the model's full tensors of those are freed (:meth:`release_params`)."""
+        stepped = set(self._stepped())
+        out = {}
+        for k, p in model.named_parameters():
+            if k in stepped:
+                out[k] = self.cut(k, p.detach())
+            else:
+                if not self._whole(k):
+                    p.data = self.cut(k, p.detach())
+                out[k] = p
         self.release_params(model)
         return out
 
     def adopt(self, model: torch.nn.Module, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """:meth:`shard_params` for a restored tree of this rank's leaves:
-        replicated leaves are copied into the model, blocks kept."""
+        the leaves the model computes on as held are copied into the model,
+        blocks kept."""
         live = dict(model.named_parameters())
+        stepped = set(self._stepped())
         out = {}
         with torch.no_grad():
             for k, p in live.items():
                 src = torch.as_tensor(params[k])
-                if self.leaves[k].dim is None:
+                if k not in stepped:
                     out[k] = p.copy_(src.to(dtype=p.dtype))
                 else:
                     out[k] = src.to(device=p.device, dtype=p.dtype).contiguous()
@@ -302,55 +397,74 @@ class DataParallelPlan:
 
     @torch.no_grad()
     def gather_params(self, model: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
-        """Give the model its full tensors of the sharded leaves."""
+        """Give the model its compute tensors of the sharded and gathered
+        leaves."""
         live = dict(model.named_parameters())
-        for k in self.sharded():
-            live[k].data = self.gather(k, params[k])
+        for k in self._stepped():
+            live[k].data = self.compute(k, params[k])
 
     def release_params(self, model: torch.nn.Module) -> None:
-        """Free the model's full tensors of the sharded leaves."""
+        """Free the model's compute tensors of the sharded and gathered
+        leaves."""
         live = dict(model.named_parameters())
-        for k in self.sharded():
+        for k in self._stepped():
             live[k].data = live[k].data.new_empty(0)
 
     # -- gradients and the loss -----------------------------------------------
 
+    def _scatter_dim(self, g: torch.Tensor, dim: int, ways: int, group) -> torch.Tensor:
+        src = g.movedim(dim, 0).contiguous()
+        part = src.new_empty((src.shape[0] // ways, *src.shape[1:]))
+        self.comm.reduce_scatter(part, src, group)
+        return part.movedim(0, dim)
+
     def sync_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Every rank's gradients averaged: a sharded leaf's block, a
-        replicated leaf whole."""
-        if self.world == 1:
+        """Every rank's gradients averaged over the batch ranks and summed
+        over the model axis where a model rank holds them in part: a
+        block of a leaf cut over either axis, a replicated leaf whole."""
+        if self.ranks == 1:
             return grads
         out = {}
         for k, g in grads.items():
-            dim = self.leaves[k].dim
-            if dim is None:
-                self.comm.all_reduce(g, self.batch_group)
-            else:
-                src = g.movedim(dim, 0).contiguous()
-                part = src.new_empty((src.shape[0] // self.shards, *src.shape[1:]))
-                self.comm.reduce_scatter(part, src, self.shard_group)
-                if self.pod_group is not None:
-                    self.comm.all_reduce(part, self.pod_group)
-                g = part.movedim(0, dim)
-            out[k] = g.div_(self.world)
+            leaf = self.leaves[k]
+            if leaf.gathered:
+                g = self._scatter_dim(g, leaf.mdim, self.model, self.model_group)
+            elif leaf.partial:
+                self.comm.all_reduce(g, self.model_group)
+            if self.world > 1:
+                if leaf.dim is None:
+                    self.comm.all_reduce(g, self.batch_group)
+                else:
+                    g = self._scatter_dim(g, leaf.dim, self.shards, self.shard_group)
+                    if self.pod_group is not None:
+                        self.comm.all_reduce(g, self.pod_group)
+                g = g.div_(self.world)
+            out[k] = g
         return out
 
+    def _owns(self, leaf: Leaf) -> bool:
+        """This rank counts the leaf's gradient block in :meth:`sq_norm`:
+        each block once over the mesh."""
+        data_first = (self.pod_index if leaf.dim is not None else self.index) == 0
+        return data_first and (leaf.mdim is not None or self.model_index == 0)
+
     def sq_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The sum of every squared gradient entry of the model, fp32: this
-        rank's blocks (on the first pod) and the replicated leaves (on rank
-        0), summed over the ranks in one ``all_reduce``.  A world of one
-        sums the squares as ``AdamW.update`` does."""
+        """The sum of every squared gradient entry of the model, fp32: each
+        block summed by the ranks that :meth:`_owns` it, over the mesh in one
+        ``all_reduce``.  A world of one sums the squares as
+        ``AdamW.update`` does."""
         g0 = next(iter(grads.values()))
         parts = [torch.sum(torch.square(g.float())) for k, g in grads.items()
-                 if (self.pod_index if self.leaves[k].dim is not None else self.index) == 0]
+                 if self._owns(self.leaves[k])]
         sq = (torch.sum(torch.stack(parts)) if parts
               else torch.zeros((), dtype=torch.float32, device=g0.device))
-        if self.world > 1:
-            self.comm.all_reduce(sq, self.batch_group)
+        if self.ranks > 1:
+            self.comm.all_reduce(sq, self.mesh_group)
         return sq
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
-        """The ranks' losses averaged: the one-device loss of the batch."""
+        """The batch ranks' losses averaged: the one-device loss of the
+        batch (a model group's ranks hold the same loss)."""
         if self.world == 1:
             return loss
         return self.comm.all_reduce(loss.clone(), self.batch_group).div_(self.world)
@@ -370,34 +484,36 @@ class DataParallelPlan:
 
     def full_state(self, tree):
         """A state tree (parameters, moments) with every block gathered,
-        leaf by leaf, to the host: the one-device checkpoint's tree.  Every
+        leaf by leaf, to the host in the one-device layout (a packed
+        SwiGLU matrix unpacked): the one-device checkpoint's tree.  Every
         rank calls it (its gathers are collectives)."""
-        def full(k, v):
-            if self.leaves[k].dim is None:
-                return v
-            return self.gather(k, v).cpu()
-
-        return self._map(full, tree)
+        return self._map(lambda k, v: v if self._whole(k) else self.gather(k, v).cpu(), tree)
 
     def shard_state(self, tree):
         """A one-device state tree (restored, on the host) cut to this
         rank's blocks."""
-        return self._map(lambda k, v: v if self.leaves[k].dim is None else
-                         self.cut(k, torch.as_tensor(v)), tree)
+        return self._map(lambda k, v: v if self._whole(k) else self.cut(k, torch.as_tensor(v)),
+                         tree)
+
+    @property
+    def writer(self) -> bool:
+        """The rank that writes the mesh's checkpoints (the first)."""
+        return self.index == 0 and self.model_index == 0
 
     def barrier(self) -> None:
-        if self.world > 1:
-            dist.barrier(group=self.batch_group)
+        if self.ranks > 1:
+            dist.barrier(group=self.mesh_group)
 
     # -- what the plan predicts -------------------------------------------------
 
     def at_rest_bytes(self) -> int:
         """Bytes a rank holds between steps: parameters (blocks of the
-        sharded leaves) and both moments (fp32 blocks, or the int8 blocks
-        and their scales)."""
+        leaves cut over data or model) and both moments (fp32 blocks, or
+        the int8 blocks and their scales)."""
         total = 0
         for leaf in self.leaves.values():
-            numel = math.prod(leaf.shape) // (1 if leaf.dim is None else self.shards)
+            numel = (math.prod(leaf.shape) // (1 if leaf.dim is None else self.shards)
+                     // (1 if leaf.mdim is None else self.model))
             total += numel * leaf.dtype.itemsize
             if self.opt is not None and self.opt.quantize_states:
                 blocks = -(-numel // 256)
@@ -409,23 +525,33 @@ class DataParallelPlan:
     def collective_bytes(self, kind: str, global_batch: int, seq_len: int) -> Dict[str, int]:
         """The result bytes, by kind, that one rank's collectives receive in
         one step of ``kind`` (``"train"``, ``"prefill"`` or ``"decode"``) of
-        ``global_batch`` sequences of ``seq_len`` input tokens: a train
-        step's gathers, reduce-scatters and all_reduces (the norm's and the
-        loss's scalars included), and each MoE block's (every forward:
-        twice a step under remat, whose recompute issues them again; the
-        aux's gradient once).  On a mesh whose ``model`` axis is above 1
-        (an abstract one: the dry run's) a leaf's bytes are those of its
-        ``model`` block, what a device of that mesh moves over the data
-        axes; the model axis's own collectives are not counted (item 14j).
-        A serving step's batch the ranks do not divide is replicated
-        (``batch_specs``' rule): nothing is issued."""
+        ``global_batch`` sequences of ``seq_len`` input tokens.  Over the
+        batch axes: a train step's gathers, reduce-scatters and all_reduces
+        (each leaf at its model block's bytes) and each MoE block's (every
+        forward: twice a step under remat, whose recompute issues them
+        again; the aux's gradient once).  Over the model axis: the gathered
+        KV leaves' all_gather and reduce_scatter, the partial norms'
+        all_reduce, and the activations' sums
+        (:func:`.tensor_parallel.collectives`: the sub-blocks' and the
+        embedding's ``g``, the ``f``'s backward, the CE's reductions, the
+        served logits' gather).  The norm's and the loss's scalars.  A
+        serving step's batch the batch ranks do not divide is replicated
+        over them (``batch_specs``' rule): nothing is issued over them."""
         out = dict.fromkeys(KINDS, 0)
-        if self.world == 1 or (kind != "train" and global_batch % self.world):
-            out["total"] = 0
-            return out
+        split = kind == "train" or global_batch % self.world == 0
+        rows = global_batch // self.world if split else global_batch
+        data = self.world > 1 and split
         if kind == "train":
             for leaf in self.leaves.values():
-                nbytes = math.prod(leaf.shape) * leaf.dtype.itemsize // leaf.model_share
+                whole = math.prod(leaf.shape) * leaf.dtype.itemsize
+                nbytes = whole // (1 if leaf.mdim is None else self.model)
+                if leaf.gathered:
+                    out["all-gather"] += whole
+                    out["reduce-scatter"] += nbytes
+                elif leaf.partial:
+                    out["all-reduce"] += whole
+                if not data:
+                    continue
                 if leaf.dim is None:
                     out["all-reduce"] += nbytes
                 else:
@@ -433,10 +559,13 @@ class DataParallelPlan:
                     out["reduce-scatter"] += nbytes // self.shards
                     if self.pods > 1:
                         out["all-reduce"] += nbytes // self.shards
-            out["all-reduce"] += 4 * (2 if self.opt.clip_norm is not None else 1)
-        tokens = global_batch // self.world * (1 if kind == "decode" else seq_len)
+            if self.ranks > 1 and self.opt.clip_norm is not None:
+                out["all-reduce"] += 4
+            if data:
+                out["all-reduce"] += 4
         n_moe = self.cfg.n_periods * self.cfg.period.count("moe")
-        if n_moe:
+        if n_moe and data:
+            tokens = rows * (1 if kind == "decode" else seq_len)
             forwards = 2 if kind == "train" and self.cfg.remat else 1
             with hints.use_mesh(self.mesh):
                 per = moe.collectives(tokens, self.cfg.moe, self.world)
@@ -444,5 +573,7 @@ class DataParallelPlan:
                 out[k] += n_moe * forwards * v
             if kind == "train":  # the aux's gradient through the mean probabilities
                 out["all-reduce"] += n_moe * self.cfg.moe.num_experts * 4
+        for k, v in tp.collectives(self.cfg, kind, rows, seq_len, self.model).items():
+            out[k] += v
         out["total"] = sum(out[k] for k in KINDS)
         return out

@@ -20,11 +20,12 @@ puts each tensor leaf back on the device its counterpart in the current
 state lies on.
 
 On several ranks (``sharding``, a
-:class:`~repro_torch.runtime.data_parallel.DataParallelPlan` of world > 1)
-the state holds each rank's blocks of the sharded leaves.  A checkpoint
-gathers them leaf by leaf on every rank and rank 0 alone writes it, in the
-one-device format (so a run resumes on any number of ranks); a resume reads
-it on every rank and cuts each rank's blocks.  A ``StepFailure`` then ends
+:class:`~repro_torch.runtime.data_parallel.DataParallelPlan` of more than
+one rank) the state holds each rank's blocks of the leaves cut over the
+data and model axes.  A checkpoint gathers them leaf by leaf on every rank
+(a packed SwiGLU matrix back in the one-device column order) and the mesh's
+first rank alone writes it, in the one-device format (so a run resumes on
+any mesh); a resume reads it on every rank and cuts each rank's blocks.  A ``StepFailure`` then ends
 the run at once: a retry on one rank alone would leave the ranks'
 collectives out of step.
 """
@@ -93,7 +94,7 @@ class TrainLoop:
         sharding=None,
     ):
         self.config = config
-        self.sharding = sharding if sharding is not None and sharding.world > 1 else None
+        self.sharding = sharding if sharding is not None and sharding.ranks > 1 else None
         self.step_fn = step_fn
         self.batch_fn = batch_fn
         self.state = state
@@ -139,7 +140,7 @@ class TrainLoop:
 
     def _checkpoint(self):
         tree = self.state if self.sharding is None else self.sharding.full_state(self.state)
-        if self.sharding is None or self.sharding.index == 0:
+        if self.sharding is None or self.sharding.writer:
             self.saver.save(self.config.ckpt_dir, self.step, tree)
             store.cleanup(self.config.ckpt_dir, self.config.keep_last)
 

@@ -279,14 +279,14 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
         assert ref_keys <= set(r) and r["devices"] == 256
         assert r["flops"] > 0 and r["bytes_accessed"] > 0
         assert r["flops_total"] == r["flops"] * 256
-        # the LM cells' collectives are the data-parallel plan's, on the data
-        # axis only: the production mesh's model axis waits for item 14j
+        # the LM cells' collectives are the plan's, over the data axis and
+        # the model axis (the Megatron plan of runtime/tensor_parallel.py)
         cfg, shape = configs.get_config(key[0]), configs.SHAPES[key[1]]
         plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh,
                                 AdamW() if shape.kind == "train" else None)
         want = plan.collective_bytes(shape.kind, shape.global_batch, shape.seq_len)
         assert r["collective_bytes"] == r["collective_bytes_raw"] == want
-        assert "14j" in r["why"]["collective_bytes"]
+        assert "tensor_parallel.py" in r["why"]["collective_bytes"]
         assert r["memory"]["temp_size_bytes"] is None and r["time_compile_s"] is None
     train = by[("qwen2-1.5b", "train_4k")]["collective_bytes"]
     # counted by hand: every matrix of Qwen2-1.5B is cut 16 ways over data
@@ -297,14 +297,31 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
     mats = sum(p.numel() * 2 for p in leaves.values() if p.dim() == 2)
     vecs = sum(p.numel() * 2 // (16 if k.split(".")[-1] in ("bq", "bk", "bv") else 1)
                for k, p in leaves.items() if p.dim() == 1)
-    assert train == {"all-gather": mats // 16, "reduce-scatter": mats // 256,
-                     "all-reduce": vecs + 8, "total": mats // 16 + mats // 256 + vecs + 8}
+    # Over the model axis: Qwen2-1.5B's 2 KV heads do not split 16 ways, so
+    # each layer's wk, wv, bk, bv are gathered whole and their gradients
+    # reduce-scattered back to 1/16; a device's 16 rows of 4,096 tokens
+    # (act: its (16, 4096, 1536) bf16 activations) are all_reduced by the
+    # embedding and each of the 56 sub-blocks, again by the remat recompute
+    # but for each layer's last (the MLP's), by the backward of the 56
+    # sub-blocks' inputs and the unembedding's; the CE reduces 3 fp32 a token
+    kv = 28 * (2 * 1536 * 256 + 2 * 256) * 2
+    T = 16 * 4096
+    act = T * 1536 * 2
+    model_ar = act * (1 + 56 + 28) + act * (56 + 1) + 3 * T * 4
+    assert train == {"all-gather": mats // 16 + kv, "reduce-scatter": mats // 256 + kv // 16,
+                     "all-reduce": vecs + 8 + model_ar,
+                     "total": mats // 16 + mats // 256 + vecs + 8 + kv + kv // 16 + model_ar}
     decode = by[("deepseek-v2-lite-16b", "decode_32k")]["collective_bytes"]
     # 27 MoE blocks: the aux loss's two all_reduces (64 fp32 sums, 64 int64
     # counts) and, the global dispatch at capacity factor 1.25 planning one
-    # row over the 16 ranks, the all_gather of every rank's 64 counts
-    assert decode == {"all-reduce": 27 * 64 * 12, "all-gather": 27 * 16 * 64 * 8,
-                      "reduce-scatter": 0, "total": 27 * 64 * (12 + 16 * 8)}
+    # row over the 16 ranks, the all_gather of every rank's 64 counts; over
+    # the model axis, a device's 8 new tokens' (8, 1, 2048) bf16 activations
+    # all_reduced by the embedding and the 54 sub-blocks, and the gather of
+    # their 102,400-id logits
+    model_ar, logits = 8 * 2048 * 2 * 55, 8 * 102400 * 2
+    assert decode == {"all-reduce": 27 * 64 * 12 + model_ar,
+                      "all-gather": 27 * 16 * 64 * 8 + logits, "reduce-scatter": 0,
+                      "total": 27 * 64 * (12 + 16 * 8) + model_ar + logits}
     # the full-size train cell's count is every product of the step
     assert by[("qwen2-1.5b", "train_4k")]["flops_total"] == dense_matmul_flops(
         configs.get_config("qwen2-1.5b"), configs.SHAPES["train_4k"])

@@ -108,6 +108,7 @@ SLICE_MODULES = [
     "repro_torch.runtime",
     "repro_torch.runtime.data_parallel",
     "repro_torch.runtime.fault_tolerance",
+    "repro_torch.runtime.tensor_parallel",
     "repro_torch.serving",
     "repro_torch.serving.batcher",
     "repro_torch.serving.engine",

@@ -380,10 +380,14 @@ class _WorldMesh:
 
 
 def test_train_driver_mesh_and_device_rule(monkeypatch):
-    """A model axis > 1 is item 14j; a mesh of several ranks needs its ranks
-    on named axes and a process group; a world of one trains."""
+    """A model axis > 1 takes token models of attention, MLA, MLP and MoE
+    sub-blocks (SSM mixers are item 14k); a mesh of several ranks needs its
+    ranks on named axes and a process group; a world of one trains."""
     cfg = configs.get_reduced("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="item 14j"):
+    with pytest.raises(NotImplementedError, match="item 14k"):
+        train_mod.train(configs.get_reduced("xlstm-1.3b"), steps=1,
+                        mesh=_WorldMesh(2, {"data": 1, "model": 2}))
+    with pytest.raises(RuntimeError, match="initialise torch.distributed"):
         train_mod.train(cfg, steps=1, mesh=_WorldMesh(2, {"data": 1, "model": 2}))
     with pytest.raises(ValueError, match="pod, data and model"):
         train_mod.train(cfg, steps=1, mesh=_WorldMesh(2))

@@ -50,15 +50,16 @@ What each number is:
   the ``model`` axis, 16 on the production mesh) and its two scalars, and
   every cell's MoE all_reduces (the aux loss) and all_gathers (the global
   plan's counts).  Over the ``model`` axis, the Megatron plan of
-  :mod:`repro_torch.runtime.tensor_parallel`: each attention, MLA, MLP and
-  MoE sub-block's and the embedding's ``all_reduce`` of a rank's
-  activations (again under remat), in training the ``f``'s backward ones
-  and the CE's three reductions a token, in serving the logits' gather,
-  and the gathered KV leaves' and partial norms' collectives.  A config
-  with SSM mixers or a frames frontend does not run on a model axis (item
-  14k): its mixers' model-axis collectives are not counted, and ``why``
-  says so.  The reference's counts are GSPMD's, another plan over the same
-  axes (``tests/test_torch_tensor_parallel.py`` puts both side by side on a
+  :mod:`repro_torch.runtime.tensor_parallel`: each sub-block's and a cut
+  vocabulary's embedding ``all_reduce`` of a rank's activations (again
+  under remat), the SSM mixers' two-way sums, in training the ``f``'s
+  backward ones and a cut vocabulary's CE reductions, in serving its
+  logits' gather, and the gathered and partial leaves' collectives.  A
+  config whose heads or channels the model axis does not divide
+  (xLSTM-1.3B's 4 heads over 16, Qwen2-1.5B's 12) does not run on it: its
+  counts there are the plan's as if it did, and ``why`` names the count.  The reference's counts are
+  GSPMD's, another plan over the same axes
+  (``tests/test_torch_tensor_parallel.py`` puts both side by side on a
   reduced step), so the two differ.  No HLO is parsed here.
 
 ``run_oavi_cell`` is the paper's degree step (m = 4,194,304, n = 57,
@@ -94,7 +95,6 @@ from .. import configs
 from ..models import hints
 from ..models import model as M
 from ..optim import AdamW
-from ..runtime import tensor_parallel
 from ..runtime.data_parallel import DataParallelPlan
 from . import mesh as mesh_mod
 
@@ -106,8 +106,6 @@ _MODEL_AXIS = ("; a leaf's bytes are those of its block over the model axis, wha
                "this mesh moves over the data axes; over the model axis, the Megatron plan of "
                "runtime/tensor_parallel.py (sub-block, embedding and CE all_reduces, the "
                "gathered KV leaves, the served logits' gather), not GSPMD's")
-_MODEL_AXIS_14K = ("; this config's SSM mixers and frames frontend do not run on a model axis "
-                   "(ROADMAP item 14k): their model-axis collectives are not counted")
 
 
 class ByteCounter(TorchDispatchMode):
@@ -236,6 +234,19 @@ def count_step(step: Callable[[], Any], mesh) -> Dict[str, Any]:
             "ops": nbytes.ops, "seconds": time.perf_counter() - t0}
 
 
+def collective_why(plan: DataParallelPlan, mesh) -> str:
+    """The ``why`` of an LM cell's ``collective_bytes``: the plan's axes, and
+    on a model axis that the config's heads or channels do not split, the
+    count that does not split (the counts are the plan's as if it did)."""
+    why = _LM_PLAN
+    if hints.mesh_axis_sizes(mesh).get("model", 1) > 1:
+        why += _MODEL_AXIS
+        if plan.refusal:
+            why += (f"; {plan.refusal}: the config does not run on this mesh's model axis, "
+                    "and its counts there are the plan's as if it did")
+    return why
+
+
 def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
     cfg = dataclasses.replace(configs.get_config(arch_id), unroll_scan=True)
     t0 = time.perf_counter()
@@ -247,11 +258,7 @@ def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str) -> Dict:
     plan = DataParallelPlan(cfg, M.abstract_params(cfg), mesh,
                             AdamW() if shape.kind == "train" else None)
     coll = plan.collective_bytes(shape.kind, shape.global_batch, shape.seq_len)
-    why_coll = _LM_PLAN
-    if hints.mesh_axis_sizes(mesh).get("model", 1) > 1:
-        why_coll += _MODEL_AXIS
-        if set(cfg.period) - set(tensor_parallel.SUPPORTED) or cfg.frontend != "tokens":
-            why_coll += _MODEL_AXIS_14K
+    why_coll = collective_why(plan, mesh)
     return {
         **meta,
         "mesh": mesh_name,

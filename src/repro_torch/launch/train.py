@@ -18,8 +18,8 @@ moments), takes its rows of the ``(seed, step)`` batch, and averages the
 gradients over the ranks.  ``mesh=None``, or a ``DeviceMesh`` of world 1
 such as ``launch.mesh.make_local_mesh()``, is one device: no collective, and
 the same bits either way.  Meshes of ``pod`` x ``data`` x ``model`` ranks
-run: a ``model`` axis larger than 1 cuts heads, FFN columns, experts and the
-vocabulary over its ranks, Megatron-style
+run: a ``model`` axis larger than 1 cuts heads, FFN columns, experts, the
+SSM mixers' channels and heads and the vocabulary over its ranks, Megatron-style
 (:mod:`repro_torch.runtime.tensor_parallel`), and the ranks of a model group
 share rows and losses.  On the card every attention layer's forward
 launches the hand-written flash kernel at the rank's heads (twice a step
@@ -77,15 +77,17 @@ def make_sharded_train_state(cfg, opt: AdamW, mesh, seed: int = 0, *, device=Non
         model = M.Transformer.from_params(cfg, params, device=dev)
     plan = DataParallelPlan(cfg, model, mesh, opt)
     params = plan.shard_params(model)
-    return model, params, opt.init(params), plan
+    return model, params, plan.init_state(params), plan
 
 
 def make_step(model, opt: AdamW, plan: DataParallelPlan):
     """``step(params, opt_state, batch) -> (loss, params, opt_state)`` on this
     rank's rows: the sharded leaves gathered, ``models.model.loss_and_grads``
     (the one-device step's body), the gradients averaged over the ranks,
-    the clip scale from the global norm, AdamW on this rank's blocks, the
-    full tensors freed.  ``loss`` is the ranks' mean, detached."""
+    the clip scale from the global norm, AdamW on this rank's blocks (8-bit
+    moments on a model axis: on the whole leaves' gathered gradients, the
+    update cut to the blocks), the full tensors freed.  ``loss`` is the
+    ranks' mean, detached."""
 
     def train_step(params, opt_state, batch):
         with plan.scope():
@@ -93,7 +95,9 @@ def make_step(model, opt: AdamW, plan: DataParallelPlan):
             loss, grads = M.loss_and_grads(model, batch)
             grads = plan.sync_grads(grads)
             sq = plan.sq_norm(grads) if opt.clip_norm is not None else None
-            params, opt_state = opt.update(params, grads, opt_state, sq_norm=sq)
+            params, opt_state = opt.update(params, plan.moment_grads(grads), opt_state,
+                                           sq_norm=sq,
+                                           block=plan.cut if plan.whole_moments else None)
             plan.release_params(model)
             return plan.mean_loss(loss.detach()), params, opt_state
 

@@ -8,8 +8,7 @@ unchanged; :class:`Transformer` holds one module per sub-block
 (``n_periods * len(period)`` of them, in order) where the JAX package stacks
 each period position over a scan axis, and
 :func:`repro_torch.convert.lm_params_from_reference` unstacks one into the
-other.  Options of later items raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+other.
 
 Inputs are the reference's batch keys: token ids (B, S) for a ``tokens``
 frontend, or precomputed frames (B, S, d_model) for ``frames`` (an encoder:
@@ -39,12 +38,15 @@ being a tuple of ``None | axis | tuple of axes``.  ``forward`` pins the
 batch axes before every block (:mod:`.hints`), as the reference does.
 
 Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`; a driver
-enters ``hints.use_model_shards`` and hands the model its blocks) the MLP
-is column- then row-parallel, the embedding and the unembedding are
-vocabulary-parallel (``embed``'s rows, an untied ``head``'s columns), the
-logits a rank returns are its vocabulary block, and the cross-entropy, plain
-or chunked, reduces over the axis.  A config with other sub-blocks or a
-frames frontend raises there (item 14k).
+enters ``hints.use_model_shards`` and hands the model its blocks) every
+sub-block is column- then row-parallel (the SSM mixers over their channels
+or heads, :mod:`.ssm`), and where the axis divides the vocabulary the
+embedding and the unembedding are vocabulary-parallel (``embed``'s rows, an
+untied ``head``'s columns), the logits a rank returns are its vocabulary
+block, and the cross-entropy, plain or chunked, reduces over the axis.  A
+vocabulary it does not divide stays whole on every rank, as do the logits
+and the cross-entropy.  A frames frontend's ``embed_proj`` is whole for the
+step (the plan gathers it), so the residual stream starts whole.
 """
 
 from __future__ import annotations
@@ -233,11 +235,11 @@ class Transformer(nn.Module):
         if isinstance(inputs, Mapping):
             inputs = inputs["tokens" if self.cfg.frontend == "tokens" else "frames"]
         if self.cfg.frontend == "tokens":
-            return tp.embed_lookup(self.embed, inputs)
+            return tp.embed_lookup(self.embed, inputs, self.cfg.vocab_size)
         return inputs.to(self.embed_proj.dtype) @ self.embed_proj
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
-        x = tp.copy_to_model(layers.rms_norm(x, self.final_norm))
+        x = _head_input(x, self.final_norm, self.cfg.vocab_size)
         if self.cfg.tie_embeddings:
             return x @ self.embed.T
         return x @ self.head
@@ -339,6 +341,14 @@ class Transformer(nn.Module):
         return self._unembed(x), cache
 
 
+def _head_input(x: torch.Tensor, final_norm: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The unembedding's input: the final norm, through ``f`` where the
+    model axis cuts the vocabulary (a whole head's gradient is whole on
+    every rank)."""
+    x = layers.rms_norm(x, final_norm)
+    return tp.copy_to_model(x) if tp.vocab_cut(vocab) else x
+
+
 def _block(btype: str, cfg: ModelConfig, dtype, device, gen) -> nn.Module:
     d = cfg.d_model
     if btype == "attn":
@@ -408,7 +418,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
     if cfg.ce_impl != "plain":
         raise ValueError(f"unknown ce_impl {cfg.ce_impl!r}")
     logits, aux = model(inputs, use_kernel, cfg)
-    return torch.mean(tp.cross_entropy(logits.float(), labels)) + aux
+    return torch.mean(tp.cross_entropy(logits.float(), labels, cfg.vocab_size)) + aux
 
 
 def _ce_chunk(m_run, s_run, gold, x, head_c, labels, start: int):
@@ -434,17 +444,19 @@ def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel
     The JAX package pads the head to a multiple of the chunk and masks the
     padded logits with -1e30; the port's last chunk is a shorter slice,
     which adds the same exact zeros to the running sum.  Under a model axis
-    the chunks run over this rank's vocabulary block, and the running
-    triple is combined over the axis once (``tensor_parallel.combine_chunks``).
+    that cuts the vocabulary the chunks run over this rank's block, and the
+    running triple is combined over the axis once
+    (``tensor_parallel.combine_chunks``).
     """
     x, aux = model.hidden(inputs, use_kernel, cfg)
-    x = tp.copy_to_model(layers.rms_norm(x, model.final_norm))
+    x = _head_input(x, model.final_norm, cfg.vocab_size)
     head = model.embed.T if cfg.tie_embeddings else model.head  # (d, V)
     B, S, _ = x.shape
     m_run = torch.full((B, S), -1e30, dtype=torch.float32, device=x.device)
     s_run = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     gold = torch.zeros((B, S), dtype=torch.float32, device=x.device)
-    first = tp.vocab_start(head.shape[1])  # the vocabulary block's first id
+    # the vocabulary block's first id
+    first = tp.vocab_start(head.shape[1]) if tp.vocab_cut(cfg.vocab_size) else 0
     for start in range(0, head.shape[1], cfg.ce_chunk):
         head_c = head[:, start:start + cfg.ce_chunk]
         if torch.is_grad_enabled():
@@ -454,7 +466,7 @@ def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel
         else:
             m_run, s_run, gold = _ce_chunk(m_run, s_run, gold, x, head_c, labels,
                                            first + start)
-    lse, gold = tp.combine_chunks(m_run, s_run, gold)
+    lse, gold = tp.combine_chunks(m_run, s_run, gold, cfg.vocab_size)
     return torch.mean(lse - gold) + aux
 
 

@@ -30,6 +30,16 @@ where a value is rounded matters as much as how it is computed.
 ``prefill`` keeps the reference's documented serving limitation: it runs the
 full forward and returns a *fresh* state (zeros), not the state at the end of
 the prompt.
+
+Under a model axis (:mod:`repro_torch.runtime.tensor_parallel`) each mixer
+reads its normed input through ``f`` and sums its output projection by
+``g``; between them a rank runs its block of Mamba's ``d_inner`` channels,
+or its mLSTM or sLSTM heads, read from its weights' shapes.  Mamba's
+``xin @ w_x`` and the mLSTM's gates and ``out_norm`` statistics are partial
+sums every rank uses, summed both ways (``tensor_parallel.sum_over_model``);
+the sLSTM's block-diagonal recurrence runs a rank's heads with no
+collective in its time loop.  A rank's decode state holds its channels or
+heads.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime import tensor_parallel as tp
 from . import layers
 
 
@@ -167,9 +178,11 @@ class Mamba(nn.Module):
 
     def _inner(self, xin: torch.Tensor):
         """dt (B, T, di) and the input-dependent B, C (B, T, ds) of the
-        convolved input."""
+        convolved input (under a model axis, dt of this rank's channels; the
+        product with ``w_x`` over them is a partial sum of every rank's B, C
+        and step sizes, summed both ways)."""
         dtr, ds = self.w_dt.shape[0], self.dims.d_state
-        dt_low, Bc, Cc = torch.split(xin @ self.w_x, [dtr, ds, ds], dim=-1)
+        dt_low, Bc, Cc = torch.split(tp.sum_over_model(xin @ self.w_x), [dtr, ds, ds], dim=-1)
         # PyTorch's softplus turns linear above threshold=20, where
         # jax.nn.softplus adds log1p(exp(-x)) < 2.1e-9: below fp32's rounding
         # of any x > 20 (half an ulp there is 9.5e-7)
@@ -186,12 +199,12 @@ class Mamba(nn.Module):
         B, T, _ = x.shape
         chunk = min(self.chunk, T)
         _check_chunk(T, chunk)
-        h = layers.rms_norm(x, self.norm_scale)
+        h = tp.copy_to_model(layers.rms_norm(x, self.norm_scale))
         xin, z = (h @ self.w_in).chunk(2, dim=-1)
         xin = F.silu(_causal_conv(xin, self.conv_w, self.conv_b))
         dt, Bc, Cc = self._inner(xin)
         dtx = dt * xin
-        state = torch.zeros((B, self.dims.d_inner, self.dims.d_state), dtype=x.dtype,
+        state = torch.zeros((B, xin.shape[-1], self.dims.d_state), dtype=x.dtype,
                             device=x.device)
         ys = []
         for s in range(0, T, chunk):
@@ -202,13 +215,14 @@ class Mamba(nn.Module):
             ys.append(y)
         y = torch.cat(ys, dim=1) + self.D * xin
         y = y * F.silu(z)
-        return x + y @ self.w_out, None
+        return x + tp.reduce_from_model(y @ self.w_out), None
 
     def init_cache(self, B: int, S_max: int, dtype, device) -> MambaState:
-        d = self.dims
+        """A fresh state of the channels this rank holds."""
+        d, di = self.dims, self.D.shape[0]
         return MambaState(
-            conv=torch.zeros((B, d.d_conv - 1, d.d_inner), dtype=dtype, device=device),
-            h=torch.zeros((B, d.d_inner, d.d_state), dtype=dtype, device=device))
+            conv=torch.zeros((B, d.d_conv - 1, di), dtype=dtype, device=device),
+            h=torch.zeros((B, di, d.d_state), dtype=dtype, device=device))
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, MambaState]:
@@ -232,7 +246,7 @@ class Mamba(nn.Module):
         y = (y + self.D * xin_c) * F.silu(z)
         state.conv.copy_(window[:, 1:])
         state.h.copy_(h_new)
-        return x + y @ self.w_out, state
+        return x + tp.reduce_from_model(y @ self.w_out), state
 
 
 # ===========================================================================
@@ -332,12 +346,37 @@ class MLSTM(nn.Module):
         self.out_norm = layers.param(layers.init_rms_scale(di, dtype, device))
         self.w_down = layers.dense_param(gen, (di, d_model), dtype, device)
 
+    def _heads(self) -> Tuple[int, int]:
+        """The heads this rank computes (all of them on one device) and the
+        head size."""
+        return self.wq.shape[0], self.wq.shape[-1]
+
+    def _gates(self, xc: torch.Tensor) -> torch.Tensor:
+        """The input and forget gates' pre-activations of this rank's heads,
+        (..., 2, H): under a model axis ``xc`` holds the rank's channels, so
+        its product with their rows of ``w_if`` is a partial sum of every
+        head's gates, summed both ways."""
+        w_if = tp.local_block(self.w_if, 0, xc.shape[-1])
+        gates = tp.sum_over_model(xc @ w_if)
+        gates = gates.reshape(*gates.shape[:-1], 2, self.dims.n_heads)
+        return tp.local_block(gates, -1, self._heads()[0])
+
+    def _out_norm(self, out: torch.Tensor) -> torch.Tensor:
+        """``rms_norm(out, out_norm)`` over the whole ``d_inner``: under a
+        model axis ``out`` holds the rank's channels, and their fp32 sum of
+        squares is summed both ways before the ``rsqrt``."""
+        if tp.active() is None:
+            return layers.rms_norm(out, self.out_norm)
+        xf = out.float()
+        var = tp.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True)) / self.dims.d_inner
+        scale = tp.local_block(self.out_norm, 0, out.shape[-1])
+        return (xf * torch.rsqrt(var + 1e-6)).to(out.dtype) * scale
+
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
         B, T, _ = x.shape
-        di, H = self.dims.d_inner, self.dims.n_heads
-        dh = di // H
-        h = layers.rms_norm(x, self.norm_scale)
+        H, dh = self._heads()
+        h = tp.copy_to_model(layers.rms_norm(x, self.norm_scale))
         xin, z = (h @ self.w_up).chunk(2, dim=-1)
         xc = F.silu(_causal_conv(xin, self.conv_w, self.conv_b))
 
@@ -347,19 +386,20 @@ class MLSTM(nn.Module):
         q = heads(_headed_proj(xc, self.wq))
         k = heads(_headed_proj(xc, self.wk))
         v = heads(_headed_proj(xin, self.wv))
-        gates = (xc @ self.w_if).reshape(B, T, 2, H).permute(0, 3, 2, 1)  # (B, H, 2, T)
-        log_i = (gates[:, :, 0] + self.b_i[None, :, None]).float()
-        log_f = F.logsigmoid(gates[:, :, 1] + self.b_f[None, :, None]).float()
+        gates = self._gates(xc).permute(0, 3, 2, 1)  # (B, H, 2, T)
+        b_i, b_f = tp.local_block(self.b_i, 0, H), tp.local_block(self.b_f, 0, H)
+        log_i = (gates[:, :, 0] + b_i[None, :, None]).float()
+        log_f = F.logsigmoid(gates[:, :, 1] + b_f[None, :, None]).float()
         out = _mlstm_chunk_scan(q, k, v, log_i, log_f, min(self.chunk, T))
-        out = out.transpose(1, 2).reshape(B, T, di)
-        out = layers.rms_norm(out, self.out_norm) * F.silu(z)
-        return x + out @ self.w_down, None
+        out = out.transpose(1, 2).reshape(B, T, H * dh)
+        out = self._out_norm(out) * F.silu(z)
+        return x + tp.reduce_from_model(out @ self.w_down), None
 
     def init_cache(self, B: int, S_max: int, dtype, device) -> MLSTMState:
-        d = self.dims
-        H, dh = d.n_heads, d.d_inner // d.n_heads
+        """A fresh state of the heads this rank holds."""
+        H, dh = self._heads()
         return MLSTMState(
-            conv=torch.zeros((B, d.d_conv - 1, d.d_inner), dtype=dtype, device=device),
+            conv=torch.zeros((B, self.dims.d_conv - 1, H * dh), dtype=dtype, device=device),
             C=torch.zeros((B, H, dh, dh), dtype=dtype, device=device),
             n=torch.zeros((B, H, dh), dtype=dtype, device=device),
             m=torch.full((B, H), -1e30, dtype=torch.float32, device=device))
@@ -373,8 +413,7 @@ class MLSTM(nn.Module):
                     pos: torch.Tensor) -> Tuple[torch.Tensor, MLSTMState]:
         """One-token recurrence; ``state`` is updated in place."""
         B = x.shape[0]
-        di, H = self.dims.d_inner, self.dims.n_heads
-        dh = di // H
+        H, dh = self._heads()
         h = layers.rms_norm(x, self.norm_scale)
         xin, z = (h @ self.w_up).chunk(2, dim=-1)  # (B, 1, di)
         window = torch.cat([state.conv, xin], dim=1)
@@ -382,9 +421,9 @@ class MLSTM(nn.Module):
         q = _headed_proj(xc, self.wq).reshape(B, H, dh)
         k = _headed_proj(xc, self.wk).reshape(B, H, dh)
         v = _headed_proj(xin, self.wv).reshape(B, H, dh)
-        gates = (xc @ self.w_if).reshape(B, 2, H)
-        li = (gates[:, 0] + self.b_i).float()  # (B, H)
-        lf = F.logsigmoid(gates[:, 1] + self.b_f).float()
+        gates = self._gates(xc).reshape(B, 2, H)
+        li = (gates[:, 0] + tp.local_block(self.b_i, 0, H)).float()  # (B, H)
+        lf = F.logsigmoid(gates[:, 1] + tp.local_block(self.b_f, 0, H)).float()
         m_new = torch.maximum(lf + state.m, li)
         i_p = torch.exp(li - m_new)[..., None]
         f_p = torch.exp(lf + state.m - m_new)[..., None]
@@ -396,12 +435,12 @@ class MLSTM(nn.Module):
         num = torch.einsum("bhd,bhde->bhe", qs, C_new)
         den = torch.einsum("bhd,bhd->bh", qs, n_new)
         hout = (num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]).to(x.dtype)
-        out = layers.rms_norm(hout.reshape(B, 1, di), self.out_norm) * F.silu(z)
+        out = self._out_norm(hout.reshape(B, 1, H * dh)) * F.silu(z)
         state.conv.copy_(window[:, 1:])
         state.C.copy_(C_new)
         state.n.copy_(n_new)
         state.m.copy_(m_new)
-        return x + out @ self.w_down, state
+        return x + tp.reduce_from_model(out @ self.w_down), state
 
 
 # ===========================================================================
@@ -473,22 +512,33 @@ class SLSTM(nn.Module):
         self.b = layers.param(b)
         self.w_out = layers.dense_param(gen, (d_model, d_model), dtype, device)
 
+    def _r(self) -> torch.Tensor:
+        """The recurrent weights of this rank's heads (all on one device):
+        ``w`` holds ``[i_r | f_r | z_r | o_r]``, 4 x its heads' channels."""
+        return tp.local_block(self.r, 0, self.w.shape[1] // 4 // self.r.shape[1])
+
+    def _xw(self, h: torch.Tensor) -> torch.Tensor:
+        """``h @ w + b``, the gates' input part, of this rank's heads."""
+        return h @ self.w + tp.local_parts(self.b, 4)
+
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, None]:
         """The time loop: one :func:`_slstm_cell` a step, as the reference's
         ``lax.scan``; with ``cost_mode`` the parallel proxy
-        (:meth:`_cost_forward`)."""
-        B, T, d = x.shape
-        h = layers.rms_norm(x, self.norm_scale)
-        xw = h @ self.w + self.b  # (B, T, 4d)
+        (:meth:`_cost_forward`).  Under a model axis a rank's heads, with no
+        collective inside the loop."""
+        B, T, _ = x.shape
+        h = tp.copy_to_model(layers.rms_norm(x, self.norm_scale))
+        xw = self._xw(h)  # (B, T, 4d)
         if self.cost_mode:
             return self._cost_forward(x, h, xw), None
-        state = _slstm_init_state(B, d, x.dtype, x.device)
+        r = self._r()
+        state = _slstm_init_state(B, xw.shape[-1] // 4, x.dtype, x.device)
         hs: List[torch.Tensor] = []
         for t in range(T):
-            state = _slstm_cell(self.r, xw[:, t], state)
+            state = _slstm_cell(r, xw[:, t], state)
             hs.append(state.h)
-        return x + torch.stack(hs, dim=1) @ self.w_out, None
+        return x + tp.reduce_from_model(torch.stack(hs, dim=1) @ self.w_out), None
 
     def _cost_forward(self, x: torch.Tensor, h: torch.Tensor,
                       xw: torch.Tensor) -> torch.Tensor:
@@ -496,25 +546,30 @@ class SLSTM(nn.Module):
         the gates of every step at once, ``h`` (the normed input) standing in
         for ``h_{t-1}``; then ``c_t = f_t c_{t-1} + i_t z_t`` and ``n_t = f_t
         n_{t-1} + i_t`` by the log-step scan.  Its per-step operations are
-        the time loop's; its values are not the sLSTM's."""
-        B, T, d = x.shape
-        H = self.dims.n_heads
-        dh = d // H
-        rec = torch.einsum("bthd,hde->bthe", h.reshape(B, T, H, dh), self.r)
+        the time loop's; its values are not the sLSTM's.  Under a model axis
+        a rank's heads read their channels of ``h``, and the input gates'
+        maximum is the group's (without gradient)."""
+        B, T, _ = x.shape
+        r = self._r()
+        H, dh = r.shape[0], r.shape[1]
+        d = H * dh
+        hl = tp.local_block(h, -1, d)
+        rec = torch.einsum("bthd,hde->bthe", hl.reshape(B, T, H, dh), r)
         rec = rec.reshape(B, T, H, 4, dh).transpose(2, 3).reshape(B, T, 4 * d)
         li, lf, z_in, o_in = (xw + rec).chunk(4, dim=-1)
         lf = F.logsigmoid(lf.float())
-        i_p = torch.exp(li.float() - torch.amax(li).float())
+        i_p = torch.exp(li.float() - tp.max_over_model(torch.amax(li)).float())
         f_p = torch.exp(lf)
         z_t = torch.tanh(z_in)
         o_t = torch.sigmoid(o_in)
         c_all = _log_step_scan(f_p, i_p * z_t.float())
         n_all = _log_step_scan(f_p, i_p)
         hs = o_t * (c_all / torch.clamp(n_all, min=1e-6)).to(x.dtype)
-        return x + hs @ self.w_out
+        return x + tp.reduce_from_model(hs @ self.w_out)
 
     def init_cache(self, B: int, S_max: int, dtype, device) -> SLSTMState:
-        return _slstm_init_state(B, self.w.shape[0], dtype, device)
+        """A fresh state of the channels of this rank's heads."""
+        return _slstm_init_state(B, self.w.shape[1] // 4, dtype, device)
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, S_max: int,
                 use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, SLSTMState]:
@@ -524,8 +579,8 @@ class SLSTM(nn.Module):
     def decode_step(self, x: torch.Tensor, state: SLSTMState,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, SLSTMState]:
         """One step; ``state`` is updated in place."""
-        xw = (layers.rms_norm(x, self.norm_scale) @ self.w + self.b)[:, 0]  # (B, 4d)
-        new = _slstm_cell(self.r, xw, state)
+        xw = self._xw(layers.rms_norm(x, self.norm_scale))[:, 0]  # (B, 4d)
+        new = _slstm_cell(self._r(), xw, state)
         for old, val in zip(state, new):
             old.copy_(val)
-        return x + new.h[:, None, :] @ self.w_out, state
+        return x + tp.reduce_from_model(new.h[:, None, :] @ self.w_out), state

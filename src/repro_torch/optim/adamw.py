@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,14 +98,19 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-               state: AdamWState, *, sq_norm: Optional[torch.Tensor] = None
+               state: AdamWState, *, sq_norm: Optional[torch.Tensor] = None,
+               block: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
                ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
         """One step.  Writes the new values into ``params`` (and the fp32
         moments) in place and returns ``(params, new_state)``.  ``params``
         and ``grads`` may be whole leaves or a rank's blocks of them: then
         ``sq_norm``, the sum of every squared gradient entry of the whole
         model (``runtime.data_parallel.DataParallelPlan.sq_norm``), sets the
-        clip scale; by default it is summed from ``grads``."""
+        clip scale; by default it is summed from ``grads``.  The moments
+        have the gradients' shapes; with ``block``, a gradient (and its
+        moments) is the whole leaf while the parameter is a rank's block,
+        and ``block(name, update)`` cuts the whole update to it (8-bit
+        moments on a model axis)."""
         step = int(state.step) + 1
         lr = self._lr(step)
         scale = None
@@ -126,15 +131,17 @@ class AdamW:
                 g = g * scale.to(g.dtype)
             g32 = g.float()
             if self.quantize_states:
-                m = _dequantize(*state.mu[name], p.shape)
+                m = _dequantize(*state.mu[name], g.shape)
                 # second moment in sqrt space: int8 linear quantization of
                 # sqrt(n) keeps the denominator's relative error bounded
-                n = torch.square(_dequantize(*state.nu[name], p.shape))
+                n = torch.square(_dequantize(*state.nu[name], g.shape))
             else:
                 m, n = state.mu[name], state.nu[name]
             m.mul_(self.b1).add_((1 - self.b1) * g32)
             n.mul_(self.b2).add_((1 - self.b2) * g32 * g32)
             u = (m / bc1) / (torch.sqrt(n / bc2) + self.eps)
+            if block is not None:
+                u = block(name, u)
             p32 = p.float()
             p.copy_(p32 - lr * (u + self.weight_decay * p32))
             if self.quantize_states:

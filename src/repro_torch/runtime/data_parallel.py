@@ -19,27 +19,35 @@ moments' blocks cut across the parameter's shape, so with them every leaf
 is).  A ``pod`` axis replicates every parameter: the reference's specs name
 only ``data`` and ``model``.  A leaf whose spec names ``model`` is cut over
 a model axis larger than 1 as well (:mod:`.tensor_parallel`): a rank holds
-its block over both axes, and computes on its model block (a packed SwiGLU
-matrix's block is ``[gate_r | up_r]``), or on the whole leaf for attention
-KV leaves the KV heads do not divide.  A step
+its block over both axes, and computes on its model block (a packed
+matrix's block is ``[p0_r | p1_r | ...]``, an mLSTM head projection's the
+rank's heads), or on the whole leaf for attention KV leaves the KV heads do
+not divide and a frames frontend's ``embed_proj``.  8-bit moments stay
+replicated over ``model`` too, as the reference's ``state_specs`` keeps
+them: every rank holds the one-device layout's int8 blocks of every leaf,
+and updates them from the whole gradient.  A step
 (:func:`repro_torch.launch.train.make_step`) runs
 
 * :meth:`gather_params`: one ``all_gather_into_tensor`` a sharded leaf over
   the data group, into the model's tensor of its model block (a shard
   dimension other than 0 goes through a contiguous staging tensor), and one
-  over the model group for a gathered KV leaf;
+  over the model group for a gathered leaf;
 * the loss and ``torch.autograd.grad`` on the rank's rows, the blocks
   issuing the model axis's sums (:mod:`.tensor_parallel`);
 * :meth:`sync_grads`: over the model group, ``reduce_scatter_tensor(SUM)``
-  of a gathered KV leaf and ``all_reduce(SUM)`` of a leaf each model rank
-  holds in part (``q_norm``, ``k_norm``); then ``reduce_scatter_tensor(SUM)``
+  of a gathered KV leaf (``embed_proj``'s gradient is whole: the rank keeps
+  its block) and ``all_reduce(SUM)`` of a leaf each model rank holds in part
+  (``tensor_parallel.partial_leaf``); then ``reduce_scatter_tensor(SUM)``
   over data (then ``all_reduce(SUM)`` over pod) for a sharded leaf,
   ``all_reduce(SUM)`` over the batch group for a replicated one, each
   divided by the batch world (SUM and a division: ``ReduceOp.AVG`` is not
   every backend's);
 * :meth:`sq_norm`: the global sum of squared gradients for ``clip_norm``,
   every block once, in one ``all_reduce`` over the mesh;
-* ``AdamW.update`` on the blocks, then :meth:`release_params` frees the
+* with 8-bit moments on a model axis, :meth:`moment_grads`: each model
+  block's gradient gathered over ``model`` into the one-device layout;
+* ``AdamW.update`` (the moments of the whole leaf, the update cut to the
+  rank's block by :meth:`cut`), then :meth:`release_params` frees the
   gathered tensors again.
 
 A world of one issues no collective and keeps the one-device step's bits:
@@ -179,9 +187,9 @@ class Leaf(NamedTuple):
     dtype: torch.dtype
     dim: Optional[int]  # the dimension cut over ``data``; None: replicated
     mdim: Optional[int] = None  # the dimension cut over ``model``; None: replicated
-    gathered: bool = False  # whole for compute: gathered over model, gradient scattered
-    partial: bool = False  # replicated over model, its gradient summed over model
-    packed: bool = False  # SwiGLU [gate | up]: model blocks of [gate_r | up_r]
+    gathered: bool = False  # whole for compute: gathered over model, gradient cut back
+    partial: bool = False  # its gradient a partial sum over model: summed (or scattered)
+    packed: int = 0  # the parts of a packed matrix: model blocks of [p0_r | p1_r | ...]
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -203,11 +211,14 @@ def _model_dim(spec) -> Optional[int]:
 
 
 def _leaf(cfg, name, p, spec, data_dim, k) -> Leaf:
-    mdim = _model_dim(spec) if k > 1 else None
-    kv = k > 1 and tp.uneven_kv_leaf(cfg, name, p.shape, k)
-    return Leaf(tuple(p.shape), p.dtype, data_dim, mdim, gathered=kv and mdim is not None,
-                partial=k > 1 and (tp.partial_leaf(name) or (kv and mdim is None)),
-                packed=mdim is not None and tp.packed_leaf(name, p.shape))
+    if k == 1:
+        return Leaf(tuple(p.shape), p.dtype, data_dim)
+    mdim = 0 if tp.head_leaf(name, p.shape) else _model_dim(spec)
+    kv = tp.uneven_kv_leaf(cfg, name, p.shape, k)
+    return Leaf(tuple(p.shape), p.dtype, data_dim, mdim,
+                gathered=mdim is not None and (kv or tp.frames_leaf(name)),
+                partial=kv or tp.partial_leaf(name),
+                packed=0 if mdim is None else tp.packed_parts(name, p.shape))
 
 
 def _cut(t: torch.Tensor, dim: int, ways: int, index: int) -> torch.Tensor:
@@ -223,8 +234,11 @@ class DataParallelPlan:
     plans serving: every leaf replicated over ``data``, as the reference's
     serve leaves its parameters, and cut over ``model``.  ``mesh=None`` is
     a world of one.  On a ``DeviceMesh`` the plan runs (its groups are the
-    mesh's); on an :class:`~repro_torch.launch.mesh.AbstractMesh` it only
-    counts."""
+    mesh's; a config the model axis cannot cut raises); on an
+    :class:`~repro_torch.launch.mesh.AbstractMesh` it only counts
+    (``refusal`` then says why a config cannot run on its model axis, where
+    its heads or channels do not split: the counts are the plan's as if
+    they did)."""
 
     def __init__(self, cfg, params_like, mesh=None, opt=None):
         runs = mesh is not None and hasattr(mesh, "get_group")
@@ -236,9 +250,14 @@ class DataParallelPlan:
         self.world = self.shards * self.pods  # ranks holding separate rows
         self.model = sizes.get("model", 1)  # ranks sharing rows, each a block of the weights
         self.ranks = self.world * self.model
-        if self.model > 1 and opt is not None and opt.quantize_states:
-            raise NotImplementedError(f"8-bit moments on a model axis of {self.model} are "
-                                      f"{tp.ITEM_14K}")
+        self.refusal = None
+        try:
+            tp.check_config(cfg, self.model)
+        except ValueError as e:
+            self.refusal = str(e)
+        # 8-bit moments of whole leaves, every rank's the one-device layout's
+        self.whole_moments = self.model > 1 and opt is not None and opt.quantize_states
+        self.vocab_cut = self.model > 1 and cfg.vocab_size % self.model == 0
         params = dict(params_like.named_parameters()) if isinstance(
             params_like, torch.nn.Module) else dict(params_like)
         pspecs = M.param_specs(cfg, params, mesh) if sizes else dict.fromkeys(params, ())
@@ -300,7 +319,10 @@ class DataParallelPlan:
 
     def gather_vocab(self, t: torch.Tensor) -> torch.Tensor:
         """Vocabulary-parallel logits (last dim this rank's block) gathered
-        over the model axis into the whole vocabulary."""
+        over the model axis into the whole vocabulary; logits of a
+        vocabulary the axis does not cut are whole already."""
+        if not self.vocab_cut:
+            return t
         return self._gather_dim(t, t.dim() - 1, self.model, self.model_group)
 
     # -- parameters -----------------------------------------------------------
@@ -311,7 +333,7 @@ class DataParallelPlan:
 
     def _stepped(self):
         """The leaves whose compute tensor is gathered for a step and freed
-        after it: those cut over data, and the gathered KV leaves."""
+        after it: those cut over data, and the gathered ones."""
         return [k for k, leaf in self.leaves.items() if leaf.dim is not None or leaf.gathered]
 
     def _whole(self, name: str) -> bool:
@@ -326,7 +348,7 @@ class DataParallelPlan:
         if self._whole(name):
             return full
         if leaf.packed:
-            full = tp.pack_columns(full, self.model)
+            full = tp.pack_columns(full, self.model, leaf.packed)
         if leaf.mdim is not None:
             full = _cut(full, leaf.mdim, self.model, self.model_index)
         if leaf.dim is not None:
@@ -344,8 +366,8 @@ class DataParallelPlan:
 
     def compute(self, name: str, part: torch.Tensor) -> torch.Tensor:
         """The tensor the model computes with from this rank's block: the
-        model block (gathered over data), or for a gathered KV leaf the
-        whole leaf."""
+        model block (gathered over data), or for a gathered leaf the whole
+        leaf."""
         leaf = self.leaves[name]
         if leaf.dim is not None:
             part = self._gather_dim(part, leaf.dim, self.shards, self.shard_group)
@@ -360,7 +382,7 @@ class DataParallelPlan:
             part = self._gather_dim(part, leaf.dim, self.shards, self.shard_group)
         if leaf.mdim is not None:
             part = self._gather_dim(part, leaf.mdim, self.model, self.model_group)
-        return tp.unpack_columns(part, self.model) if leaf.packed else part
+        return tp.unpack_columns(part, self.model, leaf.packed) if leaf.packed else part
 
     def shard_params(self, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
         """The rank's parameters at rest: the model's own tensor of a leaf
@@ -427,8 +449,10 @@ class DataParallelPlan:
         out = {}
         for k, g in grads.items():
             leaf = self.leaves[k]
-            if leaf.gathered:
+            if leaf.gathered and leaf.partial:
                 g = self._scatter_dim(g, leaf.mdim, self.model, self.model_group)
+            elif leaf.gathered:  # whole on every rank: this rank's block
+                g = _cut(g, leaf.mdim, self.model, self.model_index).contiguous()
             elif leaf.partial:
                 self.comm.all_reduce(g, self.model_group)
             if self.world > 1:
@@ -441,6 +465,23 @@ class DataParallelPlan:
                 g = g.div_(self.world)
             out[k] = g
         return out
+
+    def moment_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The gradients the moments are updated from: the synchronised
+        blocks, or with whole moments (8-bit on a model axis) each model
+        block gathered over ``model`` into the one-device layout."""
+        if not self.whole_moments:
+            return grads
+        return {k: g if self.leaves[k].mdim is None else self.gather(k, g)
+                for k, g in grads.items()}
+
+    def init_state(self, params: Dict[str, torch.Tensor]):
+        """``opt.init`` of this rank's ``params``; with whole moments of the
+        whole leaves (shapes only: no whole parameter is made)."""
+        if not self.whole_moments:
+            return self.opt.init(params)
+        return self.opt.init({k: p.new_empty(()).expand(self.leaves[k].shape)
+                              for k, p in params.items()})
 
     def _owns(self, leaf: Leaf) -> bool:
         """This rank counts the leaf's gradient block in :meth:`sq_norm`:
@@ -485,15 +526,17 @@ class DataParallelPlan:
     def full_state(self, tree):
         """A state tree (parameters, moments) with every block gathered,
         leaf by leaf, to the host in the one-device layout (a packed
-        SwiGLU matrix unpacked): the one-device checkpoint's tree.  Every
-        rank calls it (its gathers are collectives)."""
-        return self._map(lambda k, v: v if self._whole(k) else self.gather(k, v).cpu(), tree)
+        matrix unpacked): the one-device checkpoint's tree; 8-bit moments,
+        ``(int8 blocks, scales)`` pairs, are whole on every rank already.
+        Every rank calls it (its gathers are collectives)."""
+        return self._map(lambda k, v: v if self._whole(k) or isinstance(v, tuple)
+                         else self.gather(k, v).cpu(), tree)
 
     def shard_state(self, tree):
         """A one-device state tree (restored, on the host) cut to this
         rank's blocks."""
-        return self._map(lambda k, v: v if self._whole(k) else self.cut(k, torch.as_tensor(v)),
-                         tree)
+        return self._map(lambda k, v: v if self._whole(k) or isinstance(v, tuple)
+                         else self.cut(k, torch.as_tensor(v)), tree)
 
     @property
     def writer(self) -> bool:
@@ -509,14 +552,14 @@ class DataParallelPlan:
     def at_rest_bytes(self) -> int:
         """Bytes a rank holds between steps: parameters (blocks of the
         leaves cut over data or model) and both moments (fp32 blocks, or
-        the int8 blocks and their scales)."""
+        the int8 blocks and their scales of the whole leaf)."""
         total = 0
         for leaf in self.leaves.values():
             numel = (math.prod(leaf.shape) // (1 if leaf.dim is None else self.shards)
                      // (1 if leaf.mdim is None else self.model))
             total += numel * leaf.dtype.itemsize
             if self.opt is not None and self.opt.quantize_states:
-                blocks = -(-numel // 256)
+                blocks = -(-math.prod(leaf.shape) // 256)
                 total += 2 * (blocks * 256 + blocks * 4)
             elif self.opt is not None:
                 total += 2 * numel * 4
@@ -530,13 +573,15 @@ class DataParallelPlan:
         (each leaf at its model block's bytes) and each MoE block's (every
         forward: twice a step under remat, whose recompute issues them
         again; the aux's gradient once).  Over the model axis: the gathered
-        KV leaves' all_gather and reduce_scatter, the partial norms'
-        all_reduce, and the activations' sums
+        leaves' all_gather (and a KV leaf's reduce_scatter), the partial
+        leaves' all_reduce, with 8-bit moments each model block's gradient
+        gathered, and the activations' sums
         (:func:`.tensor_parallel.collectives`: the sub-blocks' and the
-        embedding's ``g``, the ``f``'s backward, the CE's reductions, the
-        served logits' gather).  The norm's and the loss's scalars.  A
-        serving step's batch the batch ranks do not divide is replicated
-        over them (``batch_specs``' rule): nothing is issued over them."""
+        embedding's ``g``, the mixers' two-way sums, the ``f``'s backward,
+        the CE's reductions, the served logits' gather).  The norm's and the
+        loss's scalars.  A serving step's batch the batch ranks do not
+        divide is replicated over them (``batch_specs``' rule): nothing is
+        issued over them."""
         out = dict.fromkeys(KINDS, 0)
         split = kind == "train" or global_batch % self.world == 0
         rows = global_batch // self.world if split else global_batch
@@ -547,9 +592,12 @@ class DataParallelPlan:
                 nbytes = whole // (1 if leaf.mdim is None else self.model)
                 if leaf.gathered:
                     out["all-gather"] += whole
-                    out["reduce-scatter"] += nbytes
+                    if leaf.partial:
+                        out["reduce-scatter"] += nbytes
                 elif leaf.partial:
                     out["all-reduce"] += whole
+                if self.whole_moments and leaf.mdim is not None:
+                    out["all-gather"] += whole
                 if not data:
                     continue
                 if leaf.dim is None:

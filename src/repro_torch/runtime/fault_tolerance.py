@@ -23,11 +23,13 @@ On several ranks (``sharding``, a
 :class:`~repro_torch.runtime.data_parallel.DataParallelPlan` of more than
 one rank) the state holds each rank's blocks of the leaves cut over the
 data and model axes.  A checkpoint gathers them leaf by leaf on every rank
-(a packed SwiGLU matrix back in the one-device column order) and the mesh's
-first rank alone writes it, in the one-device format (so a run resumes on
-any mesh); a resume reads it on every rank and cuts each rank's blocks.  A ``StepFailure`` then ends
-the run at once: a retry on one rank alone would leave the ranks'
-collectives out of step.
+(a packed matrix -- SwiGLU, Mamba's and the mLSTM's ``[x | z]``, the sLSTM's
+4 gates -- back in the one-device column order, an mLSTM head projection's
+heads in order; 8-bit moments are whole on every rank already) and the
+mesh's first rank alone writes it, in the one-device format (so a run
+resumes on any mesh); a resume reads it on every rank and cuts each rank's
+blocks.  A ``StepFailure`` then ends the run at once: a retry on one rank
+alone would leave the ranks' collectives out of step.
 """
 
 from __future__ import annotations

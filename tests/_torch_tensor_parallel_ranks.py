@@ -1,10 +1,13 @@
 """The rank program of ``tests/test_torch_tensor_parallel.py``.
 
+and of ``tests/test_torch_tensor_parallel_ssm.py``.
+
 Run as ``python _torch_tensor_parallel_ranks.py RANK WORLD WORKDIR``: the
 ranks meet through a gloo ``FileStore`` in WORKDIR, read ``cases.json`` and
-each case's initial parameters (``<arch>.npz`` for training, the JAX
-package's jitted init converted; ``<arch>_serve.npz`` for serving, its eager
-init, as its ``serve`` draws them), run every case of their world on the
+each case's initial parameters (``<arch>.npz``, or the case's ``params``
+name, for training: the JAX package's jitted init converted;
+``<arch>_serve.npz`` for serving, its eager init, as its ``serve`` draws
+them), run every case of their world on the
 meshes the cases name (``(data, model)``, row-major, the model index
 fastest: ``make_local_mesh(model_parallel=k)``'s layout), and write what
 they got to ``world<WORLD>_rank<RANK>.pt``.  Nothing here imports JAX.
@@ -15,6 +18,7 @@ import datetime
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -36,21 +40,59 @@ BATCH, SEQ, STEPS = R.BATCH, R.SEQ, R.STEPS
 
 def case_config(case):
     """A case's reduced config: its arch, its MoE ``dispatch`` where it names
-    one, and the chunked CE where it names a ``ce_chunk``."""
+    one, the chunked CE where it names a ``ce_chunk``, and its ``vocab``
+    where it names one."""
     cfg = R.config(case)
     if case.get("ce_chunk"):
         cfg = dataclasses.replace(cfg, ce_impl="chunked", ce_chunk=case["ce_chunk"])
+    if case.get("vocab"):
+        cfg = dataclasses.replace(cfg, vocab_size=case["vocab"])
     return cfg
 
 
-def load(work, name):
-    with np.load(os.path.join(work, f"{name}.npz")) as f:
+def optimizer(case):
+    """The cases' AdamW (``R.optimizer``'s), with 8-bit moments where the
+    case says ``int8``."""
+    return dataclasses.replace(R.optimizer(case), quantize_states=bool(case.get("int8")))
+
+
+def frames_batch(cfg, step):
+    """The global batch of a frames config at ``step``: ``frame_embeddings``
+    (the reference's values, seed 0) and labels drawn from ``step``, numpy."""
+    frames = lm_data.frame_embeddings(cfg.d_model, SEQ, BATCH, seed=0, step=step,
+                                      device="cpu").numpy()
+    labels = np.random.default_rng(step).integers(0, cfg.vocab_size, (BATCH, SEQ))
+    return frames, labels
+
+
+def batch_at(cfg, step, mesh):
+    """This rank's rows of the batch at ``step``: tokens, or a frames
+    config's frames and labels (every row with ``mesh=None``)."""
+    axes = ("data",) if mesh is None else M.batch_axes(mesh)
+    if cfg.frontend == "tokens":
+        return {"tokens": lm_data.batch_for_mesh(R.pipe(cfg), step, mesh, axes, device="cpu")}
+    lo, n = (0, BATCH) if mesh is None else train_mod.DataParallelPlan(
+        cfg, M.abstract_params(cfg), mesh).rows(BATCH)
+    frames, labels = frames_batch(cfg, step)
+    return {"frames": torch.from_numpy(frames[lo:lo + n]),
+            "labels": torch.from_numpy(labels[lo:lo + n]).long()}
+
+
+def load(work, name, wait_s=180):
+    """``WORKDIR/<name>.npz``'s tensors, waiting up to ``wait_s`` for the file
+    (a test may write it while the ranks run their earlier cases; it moves
+    each file into place whole)."""
+    path = os.path.join(work, f"{name}.npz")
+    deadline = time.monotonic() + wait_s
+    while not os.path.exists(path) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    with np.load(path) as f:
         return {k: torch.from_numpy(f[k]) for k in f.files}
 
 
 def case_params(work, case, suffix=""):
     """The case's initial parameters, or None for the port's seeded init."""
-    return None if case.get("random") else load(work, case["arch"] + suffix)
+    return None if case.get("random") else load(work, case.get("params", case["arch"]) + suffix)
 
 
 def _numpy(tree):
@@ -64,8 +106,7 @@ def first_grads(cfg, params, mesh):
     opt = R.optimizer()
     model, p, _, plan = train_mod.make_sharded_train_state(cfg, opt, mesh, device="cpu",
                                                            params=params)
-    batch = {"tokens": lm_data.batch_for_mesh(R.pipe(cfg), 0, mesh, M.batch_axes(mesh),
-                                              device="cpu")}
+    batch = batch_at(cfg, 0, mesh)
     with plan.scope():
         plan.gather_params(model, p)
         loss, grads = M.loss_and_grads(model, batch)
@@ -74,15 +115,21 @@ def first_grads(cfg, params, mesh):
     return float(plan.mean_loss(loss.detach())), _numpy(plan.full_state({"g": grads})["g"])
 
 
-def run_steps(cfg, params, mesh):
-    """:func:`_torch_train_mesh_ranks.run_steps` plus the bytes this rank
-    holds between steps (its parameter and moment tensors)."""
-    opt = R.optimizer()
+def _moment_tensors(moments):
+    for v in moments.values():
+        yield from (v if isinstance(v, tuple) else (v,))
+
+
+def run_steps(cfg, params, mesh, opt=None):
+    """:func:`_torch_train_mesh_ranks.run_steps` (on :func:`batch_at`'s
+    batches) plus the bytes this rank holds between steps (its parameter and
+    moment tensors, an 8-bit moment's int8 blocks and scales)."""
+    opt = opt or R.optimizer()
     model, p, st, plan = train_mod.make_sharded_train_state(cfg, opt, mesh, device="cpu",
                                                             params=params)
-    held = sum(t.numel() * t.element_size() for t in [*p.values(), *st.mu.values(),
-                                                        *st.nu.values()])
-    out = R.run_steps(cfg, params, mesh, opt)
+    held = sum(t.numel() * t.element_size() for t in [*p.values(), *_moment_tensors(st.mu),
+                                                        *_moment_tensors(st.nu)])
+    out = R.run_steps(cfg, params, mesh, opt, batch_fn=lambda i: batch_at(cfg, i, mesh))
     out["held"] = held
     return out
 
@@ -105,6 +152,20 @@ def f_and_g(mesh):
             out[name] = dict(y=y.detach(), grad=gx)
     out["issued"] = dict(plan.comm.bytes)
     return out
+
+
+def two_way_sum(mesh):
+    """``tensor_parallel.sum_over_model`` on the model group of ``mesh``, as
+    :func:`f_and_g` runs ``f`` and ``g``."""
+    plan = train_mod.DataParallelPlan(configs.get_reduced("qwen2-1.5b"),
+                                      M.abstract_params(configs.get_reduced("qwen2-1.5b")),
+                                      mesh)
+    r = plan.model_index
+    x = (torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10.0 * r).requires_grad_(True)
+    with plan.scope():
+        y = tp.sum_over_model(x)
+        (gx,) = torch.autograd.grad(y, x, grad_outputs=torch.full((2, 3), 1.0 + r))
+    return dict(y=y.detach(), grad=gx, issued=dict(plan.comm.bytes))
 
 
 def main(rank, world, work):
@@ -133,13 +194,13 @@ def main(rank, world, work):
             if kind == "train":
                 params = case_params(work, case)
                 with R.Keeps() as k:
-                    out[name] = run_steps(cfg, params, mesh)
+                    out[name] = run_steps(cfg, params, mesh, optimizer(case))
                 out[name]["routes"] = k.ids
                 out[name]["loss0"], out[name]["grads"] = first_grads(cfg, params, mesh)
             elif kind == "control":
-                params = load(work, case["arch"])
+                params = case_params(work, case)
                 with TPControl(case["control"]):
-                    res = R.run_steps(cfg, params, mesh, R.optimizer())
+                    res = run_steps(cfg, params, mesh)
                     _, grads = first_grads(cfg, params, mesh)
                 out[name] = dict(losses=res["losses"], state=res["state"], grads=grads)
             elif kind == "serve":
@@ -149,9 +210,11 @@ def main(rank, world, work):
                                  at_rest=served["at_rest_bytes"])
             elif kind == "fg":
                 out[name] = f_and_g(mesh)
+            elif kind == "sum":
+                out[name] = two_way_sum(mesh)
             elif kind == "ckpt":  # checkpoints every 2 steps into work/<dir>, or resumes
-                kw = dict(global_batch=BATCH, seq_len=SEQ, mesh=mesh, opt=R.optimizer(),
-                          params=load(work, case["arch"]), device="cpu")
+                kw = dict(global_batch=BATCH, seq_len=SEQ, mesh=mesh, opt=optimizer(case),
+                          params=case_params(work, case), device="cpu")
                 d = os.path.join(work, case["dir"])
                 rep = train_mod.train(cfg, steps=case["steps"], ckpt_dir=d, ckpt_every=2, **kw)
                 out[name] = dict(losses=rep["losses"], final_step=rep["final_step"])

@@ -58,11 +58,13 @@ def load_params(work, arch):
         return {k: torch.from_numpy(f[k]) for k in f.files}
 
 
-def run_steps(cfg, params, mesh, opt, steps=STEPS):
+def run_steps(cfg, params, mesh, opt, steps=STEPS, batch_fn=None):
     """The driver's pieces (``make_sharded_train_state``, ``make_step``,
-    ``batch_for_mesh``) for ``steps`` steps: the losses, this rank's
-    collective bytes, the expected ones, and the full state afterwards as
-    numpy (``p/``, ``mu/``, ``nu/`` + name)."""
+    ``batch_for_mesh``, or ``batch_fn(step)`` for this rank's batch) for
+    ``steps`` steps: the losses, this rank's collective bytes, the expected
+    ones, and the full state afterwards as numpy (``p/``, ``mu/``, ``nu/`` +
+    name; an 8-bit moment's int8 blocks and scales under ``/q`` and
+    ``/scale``)."""
     model, p, st, plan = train_mod.make_sharded_train_state(cfg, opt, mesh, device="cpu",
                                                             params=params)
     step = train_mod.make_step(model, opt, plan)
@@ -70,15 +72,19 @@ def run_steps(cfg, params, mesh, opt, steps=STEPS):
     losses = []
     plan.comm.reset()
     for i in range(steps):
-        batch = {"tokens": lm_data.batch_for_mesh(pipe(cfg), i, mesh, axes, device="cpu")}
+        batch = (batch_fn(i) if batch_fn else
+                 {"tokens": lm_data.batch_for_mesh(pipe(cfg), i, mesh, axes, device="cpu")})
         loss, p, st = step(p, st, batch)
         losses.append(float(loss))
     issued = dict(plan.comm.bytes)
     want = {k: steps * v for k, v in plan.collective_bytes("train", BATCH, SEQ).items()
             if k != "total"}
     full = plan.full_state({"params": p, "mu": st.mu, "nu": st.nu})
-    state = {f"{part}/{k}": v.detach().cpu().numpy().copy()
-             for part in ("params", "mu", "nu") for k, v in full[part].items()}
+    state = {}
+    for part in ("params", "mu", "nu"):
+        for k, v in full[part].items():
+            for sub, t in (zip(("/q", "/scale"), v) if isinstance(v, tuple) else (("", v),)):
+                state[f"{part}/{k}{sub}"] = t.detach().cpu().numpy().copy()
     return dict(losses=losses, issued=issued, want=want, state=state, at_rest=plan.at_rest_bytes())
 
 

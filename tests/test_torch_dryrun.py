@@ -329,6 +329,51 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
     assert oavi["flops"] > 0 and oavi["collective_bytes"]["all-reduce"] == (256 * 64 + 64 * 64) * 4
 
 
+def test_mixers_and_frames_model_axis_collectives_by_hand():
+    """The model axis's activation collectives (``tensor_parallel.
+    collectives``, part of every LM cell's ``collective_bytes``) at train_4k
+    on the production mesh (data 16, model 16), counted by hand where the
+    config runs there; xLSTM-1.3B's 4 heads do not split 16 ways, and
+    ``why`` names the heads."""
+    from repro_torch.runtime import tensor_parallel as tp
+
+    mesh = mesh_mod.abstract_production_mesh()
+    shape = configs.SHAPES["train_4k"]
+    rows = shape.global_batch // 16
+    T = rows * shape.seq_len
+    # Jamba-1.5-Large: 9 periods of 16 sub-blocks (7 Mamba, 1 attention, 4
+    # MLP, 4 MoE).  Each sub-block's g, again under remat but for each
+    # period's last; the embedding's g (65,536 ids split 16 ways); each
+    # Mamba layer's two-way sum of (dt_rank 512 | B 16 | C 16) bf16 a token,
+    # forward twice (remat) and backward once; every f's backward, the MoE
+    # gates' (top-2 fp32), the unembedding's and the CE's three fp32 sums
+    jamba = configs.get_config("jamba-1.5-large-398b")
+    act = T * 8192 * 2
+    mamba = 63 * T * (512 + 2 * 16) * 2
+    want = (act * (144 + 135) + 3 * mamba + act + act * 144 + 36 * T * 2 * 4 + act
+            + 3 * T * 4)
+    assert tp.collectives(jamba, "train", rows, shape.seq_len, 16) == {
+        "all-reduce": want, "all-gather": 0}
+    plan = DataParallelPlan(jamba, M.abstract_params(jamba), mesh, AdamW())
+    assert plan.refusal is None and "not run" not in dryrun.collective_why(plan, mesh)
+    # HuBERT-XLarge: 48 periods of (attn, mlp); frames in (no embedding
+    # g), 504 classes do not split 16 ways (a whole head: no unembedding f,
+    # no CE sums); embed_proj gathered whole for the step, its gradient whole
+    hubert = configs.get_config("hubert-xlarge")
+    act = T * 1280 * 2
+    assert tp.collectives(hubert, "train", rows, shape.seq_len, 16) == {
+        "all-reduce": act * (96 + 48) + act * 96, "all-gather": 0}
+    plan = DataParallelPlan(hubert, M.abstract_params(hubert), mesh, AdamW())
+    assert plan.leaves["head"].mdim is None and plan.leaves["embed_proj"].gathered
+    assert plan.refusal is None
+    # xLSTM-1.3B: 48 mLSTM and sLSTM layers of 4 heads
+    xlstm = configs.get_config("xlstm-1.3b")
+    plan = DataParallelPlan(xlstm, M.abstract_params(xlstm), mesh, AdamW())
+    why = dryrun.collective_why(plan, mesh)
+    assert "4 mLSTM heads do not split over a model axis of 16" in why and "14k" not in why
+    assert "does not run" in why and "as if it did" in why
+
+
 # ---------------------------------------------------------------------------
 # The dry run's numbers against the JAX package's compiled cells
 # ---------------------------------------------------------------------------

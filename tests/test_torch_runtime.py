@@ -380,11 +380,11 @@ class _WorldMesh:
 
 
 def test_train_driver_mesh_and_device_rule(monkeypatch):
-    """A model axis > 1 takes token models of attention, MLA, MLP and MoE
-    sub-blocks (SSM mixers are item 14k); a mesh of several ranks needs its
+    """A model axis > 1 takes every token model (SSM mixers included, which
+    then reach the process-group check); a mesh of several ranks needs its
     ranks on named axes and a process group; a world of one trains."""
     cfg = configs.get_reduced("qwen3-8b")
-    with pytest.raises(NotImplementedError, match="item 14k"):
+    with pytest.raises(RuntimeError, match="initialise torch.distributed"):
         train_mod.train(configs.get_reduced("xlstm-1.3b"), steps=1,
                         mesh=_WorldMesh(2, {"data": 1, "model": 2}))
     with pytest.raises(RuntimeError, match="initialise torch.distributed"):

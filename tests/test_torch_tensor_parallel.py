@@ -494,29 +494,48 @@ def test_reference_gspmd_collectives_beside_the_plan(ranks):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b", "hubert-xlarge"])
 def test_item_14k_configs_raise(arch):
-    """SSM mixers and the frames frontend do not run on a model axis: the
-    plan on a mesh it runs on raises ``NotImplementedError`` naming 14k, as
-    does ``check_config``; a model axis of 1 takes them."""
+    """Item 14k's configs -- SSM mixers and the frames frontend -- no longer
+    raise on a model axis: ``check_config`` takes them at k = 2, and the
+    plan on a (1, 2) mesh cuts their leaves (packed mixer matrices in 2 or
+    4 parts, mLSTM head projections by head, a gathered ``embed_proj``) and
+    marks the replicated leaves a rank uses in part."""
     cfg = configs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 14k"):
-        tp.check_config(cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 14k"):
-        DataParallelPlan(cfg, M.abstract_params(cfg), _FakeMesh(1, 2, 0))
+    tp.check_config(cfg, 2)
+    plan = DataParallelPlan(cfg, M.abstract_params(cfg), _FakeMesh(1, 2, 0))
+    leaves = {k.rsplit(".", 1)[-1]: v for k, v in plan.leaves.items()}
+    if arch == "xlstm-1.3b":
+        assert leaves["w_up"].packed == 2 and leaves["w"].packed == 4
+        assert leaves["wq"].mdim == 0 and leaves["r"].partial and leaves["w_if"].partial
+    elif arch == "jamba-1.5-large-398b":
+        mamba = plan.leaves["blocks.0.w_in"]  # the period's first sub-block
+        assert mamba.packed == 2 and leaves["w_x"].mdim == 0
+    else:
+        assert leaves["embed_proj"].gathered and not leaves["embed_proj"].partial
     tp.check_config(cfg, 1)
 
 
 def test_uneven_splits_and_int8_moments_raise():
-    """Heads a model axis does not divide raise ``ValueError`` naming the
-    config and k; 8-bit moments on a model axis are item 14k."""
+    """Heads, channels or experts a model axis does not divide raise
+    ``ValueError`` naming the config and k (the mixers' too); 8-bit moments
+    on a model axis plan (whole moments, every leaf's)."""
     cfg = configs.get_reduced(DENSE)
     with pytest.raises(ValueError, match="qwen2-1.5b.*4 attention heads.*model axis of 3"):
         tp.check_config(cfg, 3)
     kimi = dataclasses.replace(configs.get_reduced(KIMI), n_heads=6, n_kv_heads=3)
     with pytest.raises(ValueError, match="8 experts.*model axis of 3"):
         tp.check_config(kimi, 3)
-    with pytest.raises(NotImplementedError, match="item 14k"):
-        DataParallelPlan(cfg, M.abstract_params(cfg), AbstractMesh((1, 2), ("data", "model")),
-                         AdamW(quantize_states=True))
+    with pytest.raises(ValueError, match="xlstm-1.3b-smoke: 4 mLSTM heads.*model axis of 8"):
+        tp.check_config(configs.get_reduced("xlstm-1.3b"), 8)
+    slstm = dataclasses.replace(configs.get_reduced("xlstm-1.3b"), period=("slstm",))
+    with pytest.raises(ValueError, match="4 sLSTM heads.*model axis of 3"):
+        tp.check_config(slstm, 3)
+    jamba = dataclasses.replace(configs.get_reduced("jamba-1.5-large-398b"), n_heads=6,
+                                n_kv_heads=3, d_ff=96, moe=None, period=("mamba", "attn"))
+    with pytest.raises(ValueError, match="128 Mamba channels.*model axis of 3"):
+        tp.check_config(jamba, 3)
+    plan = DataParallelPlan(cfg, M.abstract_params(cfg), AbstractMesh((1, 2), ("data", "model")),
+                            AdamW(quantize_states=True))
+    assert plan.whole_moments and plan.refusal is None
 
 
 def test_at_rest_bytes_halve_the_cut_leaves():

@@ -86,8 +86,8 @@ Phases, each reported on its own lines:
    each bit for bit the card's in-memory fit, prefetch on equal to off; (b)
    class 0 of the Appendix C set streamed at 4,096-row chunks: the
    in-memory fit's bits, and held against the CPU's streamed fit; (c) the
-   streamed ``fast`` fit at m = 131,072, 2,097,152 and 16,777,216 (seconds,
-   chunks, peak device bytes within 1.5x across the sweep), at 16,777,216
+   streamed ``fast`` fit at m = 131,072, 2,097,152 and 8,388,608 (seconds,
+   chunks, peak device bytes within 1.5x across the sweep), at 8,388,608
    rows also with 65,536-row chunks and in memory (bit-identical), and one
    streamed fit profiled; (d) ``online.fit`` on the first 15/16 of the
    largest stream, then ``api.update`` with the rest, bit for bit the
@@ -234,7 +234,18 @@ Phases, each reported on its own lines:
    ranks with every sharded gradient left unreduced (a rank's own block of
    its own gradient), and 18b's cut on one device at learning rate 0.
    18b-c's optimizer takes no warm-up step, so every step after the first
-   reads an update.
+   reads an update.  Each period's sharded leaves are gathered inside the
+   period (again by its remat recompute) and their gradients
+   reduce-scattered as its backward ends: (d) Qwen2-1.5B at full
+   width and depth, 2 steps of 2 x 1,024 tokens, 18b's gates against one
+   device, each step's ``max_memory_allocated`` above its start against
+   ``step_peak_prediction`` (the plan's ``held_bound`` and the
+   activations), the plan's held-bytes count against its bound, and the
+   whole-gather step's figure logged beside them; (e) DeepSeek-V2-Lite at
+   full width cut to the fewest periods at which, by the plans' bytes, two
+   ranks of the whole-gather step do not fit the card and two of the
+   per-period step fit with 15% to spare (``fit_periods``), one step, the
+   same gates without one device's run.
 19. Tensor parallelism (``runtime/tensor_parallel.py``, a ``model`` axis of
    2: heads, FFN columns, experts and the vocabulary cut over it, Megatron's
    ``f`` / ``g``): gloo ranks on the one card, held against one-device runs:
@@ -257,7 +268,8 @@ Phases, each reported on its own lines:
    in the loss, its gradient twice).
 20. Tensor parallelism for the SSM mixers, the frames frontend and 8-bit
    moments, on (data 1, model 2) gloo ranks on the one card, held against
-   one-device runs: (a) ``serve`` of xLSTM-1.3B at full width and depth,
+   one-device runs: (a) ``serve`` of xLSTM-1.3B at full width cut to 3 of
+   its 6 periods (the script's time limit; 16a serves all 6),
    batch 4 x 1,024, 16 generated (2 of 4 mLSTM and sLSTM heads a rank): the
    gathered logits and the decode fed one device's tokens within
    ``LM_FACTOR`` of the fp32 copy, the weight bytes a rank holds against the
@@ -1988,9 +2000,10 @@ def main_path_class_batch(paper_data):
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNKS = (256, 1024, 4096)
-# the reference streaming benchmark's sweep (benchmarks/bench_streaming.py):
-# 128x, up to >= 1e7 rows
-SCALE_ROWS = (131_072, 2_097_152, 16_777_216)
+# the reference streaming benchmark's sweep (benchmarks/bench_streaming.py)
+# spans 128x, up to >= 1e7 rows; the script's time limit stops it at 2^23
+# rows (64x): its largest m costs ~60 s here at 2^24 (10c's three fits, 10d)
+SCALE_ROWS = (131_072, 2_097_152, 8_388_608)
 # streamed peak device bytes across the sweep: the reference benchmark's
 # assertion
 PEAK_RATIO = 1.5
@@ -4619,7 +4632,7 @@ MESH_RANKS = 2
 MESH_SERVE_PROMPT, MESH_SERVE_GEN = 1024, 32
 MESH_STEPS, MESH_MOE_STEPS = 3, 2
 MESH_LR = 3e-4
-MESH_TIMEOUT_S = 300
+MESH_TIMEOUT_S = 600
 # 18b-c: two ranks against one device, the same bf16 weights and batches.
 # Each rank's products run on half the rows, and its bf16 gradients are
 # summed over the ranks and halved where one device sums every row at once:
@@ -4643,6 +4656,88 @@ MESH_PARAM_RTOL = 0.1
 # backward thread's cuBLAS workspace (32 MiB, allocated in the first step)
 # and the next batch
 AT_REST_RTOL = 0.05
+
+# 18d-e: the per-period schedule at full width, 2 x 1,024 tokens a
+# step (one row a rank).  18d: Qwen2-1.5B at full depth, 18b's gates against
+# one device; 18e: DeepSeek-V2-Lite cut to the fewest periods at which the
+# plan's bytes say two ranks of the whole-gather step do not fit the card
+# and two of the per-period step fit with MESH_FIT_SPARE of it to spare
+MESH_FULL_BATCH, MESH_FULL_SEQ, MESH_FULL_STEPS, MESH_FIT_STEPS = 2, 1024, 2, 1
+MESH_FIT_SPARE = 0.15
+
+
+def _block_entries(plan, name):
+    """The entries of a rank's block of a leaf (its share at rest)."""
+    leaf = plan.leaves[name]
+    return (math.prod(leaf.shape) // (1 if leaf.dim is None else plan.shards)
+            // (1 if leaf.mdim is None else plan.model))
+
+
+def step_peak_parts(cfg, rows, seq, plan):
+    """What a rank's train step allocates at most above its start, in its
+    two phases.  ``backward``: the plan's bound on its full tensors
+    (``plan.held_bound()``), each period's bf16 input kept by remat, the
+    two threads' 32 MiB cuBLAS workspaces, and the larger of the CE's
+    vocabulary tensors at their peak (20 bytes a logit: the bf16 logits, an
+    fp32 copy, ``logits - max``, its exp, and in the backward the exp saved
+    beside two fp32 gradients and the bf16 one) and, later, the
+    synchronised gradients (every leaf's block) beside one sub-block's
+    recompute and backward (the plain attention backward's six fp32
+    score-sized tensors, or eight bf16 tensors of the widest MLP / expert
+    hidden layer) and a gather's staging (the moved block, the gathered
+    tensor and its contiguous copy: three of the largest compute tensor).
+    ``update`` (the gathered tensors freed): the synchronised gradients and
+    AdamW's temporaries for its largest leaf, 24 bytes an entry (the scaled
+    gradient, its fp32 copy, the update, the fp32 parameter and two
+    temporaries of the last line)."""
+    T = rows * seq
+    ce = 20 * T * cfg.vocab_size // (plan.model if plan.vocab_cut else 1)
+    inputs = cfg.n_periods * T * cfg.d_model * 2
+    heads = cfg.mla.n_heads if cfg.mla is not None else cfg.n_heads
+    attn = 6 * rows * heads * seq * seq * 4
+    hidden = 2 * max(cfg.d_ff, cfg.moe.top_k * cfg.moe.d_ff if cfg.moe else 0)
+    block = max(attn, 8 * T * hidden * 2)
+    staging = 3 * max((plan._compute_bytes(k) for k in plan._stepped()), default=0)
+    grads = sum(_block_entries(plan, k) * leaf.dtype.itemsize for k, leaf in plan.leaves.items())
+    largest = max(math.prod(leaf.shape) if plan.whole_moments else _block_entries(plan, k)
+                  for k, leaf in plan.leaves.items())
+    workspace = 2 * 32 * 2 ** 20
+    return dict(backward=plan.held_bound() + inputs + workspace
+                + max(ce, grads + block + staging),
+                update=grads + 24 * largest + workspace)
+
+
+def step_peak_prediction(cfg, rows, seq, plan):
+    """The bytes a rank's train step allocates at most above its start: the
+    larger of :func:`step_peak_parts`."""
+    return max(step_peak_parts(cfg, rows, seq, plan).values())
+
+
+def fit_periods(arch, ranks, card_bytes, spare=MESH_FIT_SPARE):
+    """The fewest periods of ``arch`` at full width at which ``ranks`` ranks
+    of the whole-gather step (at-rest bytes, every leaf's gathered weights
+    and gradients, the rest of :func:`step_peak_prediction`) do not fit
+    ``card_bytes`` and as many of the per-period step (at rest, the
+    prediction) fit with
+    ``spare`` of it to spare, by the plans' arithmetic on meta: ``(periods,
+    what each needs)``."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime.data_parallel import DataParallelPlan
+
+    rows = MESH_FULL_BATCH // ranks
+    for n in range(1, configs.get_config(arch).n_periods + 1):
+        cfg = _mesh_cut(arch, n)
+        plan = DataParallelPlan(cfg, M.abstract_params(cfg),
+                                AbstractMesh((ranks, 1), ("data", "model")), _mesh_opt(1))
+        act = step_peak_prediction(cfg, rows, MESH_FULL_SEQ, plan) - plan.held_bound()
+        whole = ranks * (plan.at_rest_bytes() + plan.whole_step_bytes() + act)
+        change = ranks * (plan.at_rest_bytes() + plan.held_bound() + act)
+        if whole > card_bytes and change <= (1 - spare) * card_bytes:
+            return n, dict(whole_gather=whole, per_period=change, card=card_bytes)
+    raise AssertionError(f"{arch}: no cut that only the per-period step fits on the card")
+
 
 MESH_RANK_PROGRAM = """
 import datetime, json, os, sys, time
@@ -4735,6 +4830,25 @@ def _gap_leaves(parts, n=4):
     return [(k, round(parts[k] / total, 4)) for k in top]
 
 
+class _PhasedOpt:
+    """``opt`` whose ``update`` first turns the last entry of ``phases``
+    (the bytes allocated at the step's start) into the step's peak above
+    it so far, and starts the peak count again for the update."""
+
+    def __init__(self, opt, phases):
+        self._opt, self._phases = opt, phases
+
+    def __getattr__(self, name):
+        return getattr(self._opt, name)
+
+    def update(self, *args, **kwargs):
+        import torch
+
+        self._phases.append(torch.cuda.max_memory_allocated() - self._phases.pop())
+        torch.cuda.reset_peak_memory_stats()
+        return self._opt.update(*args, **kwargs)
+
+
 def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False, control=None,
                 quantize=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, batch_fn=None):
     """``steps`` steps of ``cfg`` on this rank's rows through
@@ -4749,7 +4863,10 @@ def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False, control=
     as a reduce_scatter that returned only the local sum would; ``control``
     names a :class:`TPControl` patched in for the steps (phases 19-20).
     ``batch`` x ``seq`` tokens a step, or ``batch_fn(step)``'s batch (20c's
-    frames); ``quantize``: 8-bit moments (20d)."""
+    frames); ``quantize``: 8-bit moments (20d).  Each step's
+    ``max_memory_allocated`` above the bytes allocated before it
+    (``peak``), and the plan's held-bytes peak over the steps beside its
+    bound, the whole-gather figure and the predicted peak (18d-e)."""
     import torch
 
     from repro_torch.data import lm as lm_data
@@ -4762,35 +4879,49 @@ def _rank_train(cfg, mesh, steps, one, *, replay=None, unreduced=False, control=
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()  # this process's before the state exists
     model, params, st, plan = make_sharded_train_state(cfg, opt, mesh, seed=0)
-    if unreduced:
-        plan.sync_grads = lambda grads: {
-            k: (plan.comm.all_reduce(g, plan.batch_group) if plan.leaves[k].dim is None
-                else plan.cut(k, g)).div_(plan.world) for k, g in grads.items()}
-    step = make_step(model, opt, plan)
+    if unreduced:  # the plan's seam a leaf: inside each period's backward, or after it
+        plan.sync_grad = lambda k, g: (plan.comm.all_reduce(g, plan.batch_group)
+                                       if plan.leaves[k].dim is None
+                                       else plan.cut(k, g)).div_(plan.world)
+    phases = []  # each step's peak above its start before the update, then in it
+    step = make_step(model, _PhasedOpt(opt, phases), plan)
     torch.cuda.synchronize()
     rest = [torch.cuda.memory_allocated() - held]
     ops.reset_launch_counts()
     plan.comm.reset()
-    losses, step_s, coll_s = [], [], []
+    plan.reset_held()
+    losses, step_s, coll_s, peak = [], [], [], []
     fault = TPControl(control) if control else contextlib.nullcontext()
     with _replaying(replay), fault:
         for i in range(steps):
             rows = (batch_fn(i) if batch_fn else
                     {"tokens": lm_data.batch_for_mesh(pipe, i, mesh, device="cuda")})
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            phases.append(before)
             c0, t0 = plan.comm.seconds, time.perf_counter()
             loss, params, st = step(params, st, rows)
             losses.append(float(loss))
             step_s.append(time.perf_counter() - t0)
             coll_s.append(plan.comm.seconds - c0)
+            phases.append(torch.cuda.max_memory_allocated() - before)
+            peak.append(max(phases[-2:]))
             del rows
             torch.cuda.synchronize()
             rest.append(torch.cuda.memory_allocated() - held)
     launches, issued = ops.launch_counts(), dict(plan.comm.bytes)
+    rows_n = batch // plan.world
     out = dict(losses=losses, step_s=step_s, collective_s=coll_s, allocated=rest,
                at_rest=plan.at_rest_bytes(), launches=launches, issued=issued,
                want=plan.collective_bytes("train", batch, seq),
                checksum=_checksum(params[k] for k in sorted(params) if plan._whole(k)),
-               sharded=len(plan.sharded()), leaves=len(plan.leaves))
+               sharded=len(plan.sharded()), leaves=len(plan.leaves), peak=peak,
+               held_peak=plan.held_peak, held_bound=plan.held_bound(),
+               whole_step=plan.whole_step_bytes(), per_period=len(plan.per_period),
+               phases=[phases[i:i + 2] for i in range(0, len(phases), 2)],
+               predicted=step_peak_prediction(cfg, rows_n, seq, plan),
+               predicted_parts=step_peak_parts(cfg, rows_n, seq, plan))
     if one:
         parts = _gap_parts(plan, params, one)
         out.update(param_gap=_param_gap(parts, one), leaf_gap=_leaf_gap(parts, one),
@@ -4847,6 +4978,16 @@ def mesh_rank(rank, world, work):
         out[key + "_control"] = _rank_train(cfg, mesh, steps, one, replay=replay,
                                             unreduced=True)
         del one
+    # 18d: Qwen2-1.5B at full width and depth; 18e: DeepSeek-V2-Lite at full
+    # width cut to the periods main_path_mesh chose, with nothing to compare
+    # on one device
+    kw = dict(batch=MESH_FULL_BATCH, seq=MESH_FULL_SEQ)
+    one = torch.load(os.path.join(work, "one_full.pt"), mmap=True)
+    out["full"] = _rank_train(configs.get_config(TRAIN_ARCH), mesh, MESH_FULL_STEPS, one, **kw)
+    del one
+    with open(os.path.join(work, "fit.json")) as f:
+        periods = json.load(f)["periods"]
+    out["fit"] = _rank_train(_mesh_cut(MLA_ARCH, periods), mesh, MESH_FIT_STEPS, None, **kw)
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
 
 
@@ -4925,8 +5066,11 @@ def mesh_one_device(dev, work):
         moe_run, moe_s = _one_device_train(_mesh_cut(MLA_ARCH, 2), MESH_LR, MESH_MOE_STEPS,
                                            dev, work, "moe")
     torch.save(probe.ids, os.path.join(work, "moe_ids.pt"))
+    full, full_s = _one_device_train(cfg, MESH_LR, MESH_FULL_STEPS, dev, work, "full",
+                                     batch=MESH_FULL_BATCH, seq=MESH_FULL_SEQ)
     return dict(serve=one, train=dense, train_step_s=dense_s, train_lr0=dense_lr0,
-                moe=moe_run, moe_step_s=moe_s, moe_route_calls=len(probe.ids))
+                moe=moe_run, moe_step_s=moe_s, moe_route_calls=len(probe.ids),
+                full=full, full_step_s=full_s)
 
 
 def run_ranks(tag, program, world, work, timeout=MESH_TIMEOUT_S):
@@ -4965,6 +5109,17 @@ def main_path_mesh(dev, work):
         f"(leaves and fp32 moments cut by param_specs/state_specs); (c) {MLA_ARCH} cut to 2 "
         f"periods, {MESH_MOE_STEPS} steps, routes replayed from the one-device run, the aux "
         "loss and the global dispatch plan over both ranks")
+    card = torch.cuda.get_device_properties(0).total_memory
+    periods, fit_need = fit_periods(MLA_ARCH, MESH_RANKS, card)
+    with open(os.path.join(work, "fit.json"), "w") as f:
+        json.dump(dict(periods=periods), f)
+    log(f"  (d) {TRAIN_ARCH} at full width and depth, {MESH_FULL_STEPS} steps of "
+        f"{MESH_FULL_BATCH} x {MESH_FULL_SEQ}; (e) {MLA_ARCH} at full width cut to {periods} "
+        f"periods, {MESH_FIT_STEPS} step(s): by the plans' bytes {MESH_RANKS} ranks of the "
+        f"whole-gather step need {fit_need['whole_gather']} B and of the per-period step "
+        f"{fit_need['per_period']} B of the card's {card}; each period's leaves gathered "
+        "inside it (again in its remat recompute), its gradients reduce-scattered as its "
+        "backward ends")
     torch.cuda.empty_cache()
     one = mesh_one_device(dev, work)
     np.savez(os.path.join(work, "one_losses.npz"), train=one["train"], moe=one["moe"])
@@ -5058,6 +5213,80 @@ def main_path_mesh(dev, work):
         want = {k: v * MESH_STEPS for k, v in t["want"].items() if k != "total"}
         if t["issued"] != want:
             raise AssertionError(f"18b: collectives {t['issued']}, the plan's {want}")
+    # 18d-e: the per-period schedule at full width: the step's peak
+    # allocation a rank above its at-rest bytes against the prediction and
+    # the plan's held-bytes count against its bound; 18d against one device
+    per_period = {}
+    for key, tag in (("full", "18d"), ("fit", "18e")):
+        runs = [r[key] for r in ranks]
+        t = runs[0]
+        cfg_k = configs.get_config(TRAIN_ARCH) if key == "full" else _mesh_cut(MLA_ARCH, periods)
+        n_attn = cfg_k.n_periods * (cfg_k.period.count("attn") + cfg_k.period.count("mla"))
+        steps = MESH_FULL_STEPS if key == "full" else MESH_FIT_STEPS
+        whole_need = t["whole_step"] + t["predicted"] - t["held_bound"]
+        log(f"  {tag}: {cfg_k.name} at {cfg_k.n_periods} periods, {t['per_period']} leaves "
+            f"gathered a period at a time; losses {[x['losses'] for x in runs]}"
+            + (f", one device {one['full']}" if key == "full" else "")
+            + f"; step peak above the bytes before it, a rank {[x['peak'] for x in runs]} B, "
+            f"(before the update, in it) {[x['phases'] for x in runs]} (predicted "
+            f"{t['predicted']}, by phase {t['predicted_parts']}, the plan's bound on full "
+            f"tensors {t['held_bound']} in the first; the whole-gather step's full tensors "
+            f"{t['whole_step']}, with the rest {whole_need}); the plan's held "
+            f"bytes at most {[x['held_peak'] for x in runs]} (bound {t['held_bound']}); "
+            f"allocated above the level before the state {[x['allocated'] for x in runs]} "
+            f"(the plan's at rest {t['at_rest']}); step seconds {[x['step_s'] for x in runs]}, "
+            f"collectives {[x['collective_s'] for x in runs]}; collectives issued "
+            f"{t['issued']}, the plan's a step {t['want']}; flash launches a rank "
+            f"{[x['launches']['flash_attention'] for x in runs]}")
+        for x in runs:
+            if x["losses"] != t["losses"] or x["checksum"] != t["checksum"]:
+                raise AssertionError(f"{tag}: the ranks' losses or whole leaves differ")
+            if not np.isfinite(x["losses"]).all():
+                raise AssertionError(f"{tag}: a loss is not finite: {x['losses']}")
+            if x["launches"]["flash_attention"] != 2 * n_attn * steps:
+                raise AssertionError(f"{tag}: {x['launches']['flash_attention']} flash "
+                                     f"launches, expected {2 * n_attn * steps}")
+            if not 0 < x["held_peak"] <= x["held_bound"] < x["whole_step"]:
+                raise AssertionError(f"{tag}: the plan held {x['held_peak']} B at once, its "
+                                     f"bound {x['held_bound']}, the whole step {x['whole_step']}")
+            if not max(x["peak"]) <= x["predicted"]:
+                raise AssertionError(f"{tag}: a step allocated {max(x['peak'])} B above its "
+                                     f"start, predicted at most {x['predicted']}")
+            if not max(x["peak"]) < x["whole_step"]:  # the whole-gather step's full tensors
+                raise AssertionError(f"{tag}: a step allocated {max(x['peak'])} B above its "
+                                     f"start, the whole-gather step's full tensors alone "
+                                     f"{x['whole_step']}")
+            if any(abs(a - x["at_rest"]) > AT_REST_RTOL * x["at_rest"] for a in x["allocated"]):
+                raise AssertionError(f"{tag}: allocated {x['allocated']} between steps, the "
+                                     f"plan holds {x['at_rest']}")
+            want = {k: v * steps for k, v in x["want"].items() if k != "total"}
+            if x["issued"] != want:
+                raise AssertionError(f"{tag}: collectives {x['issued']}, the plan's {want}")
+        if MESH_RANKS * (max(t["allocated"]) + max(t["peak"])) > card:
+            raise AssertionError(f"{tag}: the ranks' bytes exceed the card")
+        found_k = dict(losses=t["losses"], peak=[x["peak"] for x in runs],
+                       phases=[x["phases"] for x in runs], predicted=t["predicted"],
+                       predicted_parts=t["predicted_parts"], held_peak=t["held_peak"],
+                       held_bound=t["held_bound"], whole_step=t["whole_step"],
+                       whole_need=whole_need, at_rest=t["at_rest"], allocated=t["allocated"],
+                       step_s=[x["step_s"] for x in runs],
+                       collective_s=[x["collective_s"] for x in runs], issued=t["issued"],
+                       periods=cfg_k.n_periods)
+        if key == "full":
+            gap = loss_gap(t["losses"], one["full"])
+            log(f"  18d against one device: largest relative loss gap {gap:.3g} (limit "
+                f"{MESH_LOSS_RTOL}); parameters |P - P1| / |P1 - P0| {t['param_gap']:.6g} "
+                f"(limit {MESH_PARAM_RTOL}), the leaves furthest {t['gap_leaves']}; one "
+                f"device's step seconds {one['full_step_s']}")
+            if gap > MESH_LOSS_RTOL:
+                raise AssertionError("18d: the two ranks' losses are off the one-device run's")
+            if not t["param_gap"] <= MESH_PARAM_RTOL:
+                raise AssertionError("18d: the two ranks' parameters are off the one-device "
+                                     "run's")
+            found_k.update(one=one["full"], gap=gap, param_gap=t["param_gap"])
+        else:
+            found_k.update(fit_need=fit_need, card=card)
+        per_period[key] = found_k
     lr0_gap = loss_gap(one["train_lr0"], one["train"])
     log(f"  18b's control at lr 0 on one device: losses {one['train_lr0']} (gap {lr0_gap:.3g}, "
         f"limit {MESH_LOSS_RTOL})")
@@ -5068,12 +5297,13 @@ def main_path_mesh(dev, work):
                serve_tokens_per_s=[r["serve"]["tokens_per_s"] for r in ranks],
                train=found["train"], moe=found["moe"], train_lr0_gap=lr0_gap,
                allocated=[t["allocated"] for t in tr], at_rest=tr[0]["at_rest"],
-               collective_bytes=tr[0]["want"], ranks_s=ranks_s,
-               seconds=time.perf_counter() - t0)
+               collective_bytes=tr[0]["want"], ranks_s=ranks_s, full=per_period["full"],
+               fit=per_period["fit"], seconds=time.perf_counter() - t0)
     log(f"  phase 18: {out['seconds']:.1f} s ({ranks_s:.1f} s of it the ranks, start-up "
         "included)")
     launches = {"serve": ranks[0]["serve"]["launches"], "train": ranks[0]["train"]["launches"],
-                "moe": ranks[0]["moe"]["launches"]}
+                "moe": ranks[0]["moe"]["launches"], "full": ranks[0]["full"]["launches"],
+                "fit": ranks[0]["fit"]["launches"]}
     return out, launches
 
 
@@ -5145,8 +5375,8 @@ class TPControl:
 
         self._mods = (tp, moe, DataParallelPlan)
         self._saved = (tp.copy_to_model, tp.reduce_from_model, moe.aux_loss, tp.sum_over_model,
-                       DataParallelPlan.sync_grads)
-        aux, f, sync = moe.aux_loss, tp.copy_to_model, DataParallelPlan.sync_grads
+                       DataParallelPlan.sync_grad)
+        aux, f, sync = moe.aux_loss, tp.copy_to_model, DataParallelPlan.sync_grad
 
         def two_way(t):
             ms = tp.active()
@@ -5163,22 +5393,23 @@ class TPControl:
         elif self.name == "mamba_g":  # a Jamba cut's only two-way sums are Mamba's
             tp.sum_over_model = tp.reduce_from_model
         else:
-            def unsummed(plan, grads):
-                leaves = plan.leaves
-                plan.leaves = {k: v._replace(partial=False) if k.endswith(".r") else v
-                               for k, v in leaves.items()}
+            def unsummed(plan, name, g):  # the plan's seam a leaf, in a period or after it
+                if not name.endswith(".r"):
+                    return sync(plan, name, g)
+                leaf = plan.leaves[name]
+                plan.leaves = {**plan.leaves, name: leaf._replace(partial=False)}
                 try:
-                    return sync(plan, grads)
+                    return sync(plan, name, g)
                 finally:
-                    plan.leaves = leaves
+                    plan.leaves = {**plan.leaves, name: leaf}
 
-            DataParallelPlan.sync_grads = unsummed
+            DataParallelPlan.sync_grad = unsummed
         return self
 
     def __exit__(self, *exc):
         tp, moe, plan = self._mods
         (tp.copy_to_model, tp.reduce_from_model, moe.aux_loss, tp.sum_over_model,
-         plan.sync_grads) = self._saved
+         plan.sync_grad) = self._saved
 
 
 def tp_rank(rank, world, work):
@@ -5508,6 +5739,9 @@ def main_path_tp(dev, work):
 # ---------------------------------------------------------------------------
 
 TP20_GEN = 16  # 20a-b: tokens generated after the 4 x 1,024 prompts
+# 20a serves xLSTM-1.3B at full width cut to 3 of its 6 periods (phase 16a
+# serves all 6 on one device): the script's time limit
+TP20_XLSTM_SERVE_PERIODS = 3
 TP20_SSM_STEPS, TP20_JAMBA_ROWS, TP20_AUDIO_STEPS, TP20_INT8_STEPS = 2, 2, 3, 3
 # 20a trains 4 x 256 tokens: the sLSTM's time loop, a Python step a token
 # (~28 launches, forward, remat recompute and backward), is most of an
@@ -5546,7 +5780,7 @@ finally:
 
 
 def _tp20_configs():
-    """20a-d's configs: xLSTM-1.3B whole and cut to 1 period, the Jamba cut,
+    """20a-d's configs: xLSTM-1.3B cut to 3 and to 1 period, the Jamba cut,
     HuBERT at 4 periods, Qwen2-1.5B at 2 periods."""
     from repro_torch import configs
 
@@ -5554,7 +5788,8 @@ def _tp20_configs():
     jamba = configs.get_config(JAMBA_ARCH)
     jamba = dataclasses.replace(jamba, n_periods=1,
                                 period=tuple(jamba.period[i] for i in TP20_JAMBA_PERIOD))
-    return dict(xlstm=xlstm, xlstm_cut=dataclasses.replace(xlstm, n_periods=1), jamba=jamba,
+    return dict(xlstm=dataclasses.replace(xlstm, n_periods=TP20_XLSTM_SERVE_PERIODS),
+                xlstm_cut=dataclasses.replace(xlstm, n_periods=1), jamba=jamba,
                 hubert=_mesh_cut(AUDIO_ARCH, AUDIO_TRAIN_PERIODS),
                 int8=_mesh_cut(TRAIN_ARCH, MESH_TRAIN_PERIODS))
 
@@ -5804,7 +6039,8 @@ def main_path_ssm_tp(dev, work):
     cfgs = _tp20_configs()
     x, j = cfgs["xlstm"], cfgs["jamba"]
     log(f"phase 20: tensor parallelism over a (data 1, model 2) mesh of gloo ranks on the one "
-        f"card: (a) serve {x.name} at full width and depth ({_param_count(x):,} parameters, "
+        f"card: (a) serve {x.name} at full width cut to {x.n_periods} periods "
+        f"({_param_count(x):,} parameters, "
         f"{x.mlstm.n_heads // 2} of {x.mlstm.n_heads} mLSTM and sLSTM heads a rank), batch "
         f"{TRAIN_BATCH} x {TP_PROMPT}, {TP20_GEN} generated, and train its 1-period cut "
         f"({_param_count(cfgs['xlstm_cut']):,} parameters) {TP20_SSM_STEPS} steps of "
@@ -6041,6 +6277,11 @@ def main() -> int:
              mesh_serve_launches=mesh_launches["serve"]["flash_attention"],
              mesh_train_launches=mesh_launches["train"]["flash_attention"],
              mesh_moe_train_launches=mesh_launches["moe"]["flash_attention"],
+             # 18d-e: the per-period schedule at full width, each rank:
+             # Qwen2-1.5B's 28 layers' two steps; DeepSeek-V2-Lite's cut's step
+             # (d = 192 / dv = 128, as mla_train)
+             mesh_full_train_launches=mesh_launches["full"]["flash_attention"],
+             mesh_fit_train_launches=mesh_launches["fit"]["flash_attention"],
              # phase 19, each rank of a model axis of 2 at its local heads
              # (rank 0's count; every rank gated): Qwen3-8B's prefill at
              # (64, 1024, 128) group 4, the dense cut's steps on (1, 2) and

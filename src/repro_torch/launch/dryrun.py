@@ -45,8 +45,10 @@ What each number is:
   the step under the port's plan
   (:class:`repro_torch.runtime.data_parallel.DataParallelPlan`, the object
   the training and serving drivers run), by kind.  Over the ``pod`` and
-  ``data`` axes: a train step's parameter all_gathers, gradient
-  reduce_scatters and all_reduces (each leaf at the bytes of its block over
+  ``data`` axes: a train step's parameter all_gathers (a period's leaf
+  gathered inside the period and again by its remat recompute, as the
+  reference's scanned step gathers it), gradient reduce_scatters and
+  all_reduces (each leaf at the bytes of its block over
   the ``model`` axis, 16 on the production mesh) and its two scalars, and
   every cell's MoE all_reduces (the aux loss) and all_gathers (the global
   plan's counts).  Over the ``model`` axis, the Megatron plan of

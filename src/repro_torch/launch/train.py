@@ -4,9 +4,9 @@ data pipeline + AdamW + fault tolerance, on one device or over a mesh.
 Counterpart of ``src/repro/launch/train.py``::
 
     config -> init params (random, from the seed; sharded) -> deterministic
-    token pipeline -> train step (gather, loss, gradients, their sync, AdamW
-    on the shards) -> TrainLoop (async checkpoints, resume, straggler
-    detection)
+    token pipeline -> train step (gathers, loss, gradients, their sync --
+    a period at a time on a data axis -- AdamW on the shards) -> TrainLoop
+    (async checkpoints, resume, straggler detection)
 
 The reference runs one program on a device mesh under GSPMD
 (``make_sharded_train_state``, ``make_step``, ``batch_for_mesh``).  The port
@@ -82,23 +82,23 @@ def make_sharded_train_state(cfg, opt: AdamW, mesh, seed: int = 0, *, device=Non
 
 def make_step(model, opt: AdamW, plan: DataParallelPlan):
     """``step(params, opt_state, batch) -> (loss, params, opt_state)`` on this
-    rank's rows: the sharded leaves gathered, ``models.model.loss_and_grads``
-    (the one-device step's body), the gradients averaged over the ranks,
-    the clip scale from the global norm, AdamW on this rank's blocks (8-bit
-    moments on a model axis: on the whole leaves' gathered gradients, the
-    update cut to the blocks), the full tensors freed.  ``loss`` is the
-    ranks' mean, detached."""
+    rank's rows: ``plan.loss_and_grads`` (``models.model.loss_and_grads``,
+    the one-device step's body, on the gathered leaves: on a data axis
+    larger than 1 each period's gathered inside it, and its gradients
+    averaged over the ranks as its backward ends; the others gathered for
+    the step and averaged after it), the full tensors freed, the clip scale
+    from the global norm, AdamW on this rank's blocks (8-bit moments on a
+    model axis: on the whole leaves' gathered gradients, the update cut to
+    the blocks).  ``loss`` is the ranks' mean, detached."""
 
     def train_step(params, opt_state, batch):
         with plan.scope():
-            plan.gather_params(model, params)
-            loss, grads = M.loss_and_grads(model, batch)
-            grads = plan.sync_grads(grads)
+            loss, grads = plan.loss_and_grads(model, params, batch)
+            plan.release_params(model)  # the update needs only the blocks
             sq = plan.sq_norm(grads) if opt.clip_norm is not None else None
             params, opt_state = opt.update(params, plan.moment_grads(grads), opt_state,
                                            sq_norm=sq,
                                            block=plan.cut if plan.whole_moments else None)
-            plan.release_params(model)
             return plan.mean_loss(loss.detach()), params, opt_state
 
     return train_step

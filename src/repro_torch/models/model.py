@@ -202,6 +202,10 @@ class Transformer(nn.Module):
         self.final_norm = layers.param(layers.init_rms_scale(cfg.d_model, dtype, device))
         if not cfg.tie_embeddings:
             self.head = layers.dense_param(gen, (cfg.d_model, cfg.vocab_size), dtype, device)
+        # (period i, its input) -> ({block index: {name: tensor}}, its input):
+        # what period i's blocks compute with in place of those parameters (a
+        # sharded train step's per-period gathers, runtime/data_parallel.py)
+        self.period_params: Optional[Callable] = None
 
     @classmethod
     def from_params(cls, cfg: ModelConfig, params: Dict[str, Any], *, device):
@@ -249,11 +253,20 @@ class Transformer(nn.Module):
     def _period(self, i: int, x: torch.Tensor, aux: torch.Tensor, positions: torch.Tensor,
                 use_kernel: Optional[bool]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Period ``i`` on ``x``, the MoE aux losses added to ``aux`` in
-        block order (the reference's scan carries ``(x, aux)``)."""
+        block order (the reference's scan carries ``(x, aux)``).  With
+        ``period_params`` set, its tensors are taken first (in a remat
+        recompute again) and the blocks run on them."""
         P = len(self.cfg.period)
-        for blk in self.blocks[i * P:(i + 1) * P]:
+        swap = {}
+        if self.period_params is not None:
+            swap, x = self.period_params(i, x)
+        for j in range(i * P, (i + 1) * P):
             x = hints.constrain_batch(x)  # re-pin the batch axes every block
-            x, a = blk(x, positions, use_kernel)
+            if j in swap:
+                x, a = torch.func.functional_call(self.blocks[j], swap[j],
+                                                  (x, positions, use_kernel))
+            else:
+                x, a = self.blocks[j](x, positions, use_kernel)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -264,7 +277,10 @@ class Transformer(nn.Module):
         and the summed MoE aux loss (fp32; 0 without MoE blocks).
         ``inputs``: token ids, frames, or a batch dict (:meth:`_embed`).
         ``cfg`` (default ``self.cfg``) supplies ``remat`` and
-        ``remat_policy``; remat applies only while autograd records."""
+        ``remat_policy``; remat applies only while autograd records.  A
+        period's ``period_params`` are taken inside the checkpointed region,
+        so its recompute takes them again; with remat off autograd keeps
+        them for the backward (every period's)."""
         cfg = cfg or self.cfg
         if tp.active() is not None:
             tp.check_config(self.cfg, tp.active().ranks)
@@ -471,11 +487,13 @@ def _chunked_ce(model: Transformer, inputs, labels, cfg: ModelConfig, use_kernel
 
 
 def loss_and_grads(model: Transformer, batch: Dict[str, torch.Tensor], *,
-                   use_kernel: Optional[bool] = None):
+                   use_kernel: Optional[bool] = None,
+                   wrt: Optional[Dict[str, torch.Tensor]] = None):
     """``(loss, grads)``: the loss of ``batch`` and every parameter's
     gradient by name (``torch.autograd.grad``; nothing is left in
-    ``.grad``).  The body of every train step, on one device or a rank."""
-    params = dict(model.named_parameters())
+    ``.grad``), or the gradient of each tensor of ``wrt`` (name -> tensor).
+    The body of every train step, on one device or a rank."""
+    params = dict(model.named_parameters()) if wrt is None else wrt
     loss = loss_fn(model, batch, use_kernel=use_kernel)
     return loss, dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 

@@ -28,27 +28,54 @@ them: every rank holds the one-device layout's int8 blocks of every leaf,
 and updates them from the whole gradient.  A step
 (:func:`repro_torch.launch.train.make_step`) runs
 
-* :meth:`gather_params`: one ``all_gather_into_tensor`` a sharded leaf over
-  the data group, into the model's tensor of its model block (a shard
-  dimension other than 0 goes through a contiguous staging tensor), and one
-  over the model group for a gathered leaf;
-* the loss and ``torch.autograd.grad`` on the rank's rows, the blocks
-  issuing the model axis's sums (:mod:`.tensor_parallel`);
-* :meth:`sync_grads`: over the model group, ``reduce_scatter_tensor(SUM)``
-  of a gathered KV leaf (``embed_proj``'s gradient is whole: the rank keeps
-  its block) and ``all_reduce(SUM)`` of a leaf each model rank holds in part
-  (``tensor_parallel.partial_leaf``); then ``reduce_scatter_tensor(SUM)``
-  over data (then ``all_reduce(SUM)`` over pod) for a sharded leaf,
-  ``all_reduce(SUM)`` over the batch group for a replicated one, each
-  divided by the batch world (SUM and a division: ``ReduceOp.AVG`` is not
-  every backend's);
+* :meth:`loss_and_grads`, the loss and the rank's synchronised gradients:
+  - :meth:`gather_params` of the leaves outside the periods (the
+    embedding, an untied head, ``embed_proj``): one
+    ``all_gather_into_tensor`` a leaf cut over data, into the model's
+    tensor of its model block (a shard dimension other than 0 goes through
+    a contiguous staging tensor), and one over the model group for a
+    gathered leaf;
+  - on a data axis larger than 1, each period's leaves the step gathers
+    (``per_period``) gathered inside that period, just before its blocks
+    run, by the same :meth:`compute`, and freed when its forward returns;
+    a remat recompute gathers them again (the non-reentrant checkpoint
+    saves only the rank's blocks, :class:`_PeriodLeaf`); with remat off
+    autograd keeps every period's gathered weights for the backward, as
+    the reference's scan without ``jax.checkpoint`` keeps its residuals.
+    Each of their gradients is synchronised by :meth:`sync_grad` as that
+    period's backward ends, and the full gradient freed, as the
+    reference's scanned GSPMD step reduce-scatters a period's gradient as
+    the reverse scan leaves it.  On a data axis of 1 (a model axis alone)
+    every gathered leaf is gathered for the step;
+  - the loss and ``torch.autograd.grad`` on the rank's rows, the blocks
+    issuing the model axis's sums (:mod:`.tensor_parallel`);
+  - :meth:`sync_grads` of the other leaves, :meth:`sync_grad` a leaf: over
+    the model group, ``reduce_scatter_tensor(SUM)`` of a gathered KV leaf
+    (``embed_proj``'s gradient is whole: the rank keeps its block) and
+    ``all_reduce(SUM)`` of a leaf each model rank holds in part
+    (``tensor_parallel.partial_leaf``); then ``reduce_scatter_tensor(SUM)``
+    over data (then ``all_reduce(SUM)`` over pod) for a sharded leaf,
+    ``all_reduce(SUM)`` over the batch group for a replicated one, each
+    divided by the batch world (SUM and a division: ``ReduceOp.AVG`` is
+    not every backend's);
+* :meth:`release_params`: the gathered tensors freed (the update needs
+  only the blocks);
 * :meth:`sq_norm`: the global sum of squared gradients for ``clip_norm``,
   every block once, in one ``all_reduce`` over the mesh;
 * with 8-bit moments on a model axis, :meth:`moment_grads`: each model
   block's gradient gathered over ``model`` into the one-device layout;
 * ``AdamW.update`` (the moments of the whole leaf, the update cut to the
-  rank's block by :meth:`cut`), then :meth:`release_params` frees the
-  gathered tensors again.
+  rank's block by :meth:`cut`).
+
+The per-period schedule issues the whole-step schedule's collectives on
+the same tensors, at other times, so the step's bits are the same; it
+holds at once the full tensors of the leaves outside the periods and of
+one period (its weights and their gradients), where the whole-step
+schedule holds the whole model's twice.  :attr:`DataParallelPlan.held`
+counts the bytes of the full tensors a step holds (gathered weights and
+full gradients of the leaves it gathers) and ``held_peak`` their most at
+once (:meth:`reset_held`); :meth:`held_bound` is what the schedule may
+hold at most.
 
 A world of one issues no collective and keeps the one-device step's bits:
 every leaf is replicated, the parameters are the model's own tensors, and
@@ -70,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+import weakref
 from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
@@ -102,6 +130,40 @@ class _TwoWaySum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return None, None, _TwoWaySum.apply(ctx.comm, ctx.group, grad)
+
+
+class _PeriodLeaf(torch.autograd.Function):
+    """A per-period leaf's compute tensor from this rank's block: forward
+    :meth:`DataParallelPlan.compute` (its gathers), backward the full
+    gradient synchronised into the block's (:meth:`DataParallelPlan.
+    sync_grad`).  It saves nothing, so a checkpointed period keeps only the
+    block and its recompute gathers again."""
+
+    @staticmethod
+    def forward(ctx, plan, name, part):
+        ctx.plan, ctx.name = plan, name
+        return plan._held(plan.compute(name, part))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, ctx.plan._period_grad(ctx.name, grad)
+
+
+class _PeriodInput(torch.autograd.Function):
+    """The identity on a period's input.  Its backward runs as the period's
+    backward ends, which is where the period before it starts its own: that
+    period's full gradients are counted held from then on."""
+
+    @staticmethod
+    def forward(ctx, plan, period, x):
+        ctx.plan, ctx.period = plan, period
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.period > 0:
+            ctx.plan._pend(k for k, _, _ in ctx.plan.periods[ctx.period - 1])
+        return None, None, grad
 
 
 class Collectives:
@@ -267,6 +329,20 @@ class DataParallelPlan:
             dims = {k: _data_dim(s) if mu_specs[k] == s else None for k, s in pspecs.items()}
         self.leaves = {k: _leaf(cfg, k, p, pspecs[k], dims[k], self.model)
                        for k, p in params.items()}
+        # each period's gathered leaves, (name, block index, name in the block),
+        # gathered inside the period where a period's leaf is cut over data
+        stepped = self._stepped()
+        self.periods = [[] for _ in range(cfg.n_periods)]
+        for k in stepped:
+            if k.startswith("blocks."):
+                _, j, local = k.split(".", 2)
+                self.periods[int(j) // len(cfg.period)].append((k, int(j), local))
+        cut = any(self.leaves[k].dim is not None for part in self.periods for k, _, _ in part)
+        self.per_period = {k for part in self.periods for k, _, _ in part} if cut else set()
+        self.held = self.held_peak = 0
+        self._parts: Dict[str, torch.Tensor] = {}
+        self._pending: Dict[str, int] = {}  # full gradients counted before they are seen
+        self._settled = set()
         self.comm = Collectives()
         self.index = self.shard_index = self.pod_index = self.model_index = 0
         self.batch_group = self.shard_group = self.pod_group = None
@@ -418,12 +494,13 @@ class DataParallelPlan:
         return out
 
     @torch.no_grad()
-    def gather_params(self, model: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
-        """Give the model its compute tensors of the sharded and gathered
-        leaves."""
+    def gather_params(self, model: torch.nn.Module, params: Dict[str, torch.Tensor],
+                      names=None) -> None:
+        """Give the model its compute tensors of ``names`` (default: every
+        sharded and gathered leaf)."""
         live = dict(model.named_parameters())
-        for k in self._stepped():
-            live[k].data = self.compute(k, params[k])
+        for k in self._stepped() if names is None else names:
+            live[k].data = self._held(self.compute(k, params[k]))
 
     def release_params(self, model: torch.nn.Module) -> None:
         """Free the model's compute tensors of the sharded and gathered
@@ -431,6 +508,112 @@ class DataParallelPlan:
         live = dict(model.named_parameters())
         for k in self._stepped():
             live[k].data = live[k].data.new_empty(0)
+
+    # -- held bytes -------------------------------------------------------------
+
+    def _count(self, nbytes: int) -> None:
+        self.held += nbytes
+        self.held_peak = max(self.held_peak, self.held)
+
+    def _held(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a full tensor of a step, counted in :attr:`held` until its
+        storage is freed."""
+        storage = t.untyped_storage()
+        if t.untyped_storage() is not storage:
+            raise RuntimeError("counting held bytes needs a torch whose storages keep "
+                               "their Python object")
+        nbytes = t.numel() * t.element_size()
+        self._count(nbytes)
+        weakref.finalize(storage, self._count, -nbytes)
+        return t
+
+    def reset_held(self) -> None:
+        """Start ``held_peak`` again from what is held now."""
+        self.held_peak = self.held
+
+    def _compute_bytes(self, name: str) -> int:
+        """The bytes of a leaf's compute tensor: its model block, or the
+        whole leaf where it is gathered."""
+        leaf = self.leaves[name]
+        nbytes = math.prod(leaf.shape) * leaf.dtype.itemsize
+        return nbytes if leaf.mdim is None or leaf.gathered else nbytes // self.model
+
+    def whole_step_bytes(self) -> int:
+        """The full bytes a step that gathers every leaf for the whole step
+        holds at once: every gathered leaf's weights and gradients."""
+        return 2 * sum(self._compute_bytes(k) for k in self._stepped())
+
+    def held_bound(self) -> int:
+        """The most full bytes this plan's step holds at once: the gathered
+        leaves outside the periods, weights and gradients (those are whole
+        till the step's end on every schedule), and with remat twice the
+        largest period's (its weights and gradients in its backward); with
+        remat off every period's weights and the largest period's
+        gradients.  Without per-period leaves, :meth:`whole_step_bytes`."""
+        if not self.per_period:
+            return self.whole_step_bytes()
+        sizes = [sum(self._compute_bytes(k) for k, _, _ in part) for part in self.periods]
+        rest = sum(self._compute_bytes(k) for k in self._stepped() if k not in self.per_period)
+        return 2 * rest + (2 * max(sizes) if self.cfg.remat else sum(sizes) + max(sizes))
+
+    # -- the step's loss and gradients ----------------------------------------
+
+    def _pend(self, names) -> None:
+        """Count the full gradients of ``names`` held from now (once a step)."""
+        for k in names:
+            if k not in self._pending and k not in self._settled:
+                self._pending[k] = self._compute_bytes(k)
+                self._count(self._pending[k])
+
+    def _settle(self, name: str) -> None:
+        """A pending gradient is seen: its storage counts from now on."""
+        self._count(-self._pending.pop(name, 0))
+        self._settled.add(name)
+
+    def _period_params(self, i: int, x: torch.Tensor):
+        """Period ``i``'s compute tensors by block index and name in the
+        block, and its input (the model's ``period_params``).  The loss
+        follows the last period, so its gradients and the other gathered
+        leaves' are counted held from its forward on; a period's backward,
+        as it ends, counts the period before's (:class:`_PeriodInput`)."""
+        x = _PeriodInput.apply(self, i, x)
+        if i == len(self.periods) - 1:
+            self._pend([k for k, _, _ in self.periods[i]]
+                       + [k for k in self._stepped() if k not in self.per_period])
+        out: Dict[int, Dict[str, torch.Tensor]] = {}
+        for k, j, local in self.periods[i]:
+            out.setdefault(j, {})[local] = _PeriodLeaf.apply(self, k, self._parts[k])
+        return out, x
+
+    def _period_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """A per-period leaf's full gradient synchronised."""
+        self._settle(name)
+        return self.sync_grad(name, self._held(g))
+
+    def loss_and_grads(self, model: torch.nn.Module, params: Dict[str, torch.Tensor],
+                       batch: Dict[str, torch.Tensor], *, use_kernel: Optional[bool] = None):
+        """``(loss, grads)`` of this rank's rows: the loss (this rank's) and
+        every leaf's gradient synchronised, the rank's block of it (by name,
+        in the model's order).  The leaves outside ``per_period`` are
+        gathered into the model for the step (:meth:`release_params` frees
+        them); each period's are gathered inside the period and synchronised
+        as its backward ends.  Call it under :meth:`scope`."""
+        self.gather_params(model, params, [k for k in self._stepped() if k not in self.per_period])
+        if not self.per_period:
+            loss, grads = M.loss_and_grads(model, batch, use_kernel=use_kernel)
+            return loss, self.sync_grads(grads)
+        self._parts = {k: params[k].detach().requires_grad_() for k in self.per_period}
+        self._settled = set()
+        wrt = {k: self._parts.get(k, p) for k, p in model.named_parameters()}
+        model.period_params = self._period_params
+        try:
+            loss, grads = M.loss_and_grads(model, batch, use_kernel=use_kernel, wrt=wrt)
+            rest = self.sync_grads({k: g for k, g in grads.items() if k not in self.per_period})
+        finally:
+            model.period_params, self._parts = None, {}
+            for k in list(self._pending):
+                self._settle(k)
+        return loss, {k: grads[k] if k in self.per_period else rest[k] for k in grads}
 
     # -- gradients and the loss -----------------------------------------------
 
@@ -440,31 +623,38 @@ class DataParallelPlan:
         self.comm.reduce_scatter(part, src, group)
         return part.movedim(0, dim)
 
+    def sync_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """One leaf's gradient on this rank averaged over the batch ranks
+        and summed over the model axis where a model rank holds it in part:
+        the block of a leaf cut over either axis, a replicated leaf whole."""
+        leaf = self.leaves[name]
+        if leaf.gathered and leaf.partial:
+            g = self._scatter_dim(g, leaf.mdim, self.model, self.model_group)
+        elif leaf.gathered:  # whole on every rank: this rank's block
+            g = _cut(g, leaf.mdim, self.model, self.model_index).contiguous()
+        elif leaf.partial:
+            self.comm.all_reduce(g, self.model_group)
+        if self.world > 1:
+            if leaf.dim is None:
+                self.comm.all_reduce(g, self.batch_group)
+            else:
+                g = self._scatter_dim(g, leaf.dim, self.shards, self.shard_group)
+                if self.pod_group is not None:
+                    self.comm.all_reduce(g, self.pod_group)
+            g = g.div_(self.world)
+        return g
+
     def sync_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Every rank's gradients averaged over the batch ranks and summed
-        over the model axis where a model rank holds them in part: a
-        block of a leaf cut over either axis, a replicated leaf whole."""
+        """:meth:`sync_grad` of every leaf in ``grads``, in turn; a full
+        gradient of a gathered leaf is counted held until it is freed."""
         if self.ranks == 1:
             return grads
-        out = {}
+        stepped = set(self._stepped())
         for k, g in grads.items():
-            leaf = self.leaves[k]
-            if leaf.gathered and leaf.partial:
-                g = self._scatter_dim(g, leaf.mdim, self.model, self.model_group)
-            elif leaf.gathered:  # whole on every rank: this rank's block
-                g = _cut(g, leaf.mdim, self.model, self.model_index).contiguous()
-            elif leaf.partial:
-                self.comm.all_reduce(g, self.model_group)
-            if self.world > 1:
-                if leaf.dim is None:
-                    self.comm.all_reduce(g, self.batch_group)
-                else:
-                    g = self._scatter_dim(g, leaf.dim, self.shards, self.shard_group)
-                    if self.pod_group is not None:
-                        self.comm.all_reduce(g, self.pod_group)
-                g = g.div_(self.world)
-            out[k] = g
-        return out
+            if k in stepped:
+                self._settle(k)
+                self._held(g)
+        return {k: self.sync_grad(k, g) for k, g in grads.items()}
 
     def moment_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The gradients the moments are updated from: the synchronised
@@ -569,11 +759,13 @@ class DataParallelPlan:
         """The result bytes, by kind, that one rank's collectives receive in
         one step of ``kind`` (``"train"``, ``"prefill"`` or ``"decode"``) of
         ``global_batch`` sequences of ``seq_len`` input tokens.  Over the
-        batch axes: a train step's gathers, reduce-scatters and all_reduces
-        (each leaf at its model block's bytes) and each MoE block's (every
-        forward: twice a step under remat, whose recompute issues them
-        again; the aux's gradient once).  Over the model axis: the gathered
-        leaves' all_gather (and a KV leaf's reduce_scatter), the partial
+        batch axes: a train step's gathers (a period's leaf twice under
+        remat: its forward and its recompute gather it), reduce-scatters and
+        all_reduces (each leaf at its model block's bytes) and each MoE
+        block's (every forward: twice a step under remat, whose recompute
+        issues them again; the aux's gradient once).  Over the model axis:
+        the gathered leaves' all_gather (a period's twice under remat, on a
+        data axis larger than 1) and a KV leaf's reduce_scatter, the partial
         leaves' all_reduce, with 8-bit moments each model block's gradient
         gathered, and the activations' sums
         (:func:`.tensor_parallel.collectives`: the sub-blocks' and the
@@ -587,11 +779,13 @@ class DataParallelPlan:
         rows = global_batch // self.world if split else global_batch
         data = self.world > 1 and split
         if kind == "train":
-            for leaf in self.leaves.values():
+            for name, leaf in self.leaves.items():
                 whole = math.prod(leaf.shape) * leaf.dtype.itemsize
                 nbytes = whole // (1 if leaf.mdim is None else self.model)
+                # a period's leaf is gathered again by its remat recompute
+                gathers = 2 if name in self.per_period and self.cfg.remat else 1
                 if leaf.gathered:
-                    out["all-gather"] += whole
+                    out["all-gather"] += gathers * whole
                     if leaf.partial:
                         out["reduce-scatter"] += nbytes
                 elif leaf.partial:
@@ -603,7 +797,7 @@ class DataParallelPlan:
                 if leaf.dim is None:
                     out["all-reduce"] += nbytes
                 else:
-                    out["all-gather"] += nbytes
+                    out["all-gather"] += gathers * nbytes
                     out["reduce-scatter"] += nbytes // self.shards
                     if self.pods > 1:
                         out["all-reduce"] += nbytes // self.shards

@@ -108,9 +108,7 @@ def first_grads(cfg, params, mesh):
                                                            params=params)
     batch = batch_at(cfg, 0, mesh)
     with plan.scope():
-        plan.gather_params(model, p)
-        loss, grads = M.loss_and_grads(model, batch)
-        grads = plan.sync_grads(grads)
+        loss, grads = plan.loss_and_grads(model, p, batch)
         plan.release_params(model)
     return float(plan.mean_loss(loss.detach())), _numpy(plan.full_state({"g": grads})["g"])
 
@@ -197,6 +195,10 @@ def main(rank, world, work):
                     out[name] = run_steps(cfg, params, mesh, optimizer(case))
                 out[name]["routes"] = k.ids
                 out[name]["loss0"], out[name]["grads"] = first_grads(cfg, params, mesh)
+            elif kind == "per_period":  # against the whole-gather step
+                out[name] = R.per_period_pair(cfg, case_params(work, case), mesh,
+                                              optimizer(case),
+                                              batch_fn=lambda i: batch_at(cfg, i, mesh))
             elif kind == "control":
                 params = case_params(work, case)
                 with TPControl(case["control"]):

@@ -3,10 +3,11 @@ shares with the test's one-device runs.
 
 Run as ``python _torch_train_mesh_ranks.py RANK WORLD WORKDIR``: the ranks
 meet through a gloo ``FileStore`` in WORKDIR, read ``cases.json`` and each
-case's initial parameters (``<arch>.npz``, the JAX package's init converted)
-and route ids (``*.pt``) from it, run every case of their world on the
-CPU, and write what they got to ``world<WORLD>_rank<RANK>.pt``.  Nothing here imports
-JAX.
+case's initial parameters (``<arch>.npz``, the JAX package's init converted;
+the port's seeded init for a case that changes the number of periods) and
+route ids (``*.pt``) from it, run every case of their world on the CPU (on
+the world's mesh, or a (data, model) mesh the case names), and write what
+they got to ``world<WORLD>_rank<RANK>.pt``.  Nothing here imports JAX.
 """
 
 import dataclasses
@@ -33,11 +34,20 @@ SERVE = dict(batch=BATCH, prompt_len=SEQ, gen_tokens=4, seed=0)
 
 
 def config(case):
-    """The reduced config of a case: its arch, with ``dispatch`` replaced
-    where the case names one."""
+    """The reduced config of a case: its arch, with ``dispatch`` and the MoE
+    ``capacity`` factor replaced where the case names them, ``periods`` periods,
+    and ``remat`` ``"full"``, ``"dots"`` or ``"off"``."""
     cfg = configs.get_reduced(case["arch"])
     if case.get("dispatch"):
         cfg = dataclasses.replace(cfg, moe=cfg.moe._replace(dispatch=case["dispatch"]))
+    if case.get("capacity") is not None:
+        cfg = dataclasses.replace(cfg, moe=cfg.moe._replace(capacity_factor=case["capacity"]))
+    if case.get("periods"):
+        cfg = dataclasses.replace(cfg, n_periods=case["periods"])
+    if case.get("remat"):
+        off = case["remat"] == "off"
+        cfg = dataclasses.replace(cfg, remat=not off,
+                                  remat_policy="full" if off else case["remat"])
     return cfg
 
 
@@ -58,19 +68,43 @@ def load_params(work, arch):
         return {k: torch.from_numpy(f[k]) for k in f.files}
 
 
-def run_steps(cfg, params, mesh, opt, steps=STEPS, batch_fn=None):
-    """The driver's pieces (``make_sharded_train_state``, ``make_step``,
+def whole_gather_step(model, opt, plan):
+    """A step that gathers every sharded leaf for the whole step, built from
+    the plan's own pieces (``gather_params``: ``compute`` of every leaf;
+    ``sync_grads`` after the backward; ``cut`` in the update): the schedule
+    the per-period step replaced, which it must equal bit for bit."""
+
+    def step(params, st, batch):
+        with plan.scope():
+            plan.gather_params(model, params)
+            loss, grads = M.loss_and_grads(model, batch)
+            grads = plan.sync_grads(grads)
+            sq = plan.sq_norm(grads) if opt.clip_norm is not None else None
+            params, st = opt.update(params, plan.moment_grads(grads), st, sq_norm=sq,
+                                    block=plan.cut if plan.whole_moments else None)
+            plan.release_params(model)
+            return plan.mean_loss(loss.detach()), params, st
+
+    return step
+
+
+def run_steps(cfg, params, mesh, opt, steps=STEPS, batch_fn=None, whole=False):
+    """The training entry point's pieces (``make_sharded_train_state``,
+    ``make_step`` or, ``whole``, :func:`whole_gather_step`,
     ``batch_for_mesh``, or ``batch_fn(step)`` for this rank's batch) for
-    ``steps`` steps: the losses, this rank's collective bytes, the expected
-    ones, and the full state afterwards as numpy (``p/``, ``mu/``, ``nu/`` +
+    ``steps`` steps: the
+    losses, this rank's collective bytes, the expected ones, the plan's
+    held-bytes peak over the steps, its bound and the whole-step figure,
+    and the full state afterwards as numpy (``p/``, ``mu/``, ``nu/`` +
     name; an 8-bit moment's int8 blocks and scales under ``/q`` and
     ``/scale``)."""
     model, p, st, plan = train_mod.make_sharded_train_state(cfg, opt, mesh, device="cpu",
                                                             params=params)
-    step = train_mod.make_step(model, opt, plan)
+    step = (whole_gather_step if whole else train_mod.make_step)(model, opt, plan)
     axes = ("data",) if mesh is None else M.batch_axes(mesh)
     losses = []
     plan.comm.reset()
+    plan.reset_held()
     for i in range(steps):
         batch = (batch_fn(i) if batch_fn else
                  {"tokens": lm_data.batch_for_mesh(pipe(cfg), i, mesh, axes, device="cpu")})
@@ -85,7 +119,32 @@ def run_steps(cfg, params, mesh, opt, steps=STEPS, batch_fn=None):
         for k, v in full[part].items():
             for sub, t in (zip(("/q", "/scale"), v) if isinstance(v, tuple) else (("", v),)):
                 state[f"{part}/{k}{sub}"] = t.detach().cpu().numpy().copy()
-    return dict(losses=losses, issued=issued, want=want, state=state, at_rest=plan.at_rest_bytes())
+    return dict(losses=losses, issued=issued, want=want, state=state, at_rest=plan.at_rest_bytes(),
+                held_peak=plan.held_peak, held_bound=plan.held_bound(),
+                whole_step=plan.whole_step_bytes(), per_period=len(plan.per_period))
+
+
+def per_period_pair(cfg, params, mesh, opt, batch_fn=None):
+    """The per-period step's run and the whole-gather step's from the same
+    parameters and batches (:func:`run_steps`)."""
+    return dict(pp=run_steps(cfg, params, mesh, opt, batch_fn=batch_fn),
+                whole=run_steps(cfg, params, mesh, opt, batch_fn=batch_fn, whole=True))
+
+
+def check_per_period(pair):
+    """The per-period step against the whole-gather step (one rank's
+    :func:`per_period_pair`): its losses and every parameter and moment
+    bit for bit, collectives issued equal to its plan's, its held-bytes
+    peak within the plan's bound, and the whole-gather step's at the whole
+    step's figure, above the bound."""
+    pp, whole = pair["pp"], pair["whole"]
+    assert pp["per_period"] > 0
+    assert pp["losses"] == whole["losses"]
+    assert set(pp["state"]) == set(whole["state"])
+    for k, v in pp["state"].items():
+        assert v.tobytes() == whole["state"][k].tobytes(), k
+    assert pp["issued"] == pp["want"]
+    assert 0 < pp["held_peak"] <= pp["held_bound"] < whole["held_peak"] == pp["whole_step"]
 
 
 class Keeps:
@@ -151,12 +210,19 @@ def main(rank, world, work):
                             rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
     try:
         mesh = init_device_mesh("cpu", tuple(spec["shape"]), mesh_dim_names=tuple(spec["axes"]))
+        other = {}
         out = {}
         for case in spec["cases"]:
             cfg = config(case)
-            params = load_params(work, case["arch"])
+            params = None if case.get("periods") else load_params(work, case["arch"])
             name = case["name"]
-            if case["kind"] == "train":
+            if case["kind"] == "per_period":  # on the case's (data, model) mesh
+                shape = tuple(case["mesh"])
+                if shape not in other:  # every rank builds them in the same order
+                    other[shape] = init_device_mesh("cpu", shape,
+                                                    mesh_dim_names=("data", "model"))
+                out[name] = per_period_pair(cfg, params, other[shape], optimizer(case))
+            elif case["kind"] == "train":
                 out[name] = run_steps(cfg, params, mesh, optimizer(case))
                 if case.get("driver"):  # the entry point runs the same steps
                     rep = train_mod.train(cfg, steps=STEPS, global_batch=BATCH, seq_len=SEQ,

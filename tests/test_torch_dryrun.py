@@ -291,15 +291,19 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
     train = by[("qwen2-1.5b", "train_4k")]["collective_bytes"]
     # counted by hand: every matrix of Qwen2-1.5B is cut 16 ways over data
     # and 16 over model, so a device gathers each one's model block (1/16 of
-    # it) and receives 1/256 of its gradient; the vectors (norms, biases)
-    # are all_reduced whole, or as their 16-way model blocks (the biases)
+    # it; a layer's inside its period, and again in its remat recompute:
+    # twice, the embedding once) and receives 1/256 of its gradient; the
+    # vectors (norms, biases) are all_reduced whole, or as their 16-way
+    # model blocks (the biases)
     leaves = dict(M.abstract_params(configs.get_config("qwen2-1.5b")).named_parameters())
     mats = sum(p.numel() * 2 for p in leaves.values() if p.dim() == 2)
+    gathered = 2 * mats - leaves["embed"].numel() * 2
     vecs = sum(p.numel() * 2 // (16 if k.split(".")[-1] in ("bq", "bk", "bv") else 1)
                for k, p in leaves.items() if p.dim() == 1)
     # Over the model axis: Qwen2-1.5B's 2 KV heads do not split 16 ways, so
-    # each layer's wk, wv, bk, bv are gathered whole and their gradients
-    # reduce-scattered back to 1/16; a device's 16 rows of 4,096 tokens
+    # each layer's wk, wv, bk, bv are gathered whole (inside the period:
+    # twice) and their gradients reduce-scattered back to 1/16; a device's
+    # 16 rows of 4,096 tokens
     # (act: its (16, 4096, 1536) bf16 activations) are all_reduced by the
     # embedding and each of the 56 sub-blocks, again by the remat recompute
     # but for each layer's last (the MLP's), by the backward of the 56
@@ -308,9 +312,11 @@ print(json.dumps(dict(n=len(recs), cuda=torch.cuda.is_initialized())))
     T = 16 * 4096
     act = T * 1536 * 2
     model_ar = act * (1 + 56 + 28) + act * (56 + 1) + 3 * T * 4
-    assert train == {"all-gather": mats // 16 + kv, "reduce-scatter": mats // 256 + kv // 16,
+    assert train == {"all-gather": gathered // 16 + 2 * kv,
+                     "reduce-scatter": mats // 256 + kv // 16,
                      "all-reduce": vecs + 8 + model_ar,
-                     "total": mats // 16 + mats // 256 + vecs + 8 + kv + kv // 16 + model_ar}
+                     "total": gathered // 16 + mats // 256 + vecs + 8 + 2 * kv + kv // 16
+                     + model_ar}
     decode = by[("deepseek-v2-lite-16b", "decode_32k")]["collective_bytes"]
     # 27 MoE blocks: the aux loss's two all_reduces (64 fp32 sums, 64 int64
     # counts) and, the global dispatch at capacity factor 1.25 planning one

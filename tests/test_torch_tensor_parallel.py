@@ -81,6 +81,11 @@ SERVE = ([(a, "1x2") for a in ARCHS] + [(QWEN3, "2x2"), (DENSE, "1x4")]
          + [(v, "1x2") for v in ("phi4-mini-3.8b", "qwen2-vl-2b")])
 CONTROLS = {"no_sum": DENSE, "times_k": DENSE, "aux_k": DEEPSEEK, "aux_grad": DEEPSEEK,
             "no_sum_moe": DEEPSEEK}
+# the per-period step against the whole-gather step on (data 2, model 2):
+# the dense config under each remat, DeepSeek's MLA + MoE (capacity factor
+# 1.25: the global dispatch's count gather inside every period) under full
+PER_PERIOD = [("dense", "full"), ("dense", "dots"), ("dense", "off"), ("deepseek", "full")]
+PP_CONFIGS = {"dense": dict(arch=DENSE), "deepseek": dict(arch=DEEPSEEK, capacity=1.25)}
 
 
 def _cases(kind, runs, world):
@@ -105,6 +110,8 @@ CASES = {
         *_cases("serve", SERVE, "4"),
         # a one-device checkpoint at step 2 (the test's), resumed at (2, 2)
         dict(name="ckpt/resume22", kind="ckpt", arch=DENSE, mesh=[2, 2], dir="ck11", steps=2),
+        *[dict(name=f"pp/{c}/{r}", kind="per_period", mesh=[2, 2], remat=r, **PP_CONFIGS[c])
+          for c, r in PER_PERIOD],
     ]),
 }
 TWO_ROWS = AbstractMesh((2, 1), ("data", "model"))
@@ -112,7 +119,7 @@ TWO_ROWS = AbstractMesh((2, 1), ("data", "model"))
 # The JAX package's train of each arch on (data, model) meshes (1, 2) and
 # (2, 2) of 4 host devices (the device count is fixed before JAX starts),
 # its serve on (1, 2), and the compiled text of its train step of reduced
-# Qwen2-1.5B on (1, 2): one process, its programs compiled without most of
+# Qwen2-1.5B on (1, 2) and (2, 1): one process, its programs compiled without most of
 # XLA's optimisation passes (the same computations in half the compile
 # time: the losses move by about 1e-7 relative, the tokens and the step's
 # collectives not at all).
@@ -143,13 +150,16 @@ REF_MESH = textwrap.dedent("""
         got = serve.serve(configs.get_reduced(arch), batch=4, prompt_len=16, gen_tokens=4,
                           seed=0, mesh=meshes["1x2"])
         out["serve"][arch] = dict(generated=np.asarray(got["generated"]).tolist())
-    cfg, mesh = configs.get_reduced("qwen2-1.5b"), meshes["1x2"]
-    params, st, pshard, sshard = train.make_sharded_train_state(cfg, opt(), mesh, 0)
-    step = train.make_step(cfg, opt(), mesh, pshard, sshard)
-    with mesh:
-        text = step.lower(params, st, {"tokens": jnp.zeros((4, 17), jnp.int32)}).compile()
-    with open(sys.argv[2], "w") as f:
-        f.write(text.as_text())
+    cfg = configs.get_reduced("qwen2-1.5b")
+    meshes["2x1"] = Mesh(np.array(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
+    for shape, path in (("1x2", sys.argv[2]), ("2x1", sys.argv[2] + ".2x1")):
+        mesh = meshes[shape]
+        params, st, pshard, sshard = train.make_sharded_train_state(cfg, opt(), mesh, 0)
+        step = train.make_step(cfg, opt(), mesh, pshard, sshard)
+        with mesh:
+            text = step.lower(params, st, {"tokens": jnp.zeros((4, 17), jnp.int32)}).compile()
+        with open(path, "w") as f:
+            f.write(text.as_text())
     print(json.dumps(out))
 """)
 
@@ -273,6 +283,8 @@ def ranks(tmp_path_factory):
                for r in range(int(w))] for w in CASES}
     with open(hlo) as f:
         ref["hlo"] = f.read()
+    with open(hlo + ".2x1") as f:
+        ref["hlo_2x1"] = f.read()
     return dict(work=work, params=params, got=got, one=one, ref=ref)
 
 
@@ -425,6 +437,19 @@ def test_controls_fail_the_gates(ranks, control):
         assert any(k.endswith(".router") for k in grads_bad), grads_bad
 
 
+@pytest.mark.parametrize("config, remat", PER_PERIOD, ids=[f"{c}-{r}" for c, r in PER_PERIOD])
+def test_per_period_step_equals_whole_gather_step(ranks, config, remat):
+    """On (data 2, model 2) each period's leaves are gathered inside it by
+    the same ``compute`` (a leaf cut over both axes keeps its model block
+    and packed layout; the gathered KV leaves are gathered over model there
+    too), their gradients synchronised as its backward ends: the losses,
+    parameters and moments after three steps equal the whole-gather step's
+    on every rank, bit for bit; collectives issued are the plan's; the
+    held-bytes peak within the bound, the whole-gather step's above it."""
+    for r in ranks["got"]["4"]:
+        R.check_per_period(r[f"pp/{config}/{remat}"])
+
+
 def test_checkpoints_across_worlds_with_a_model_axis(ranks, tmp_path):
     """Saved at (1, 2) every 2 steps and resumed at step 4 on one device and
     at (2, 1); saved on one device at step 2 and resumed at (2, 2): each
@@ -485,6 +510,30 @@ def test_reference_gspmd_collectives_beside_the_plan(ranks):
     issued = ranks["got"]["2"][0][f"train/{DENSE}/1x2"]["issued"]
     assert {k: v * R.STEPS for k, v in port.items() if k != "total"} == issued
     assert set(gspmd) >= {"all-reduce", "all-gather", "all-to-all", "collective-permute"}
+
+
+def test_reference_gspmd_all_gather_beside_the_per_period_plan(ranks, capsys):
+    """A recorded comparison (PERF.md), not a gate: the JAX package's
+    compiled train step of reduced Qwen2-1.5B on a (2, 1) host mesh, parsed
+    by ``launch/hlo_analysis.py`` (each instruction once, a scan body's
+    whatever its trip count), beside the port's per-period plan for the
+    same step.  The reference gathers the embedding and the token ids once
+    and a period's leaves in its forward scan's body and again in its
+    backward's (the recompute); the port gathers the embedding once and
+    each of the 2 periods' leaves twice."""
+    gspmd = hlo_analysis.collective_bytes(ranks["ref"]["hlo_2x1"])
+    cfg = configs.get_reduced(DENSE)
+    plan = DataParallelPlan(cfg, M.abstract_params(cfg), AbstractMesh((2, 1), ("data", "model")),
+                            R.optimizer())
+    port = plan.collective_bytes("train", R.BATCH, R.SEQ)
+    once = sum(plan._compute_bytes(k) for k in plan.sharded())  # every leaf gathered once
+    with capsys.disabled():
+        print(f"\nreduced {DENSE} on (2, 1): the reference's compiled all-gather "
+              f"{gspmd['all-gather']} B (static), all-reduce {gspmd['all-reduce']} B, "
+              f"reduce-scatter {gspmd['reduce-scatter']} B; the port's per-period plan "
+              f"{port['all-gather']} B a step ({once} B gathering each leaf once)")
+    assert gspmd["all-gather"] > 0
+    assert once < port["all-gather"] < 2 * once
 
 
 # ---------------------------------------------------------------------------

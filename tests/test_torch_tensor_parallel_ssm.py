@@ -83,6 +83,12 @@ SERVE = [(v, m) for v in ("xlstm", "jamba") for m in MESHES]
 # the reference's train runs (see the module docstring), by mesh
 REF_TRAIN = {"1x2": tuple(VARIANTS), "2x2": ("hubert", "hubert-v63", "int8")}
 CONTROLS = {"mamba_g": "jamba", "r_unsummed": "xlstm"}
+# the per-period step against the whole-gather step on (data 2, model 2):
+# Jamba (Mamba + MoE on the model axis, its two-way sums inside every
+# period) at 2 periods from the port's seeded init, under each remat; and
+# xLSTM (mLSTM heads at rest, the sLSTM's 4-part packed blocks) under full
+PER_PERIOD = [("jamba", "full"), ("jamba", "dots"), ("jamba", "off"), ("xlstm", "full")]
+PP_CONFIGS = {"jamba": dict(arch=JAMBA, periods=2, random=True), "xlstm": dict(arch=XLSTM)}
 CKPT = dict(arch=XLSTM, int8=True)  # mLSTM heads, sLSTM 4-part blocks, int8 moments
 
 
@@ -103,7 +109,9 @@ CASES = {
              **CKPT),
         dict(name="ckpt/resume21", kind="ckpt", mesh=[2, 1], dir="ck12", steps=2, **CKPT),
     ]),
-    "4": dict(cases=[*_cases("train", TRAIN, "4"), *_cases("serve", SERVE, "4")]),
+    "4": dict(cases=[*_cases("train", TRAIN, "4"), *_cases("serve", SERVE, "4"),
+                     *[dict(name=f"pp/{c}/{r}", kind="per_period", mesh=[2, 2], remat=r,
+                            **PP_CONFIGS[c]) for c, r in PER_PERIOD]]),
 }
 
 # The JAX package's runs, in three processes (argv[1]: one of REF_JOBS):
@@ -415,6 +423,44 @@ def test_controls_fail_the_gates(ranks, control):
     if control == "r_unsummed":  # the forward is sound: only r's gradient is off
         np.testing.assert_allclose(res["losses"][0], one["losses"][0], **PORT_TOL)
         assert grads_bad and all(k.endswith(".r") for k in grads_bad), grads_bad
+
+
+@pytest.mark.parametrize("config, remat", PER_PERIOD, ids=[f"{c}-{r}" for c, r in PER_PERIOD])
+def test_per_period_step_equals_whole_gather_step(ranks, config, remat):
+    """On (data 2, model 2) each period's leaves gathered inside the period,
+    again in its recompute: Jamba's (Mamba's packed ``w_in`` blocks, the
+    expert stacks cut over both axes) beside the Mamba layers' two-way sums
+    and the global dispatch's gathers, under remat ``full``, ``dots`` and
+    off; xLSTM's (mLSTM head projections held as heads, the sLSTM's 4-part
+    packed ``w``) beside the mLSTM's two-way sums.  The losses, parameters
+    and moments after three steps equal the whole-gather step's on every
+    rank, bit for bit; collectives issued are the plan's; the held-bytes
+    peak within the bound."""
+    for r in ranks["got"]["4"]:
+        R.check_per_period(r[f"pp/{config}/{remat}"])
+
+
+@pytest.mark.parametrize("arch", [DENSE, JAMBA, XLSTM])
+def test_per_period_only_where_a_period_leaf_is_cut_over_data(arch):
+    """The plan gathers a period's leaves inside it on a data axis larger
+    than 1 with fp32 moments; with 8-bit moments (every leaf replicated over
+    data, as the reference's ``state_specs`` keeps them), for serving (no
+    optimizer: every leaf replicated) and on a model axis alone it keeps
+    the whole-step path, and its bound is the whole step's (as with one
+    period: reduced Jamba's)."""
+    cfg = configs.get_reduced(arch)
+    params = M.abstract_params(cfg)
+    for shape, opt, cut in (((2, 2), R.optimizer(), True), ((2, 1), R.optimizer(), True),
+                            ((2, 2), AdamW(quantize_states=True), False),
+                            ((2, 2), None, False), ((1, 2), R.optimizer(), False)):
+        plan = DataParallelPlan(cfg, params, AbstractMesh(shape, ("data", "model")), opt)
+        assert bool(plan.per_period) == cut, (shape, opt)
+        if cut:
+            assert all(k.startswith("blocks.") for k in plan.per_period)
+            # below the whole step's where there is more than one period
+            assert (plan.held_bound() < plan.whole_step_bytes()) == (cfg.n_periods > 1)
+        else:
+            assert plan.held_bound() == plan.whole_step_bytes()
 
 
 def test_checkpoints_across_worlds_with_new_layouts(ranks):

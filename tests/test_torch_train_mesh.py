@@ -8,7 +8,8 @@ case, DeepSeek-V2-Lite (dropless MoE, global aux), Jamba (``dispatch=
 "global"`` at capacity factor 1.25), Jamba under ``get_optimized``'s
 rowwise dispatch, the checkpoint case and ``serve``; a (pod 2, data 2,
 model 1) world runs the dense case.  Every case starts from the JAX package's initial
-parameters, converted.
+parameters, converted.  Both worlds also hold the per-period step against
+the whole-gather step (``PER_PERIOD``) on (data 2, model 1) and (4, 1).
 
 Tolerances: the ranks' losses and gathered states equal each other bit for
 bit (every rank applies the same reduced gradients).  Against the port's
@@ -61,6 +62,28 @@ REF_TOL = dict(rtol=1e-4, atol=1e-5)
 STATE_TOL = dict(rtol=1e-4, atol=1e-5)
 
 DENSE, DEEPSEEK, JAMBA = "qwen2-1.5b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b"
+# the per-period step against the whole-gather step: each config by its
+# label (DeepSeek's MoE at capacity factor 1.25, so that the global
+# dispatch's count gather runs inside every period and its recompute; Jamba
+# at 2 periods from the port's seeded init, its one period being the whole
+# model), under each remat, on (data 2, model 1) and (4, 1)
+PP_CONFIGS = {"dense": dict(arch=DENSE), "deepseek": dict(arch=DEEPSEEK, capacity=1.25),
+              "jamba": dict(arch=JAMBA, periods=2)}
+PER_PERIOD = ([(c, r, "2x1") for c in PP_CONFIGS for r in ("full", "dots", "off")]
+              + [(c, "full", "4x1") for c in PP_CONFIGS])
+
+
+def _pp_cases(world):
+    return [dict(name=f"pp/{c}/{r}/{m}", kind="per_period", remat=r,
+                 mesh=[int(x) for x in m.split("x")], **PP_CONFIGS[c])
+            for c, r, m in PER_PERIOD if _world(m) == world]
+
+
+def _world(mesh):
+    d, m = (int(x) for x in mesh.split("x"))
+    return str(d * m)
+
+
 CASES = {
     "2": dict(shape=[2, 1], axes=["data", "model"], cases=[
         dict(name="dense", kind="train", arch=DENSE, driver=True),
@@ -72,9 +95,11 @@ CASES = {
         dict(name="rowwise_block", kind="block", arch=JAMBA, dispatch="rowwise"),
         dict(name="ckpt", kind="ckpt", arch=DENSE),
         dict(name="serve", kind="serve", arch=JAMBA),
+        *_pp_cases("2"),
     ]),
     "4": dict(shape=[2, 2, 1], axes=["pod", "data", "model"], cases=[
         dict(name="dense_pod", kind="train", arch=DENSE),
+        *_pp_cases("4"),
     ]),
 }
 TWO_ROWS = AbstractMesh((2, 1), ("data", "model"))
@@ -299,6 +324,33 @@ def test_collectives_issued_equal_the_plan(ranks, name):
             assert res["driver"]["issued"] == res["want"]
     assert ranks["got"]["2"][0]["dense"]["want"]["all-gather"] > 0
     assert ranks["got"]["2"][0]["jamba"]["want"]["all-gather"] > 0  # the global plan's counts
+
+
+@pytest.mark.parametrize("config, remat, mesh", PER_PERIOD,
+                         ids=[f"{c}-{r}-{m}" for c, r, m in PER_PERIOD])
+def test_per_period_step_equals_whole_gather_step(ranks, config, remat, mesh):
+    """Each period's sharded leaves gathered inside it (again in its remat
+    recompute) and their gradients reduce-scattered as its backward ends:
+    on every rank the losses, parameters and moments after three steps
+    equal, bit for bit, those of the step that gathers every leaf for the
+    whole step (built from the plan's ``compute`` / ``sync_grads`` /
+    ``cut``); the collectives issued are the per-period plan's; the full
+    bytes held at once stay within ``held_bound`` (the leaves outside the
+    periods and one period, weights and gradients; every period's weights
+    with remat off), which the whole-gather step's reading exceeds."""
+    for r in ranks["got"][_world(mesh)]:
+        R.check_per_period(r[f"pp/{config}/{remat}/{mesh}"])
+
+
+def test_per_period_gathers_twice_under_remat(ranks):
+    """Over data a period's leaf is gathered by its forward and again by its
+    remat recompute (``dots`` too), once with remat off; the gradients'
+    reduce-scatter is the same under all three."""
+    runs = {r: ranks["got"]["2"][0][f"pp/dense/{r}/2x1"]["pp"]["issued"]
+            for r in ("full", "dots", "off")}
+    assert runs["full"] == runs["dots"]
+    assert runs["full"]["reduce-scatter"] == runs["off"]["reduce-scatter"] > 0
+    assert runs["off"]["all-gather"] < runs["full"]["all-gather"] < 2 * runs["off"]["all-gather"]
 
 
 def test_global_dispatch_keeps_the_one_device_pairs(ranks):

@@ -22,21 +22,35 @@ class's :class:`repro_torch.online.FitState` on ``clf.fit_states`` for
 :func:`repro_torch.api.update`.  :meth:`~VanishingIdealClassifier.
 attach_engine` routes ``transform`` / ``predict`` through a warmed
 :class:`repro_torch.serving.TransformEngine` on the classifier's device.
+
+Algorithm 2's phases are :mod:`repro_torch.obs` spans, nested by time:
+``pipeline/fit`` (``fit=<n>``, a per-process count) holds
+``pipeline/generators`` (``pipeline/scale``: the scaler and the class
+split; then the class fits' ``fit`` spans), ``pipeline/transform`` and
+``svm/fit`` (``LinearSVM.fit``'s own spans inside); ``pipeline/predict``
+(``fit=<n>`` of the fit it predicts with) holds ``pipeline/transform`` and
+``svm/decision``, the host's argmax over ``X @ W + b``.  ``stats``'s
+``time_generators``, ``time_transform`` and ``time_svm`` are the durations
+of ``pipeline/generators``, ``pipeline/transform`` and ``svm/fit``, and
+``time_total`` that of ``pipeline/fit``, with tracing on or off.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
+import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .. import _device
+from .. import _device, obs
 from .svm import LinearSVM, LinearSVMConfig
 from .transform import MinMaxScaler
 
 CLASSIFIER_FORMAT = "repro.vanishing_ideal_classifier.v1"
+
+# the ``fit=<n>`` of the pipeline spans: the spans of one fit share it
+_FIT_COUNT = itertools.count(1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +93,7 @@ class VanishingIdealClassifier:
         self.stats: Dict = {}
         self.engine = None  # optional serving TransformEngine (attach_engine)
         self.fit_states: List = []  # per-class FitState (capture_fit_state)
+        self.fit_id: Optional[int] = None  # the spans' fit=<n> of the last fit
 
     def _fit_generator_models(self, Xcs) -> List:
         """Per-class generator construction through
@@ -148,24 +163,25 @@ class VanishingIdealClassifier:
     def fit(self, X, y) -> "VanishingIdealClassifier":
         from .. import api
 
-        t0 = time.perf_counter()
-        X = self.scaler.fit_transform(X)
-        y = np.asarray(y)
-        self.classes_ = np.unique(y)
-        self.models = self._fit_generator_models([X[y == c] for c in self.classes_])
-        t_gen = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        Xt = self._feature_transform(X)
-        t_transform = time.perf_counter() - t1
-        t2 = time.perf_counter()
-        self.svm.fit(Xt, y)
-        t_svm = time.perf_counter() - t2
-        agg = api.aggregate_fit_stats(self.models)
+        self.fit_id = next(_FIT_COUNT)
+        with obs.timed("pipeline/fit", fit=self.fit_id) as t_fit:
+            with obs.timed("pipeline/generators") as t_gen:
+                with obs.span("pipeline/scale"):
+                    X = self.scaler.fit_transform(X)
+                    y = np.asarray(y)
+                    self.classes_ = np.unique(y)
+                    Xcs = [X[y == c] for c in self.classes_]
+                self.models = self._fit_generator_models(Xcs)
+            with obs.timed("pipeline/transform") as t_transform:
+                Xt = self._feature_transform(X)
+            with obs.timed("svm/fit") as t_svm:
+                self.svm.fit(Xt, y)
+            agg = api.aggregate_fit_stats(self.models)
         self.stats = {
-            "time_generators": t_gen,
-            "time_transform": t_transform,
-            "time_svm": t_svm,
-            "time_total": time.perf_counter() - t0,
+            "time_generators": t_gen.duration_s,
+            "time_transform": t_transform.duration_s,
+            "time_svm": t_svm.duration_s,
+            "time_total": t_fit.duration_s,
             "num_features": Xt.shape[1],
             "G_plus_O": sum(m.stats.get("G_plus_O", 0) for m in self.models),
             "regrowths": agg["regrowths"],
@@ -181,10 +197,14 @@ class VanishingIdealClassifier:
         return self
 
     def transform(self, X) -> np.ndarray:
-        return self._feature_transform(self.scaler.transform(X))
+        with obs.span("pipeline/transform"):
+            return self._feature_transform(self.scaler.transform(X))
 
     def predict(self, X) -> np.ndarray:
-        return self.svm.predict(self.transform(X))
+        with obs.span("pipeline/predict", fit=self.fit_id):
+            feats = self.transform(X)
+            with obs.span("svm/decision"):
+                return self.svm.predict(feats)
 
     def score(self, X, y) -> float:
         return float(np.mean(self.predict(X) == np.asarray(y)))

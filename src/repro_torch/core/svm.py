@@ -16,6 +16,15 @@ The reference runs each training loop as one ``lax.while_loop``.  Here a
 loop runs on the device in chunks of :data:`CHECK_EVERY` iterations and the
 host reads the stopping test once per chunk; an iteration past the stop is
 masked to a no-op, so the result is that of the plain while-loop.
+
+``LinearSVM.fit`` records its phases as :mod:`repro_torch.obs` spans (inside
+the pipeline's ``svm/fit``): ``svm/upload`` (features and labels to the
+device), ``svm/power`` (the power iteration, as the host launches it: nothing
+waits for it there), ``svm/fista`` (the whole loop) and ``svm/download`` (W,
+b and the step count to the host).  Inside ``svm/fista`` each host read of
+the stopping test is an ``svm/stop_test`` (the host blocked on the device)
+and each chunk's launching an ``svm/fista_block``; no span sits inside a chunk,
+and none synchronizes the device.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .. import _device
+from .. import _device, obs
 
 # FISTA iterations between host reads of the stopping test
 CHECK_EVERY = 32
@@ -61,24 +70,29 @@ def _fista(X, Y, lam, step, max_iter: int, tol):
     t = X.new_ones(())
     i = torch.zeros((), dtype=torch.int32, device=X.device)
     delta = X.new_full((), float("inf"))
-    while bool((i < max_iter) & (delta > tol)):
-        for _ in range(CHECK_EVERY):
-            live = (i < max_iter) & (delta > tol)
-            gW, gb = _squared_hinge_grad(Wz, bz, X, Y)
-            W_new = _soft_threshold(Wz - step * gW, step * lam)
-            b_new = bz - step * gb  # bias unpenalized
-            t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-            beta = (t - 1.0) / t_new
-            Wz_new = W_new + beta * (W_new - W)
-            bz_new = b_new + beta * (b_new - b)
-            d_new = torch.max(torch.abs(W_new - W)) + torch.max(torch.abs(b_new - b))
-            W = torch.where(live, W_new, W)
-            b = torch.where(live, b_new, b)
-            Wz = torch.where(live, Wz_new, Wz)
-            bz = torch.where(live, bz_new, bz)
-            t = torch.where(live, t_new, t)
-            delta = torch.where(live, d_new, delta)
-            i = i + live.to(torch.int32)
+    while True:
+        with obs.span("svm/stop_test"):
+            go = bool((i < max_iter) & (delta > tol))
+        if not go:
+            break
+        with obs.span("svm/fista_block"):
+            for _ in range(CHECK_EVERY):
+                live = (i < max_iter) & (delta > tol)
+                gW, gb = _squared_hinge_grad(Wz, bz, X, Y)
+                W_new = _soft_threshold(Wz - step * gW, step * lam)
+                b_new = bz - step * gb  # bias unpenalized
+                t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+                beta = (t - 1.0) / t_new
+                Wz_new = W_new + beta * (W_new - W)
+                bz_new = b_new + beta * (b_new - b)
+                d_new = torch.max(torch.abs(W_new - W)) + torch.max(torch.abs(b_new - b))
+                W = torch.where(live, W_new, W)
+                b = torch.where(live, b_new, b)
+                Wz = torch.where(live, Wz_new, Wz)
+                bz = torch.where(live, bz_new, bz)
+                t = torch.where(live, t_new, t)
+                delta = torch.where(live, d_new, delta)
+                i = i + live.to(torch.int32)
     return W, b, i
 
 
@@ -95,29 +109,33 @@ class LinearSVM:
         self.stats: Dict = {}
 
     def fit(self, X, y) -> "LinearSVM":
-        dt = getattr(torch, self.config.dtype)
+        cfg = self.config
+        dt = getattr(torch, cfg.dtype)
         dev = self.device
-        X = _device.tensor(X, dt, dev)
-        y = np.asarray(y)
-        self.classes_ = np.unique(y)
-        Y = _device.tensor(np.where(y[:, None] == self.classes_[None, :], 1.0, -1.0),
-                           dt, dev)
-        # Lipschitz constant of the squared-hinge gradient: 2/m * lmax(X~^T X~)
-        m = X.shape[0]
-        Xb = torch.cat([X, X.new_ones((m, 1))], dim=1)
-        # power iteration for the top singular value
-        v = X.new_ones((Xb.shape[1],))
-        for _ in range(20):
-            v = Xb.T @ (Xb @ v)
-            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-        lmax = v @ (Xb.T @ (Xb @ v))
-        step = 1.0 / torch.clamp(2.0 * lmax / m, min=1e-12)
-        W, b, iters = _fista(
-            X, Y, torch.tensor(self.config.lam, dtype=dt, device=dev), step,
-            self.config.max_iter, torch.tensor(self.config.tol, dtype=dt, device=dev),
-        )
-        self.W, self.b = W.cpu().numpy(), b.cpu().numpy()
-        self.stats = {"iters": int(iters), "nnz": int((np.abs(self.W) > 0).sum())}
+        with obs.span("svm/upload"):
+            X = _device.tensor(X, dt, dev)
+            y = np.asarray(y)
+            self.classes_ = np.unique(y)
+            Y = _device.tensor(np.where(y[:, None] == self.classes_[None, :], 1.0, -1.0),
+                               dt, dev)
+            lam = torch.tensor(cfg.lam, dtype=dt, device=dev)
+            tol = torch.tensor(cfg.tol, dtype=dt, device=dev)
+        with obs.span("svm/power"):
+            # Lipschitz constant of the squared-hinge gradient: 2/m * lmax(X~^T X~)
+            m = X.shape[0]
+            Xb = torch.cat([X, X.new_ones((m, 1))], dim=1)
+            # power iteration for the top singular value
+            v = X.new_ones((Xb.shape[1],))
+            for _ in range(20):
+                v = Xb.T @ (Xb @ v)
+                v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+            lmax = v @ (Xb.T @ (Xb @ v))
+            step = 1.0 / torch.clamp(2.0 * lmax / m, min=1e-12)
+        with obs.span("svm/fista"):
+            W, b, iters = _fista(X, Y, lam, step, cfg.max_iter, tol)
+        with obs.span("svm/download"):
+            self.W, self.b = W.cpu().numpy(), b.cpu().numpy()
+            self.stats = {"iters": int(iters), "nnz": int((np.abs(self.W) > 0).sum())}
         return self
 
     def decision_function(self, X) -> np.ndarray:

@@ -11,6 +11,12 @@ Contract (asserted by ``tests/test_torch_obs.py``):
 
 - ``span()``/``event()`` when obs is disabled are true no-ops: they return a
   shared singleton and allocate nothing on the hot path.
+- ``timed()`` always times: it is a span while obs is enabled and, while it
+  is disabled, two clock reads that record nothing, so the ``stats`` it
+  feeds keep working with tracing off.
+- A span's ``ts`` is microseconds after :func:`epoch`, a
+  ``time.perf_counter()`` reading: ``epoch() + ts * 1e-6`` puts it back on
+  the host clock, the clock a device trace is mapped onto.
 - Enabling obs never changes numerics — instrumentation only reads clocks
   and appends to buffers; fitted models are bit-identical either way.
 - Metric objects (see :mod:`repro_torch.obs.metrics`) are *not* gated: the public
@@ -40,9 +46,9 @@ from .metrics import Registry
 from .trace import TraceBuffer, chrome_trace, export_chrome_trace
 
 __all__ = [
-    "span", "event", "counter_event", "enabled", "enable", "disable",
-    "disabled", "configure", "reset", "registry", "trace_events", "snapshot",
-    "export_trace", "export_metrics", "report_lines",
+    "span", "timed", "epoch", "event", "counter_event", "enabled", "enable",
+    "disable", "disabled", "configure", "reset", "registry", "trace_events",
+    "snapshot", "export_trace", "export_metrics", "report_lines",
 ]
 
 
@@ -112,14 +118,15 @@ class _TorchRange:
 
 
 class Span:
-    """A recorded span.  Use via ``with obs.span("fit/degree", d=3): ...``."""
+    """A recorded span.  Use via ``with obs.span("fit/degree", d=3): ...``.
+    ``start`` is its ``time.perf_counter()`` reading at entry."""
 
-    __slots__ = ("name", "args", "_t0", "_torch_ctx", "duration_s")
+    __slots__ = ("name", "args", "start", "_torch_ctx", "duration_s")
 
     def __init__(self, name: str, args: Optional[dict]) -> None:
         self.name = name
         self.args = args
-        self._t0 = 0.0
+        self.start = 0.0
         self._torch_ctx = None
         self.duration_s = 0.0
 
@@ -131,12 +138,12 @@ class Span:
         if _STATE.torch_trace:
             self._torch_ctx = _TorchRange(self.name)
             self._torch_ctx.__enter__()
-        self._t0 = time.perf_counter()
+        self.start = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         t1 = time.perf_counter()
-        dur = self.duration_s = t1 - self._t0
+        dur = self.duration_s = t1 - self.start
         if self._torch_ctx is not None:
             self._torch_ctx.__exit__(exc_type, exc, tb)
         _LOCAL.stack.pop()
@@ -148,7 +155,7 @@ class Span:
         # histograms (``fit.seconds``, ``serve.transform_seconds``, ...)
         if st.sample_every == 1 or st.sampled(self.name):
             st.buffer.add_complete(
-                self.name, (self._t0 - st.epoch) * 1e6, dur * 1e6, self.args)
+                self.name, (self.start - st.epoch) * 1e6, dur * 1e6, self.args)
 
 
 class _NoopSpan:
@@ -169,11 +176,39 @@ class _NoopSpan:
 _NOOP_SPAN = _NoopSpan()
 
 
+class _Timer:
+    """The clock readings of :func:`timed` while obs is disabled."""
+
+    __slots__ = ("start", "duration_s")
+
+    def __enter__(self) -> "_Timer":
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.duration_s = time.perf_counter() - self.start
+
+
 def span(name: str, **args):
     """Open a (nested, thread-safe) span.  No-op singleton when disabled."""
     if not _STATE.enabled:
         return _NOOP_SPAN
     return Span(name, args or None)
+
+
+def timed(name: str, **args):
+    """A span that times whether or not obs is enabled: on exit it holds
+    ``start`` (``time.perf_counter()`` at entry) and ``duration_s``.  While
+    obs is enabled it is :func:`span`'s recorded span; while disabled it
+    only reads the clock twice."""
+    if not _STATE.enabled:
+        return _Timer()
+    return Span(name, args or None)
+
+
+def epoch() -> float:
+    """The ``time.perf_counter()`` reading at which trace timestamps are 0."""
+    return _STATE.epoch
 
 
 def event(name: str, **args) -> None:

@@ -1,9 +1,9 @@
-"""Device-level observability of the port: build time, analytic cost,
-memory, profiles.
+"""Device-level observability of the port: build time, memory, profiles.
 
 Counterpart of ``src/repro/obs/device.py``.  The reference reads XLA; the
-port has none, so each of its four facilities has a counterpart that
-reports the same keys:
+port has none, so its compile accounting, memory reads and profiler windows
+have counterparts that report the same keys (the fits count their work
+analytically, through :func:`repro_torch.kernels.ops.flop_count`):
 
 - **Compile accounting** becomes kernel-build accounting.  The port's
   counterpart of an XLA compile is building the hand-written kernels at
@@ -12,12 +12,6 @@ reports the same keys:
   seconds to a process-global counter, and :class:`CompileWindow` /
   :func:`compile_snapshot` read it.  Eager PyTorch compiles nothing else, so
   once the library is loaded every window reads 0.
-- **Per-step cost** is counted from shapes, not lowered: :func:`step_cost`
-  calls an analytic cost function once per ``(fn, signature)`` and caches
-  the result.  ``torch.utils.flop_counter`` would see neither the ``ctypes``
-  launches of the hand kernels nor ``addcmul``, and would count 0 on the card
-  where the CPU counts a BLAS product; an analytic count is the same number
-  on both.  The fits count through :func:`repro_torch.kernels.ops.flop_count`.
 - **Memory**: :func:`device_memory_stats` is ``torch.cuda.memory_stats``
   under the reference's keys, :func:`live_buffer_bytes` is
   ``torch.cuda.memory_allocated``.  Off the card (or before the process has
@@ -38,16 +32,13 @@ import itertools
 import os
 import re
 import threading
-import time
-from collections import OrderedDict
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from .core import counter_event, enabled, event, registry
 
 __all__ = [
     "CompileWindow",
     "add_build_seconds",
-    "capture_stats",
     "compile_snapshot",
     "device_enabled",
     "device_memory_stats",
@@ -55,7 +46,6 @@ __all__ = [
     "profile_kernels",
     "profile_window",
     "sample_memory",
-    "step_cost",
 ]
 
 
@@ -116,69 +106,6 @@ class CompileWindow:
         s1, c1 = compile_snapshot()
         self.seconds = s1 - self._s0
         self.count = c1 - self._c0
-
-
-# ---------------------------------------------------------------------------
-# Per-step analytic cost
-# ---------------------------------------------------------------------------
-
-_COST_LOCK = threading.Lock()
-_COST_CACHE: "OrderedDict[Tuple, Optional[Dict]]" = OrderedDict()
-_COST_CACHE_CAP = 512
-_CAPTURE = {"captures": 0, "failures": 0, "seconds": 0.0}
-
-
-def capture_stats() -> Dict:
-    """Cost-capture telemetry: captures, failures, cumulative capture time."""
-    with _COST_LOCK:
-        return dict(_CAPTURE)
-
-
-def _capture_cost(fn: Callable, args, kwargs) -> Optional[Dict]:
-    t0 = time.perf_counter()
-    try:
-        work = fn(*args, **kwargs)
-    except Exception:
-        with _COST_LOCK:
-            _CAPTURE["failures"] += 1
-        return None
-    dt = time.perf_counter() - t0
-    cost = {
-        "flops": float(work.get("flops", 0.0)),
-        "bytes_accessed": float(work.get("bytes_accessed", 0.0)),
-        "bytes_out": float(work.get("bytes_out", 0.0)),
-        "capture_s": round(dt, 6),
-    }
-    with _COST_LOCK:
-        _CAPTURE["captures"] += 1
-        _CAPTURE["seconds"] += dt
-    registry().histogram("device.cost_capture_seconds").observe(dt)
-    event("device/cost_capture", flops=cost["flops"],
-          bytes_accessed=cost["bytes_accessed"], capture_s=cost["capture_s"])
-    return cost
-
-
-def step_cost(fn: Callable, sig, args, kwargs: Optional[dict] = None) -> Optional[Dict]:
-    """Analytic cost of one step at one signature.
-
-    ``fn(*args, **kwargs)`` returns the step's work counted from its shapes,
-    a dict with ``flops`` and optionally ``bytes_accessed`` / ``bytes_out``.
-    Returns ``{"flops", "bytes_accessed", "bytes_out", "capture_s"}``, or
-    None while capture is off (a None is not cached, so the next enabled
-    call counts).  The result is cached per ``(fn, sig)``.
-    """
-    if not device_enabled():
-        return None
-    key = (id(fn), sig)
-    with _COST_LOCK:
-        if key in _COST_CACHE:
-            return _COST_CACHE[key]
-    cost = _capture_cost(fn, args, kwargs or {})
-    with _COST_LOCK:
-        _COST_CACHE[key] = cost
-        while len(_COST_CACHE) > _COST_CACHE_CAP:
-            _COST_CACHE.popitem(last=False)
-    return cost
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,20 @@ contract, on the CPU.
   the timing contract and carries ``flops_per_degree`` (the analytic count
   of ``kernels.ops``), ``compile_seconds`` and ``achieved_gflops``; enabling
   obs changes no bit of a fit.
+* Algorithm 2's spans (``core/pipeline.py``, ``core/svm.py``): the tree of
+  one fit and its predict, one span a FISTA chunk and one a stop test, the
+  pipeline's ``stats`` equal to its spans' durations and filled with obs
+  off, and the classifier bit for bit the same with obs on and off.
 * The ``tests/test_flight_recorder.py`` cases with a port counterpart:
-  ``step_cost``'s cache, memory sampling, profiler windows, the SLO burn
-  windows, ``baseline.check_regression`` and ``obs_report`` over torn tails.
+  memory sampling, profiler windows, the SLO burn windows,
+  ``baseline.check_regression`` and ``obs_report`` over torn tails.
 """
 
 import json
 import math
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -27,8 +32,9 @@ import torch
 
 from repro import obs as jobs
 from repro_torch import api, obs
-from repro_torch.core import oavi
+from repro_torch.core import oavi, svm
 from repro_torch.core.oavi import OAVIConfig
+from repro_torch.core.pipeline import PipelineConfig, VanishingIdealClassifier
 from repro_torch.core.transform import MinMaxScaler
 from repro_torch.data.synthetic import appendix_c
 from repro_torch.kernels import ops
@@ -115,6 +121,34 @@ def test_spans_are_thread_isolated():
     assert len(set().union(*by_tag.values())) == 4
 
 
+def test_timed_is_a_recorded_span_while_enabled():
+    with obs.timed("work", rows=7) as sp:
+        assert obs.current_stack() == ["work"]
+    (ev,) = _span_events()
+    assert ev["args"] == {"rows": 7} and ev["dur"] == sp.duration_s * 1e6
+    assert ev["ts"] == (sp.start - obs.epoch()) * 1e6
+
+
+def test_timed_only_reads_the_clock_while_disabled():
+    with obs.disabled():
+        t_before = time.perf_counter()
+        with obs.timed("work", rows=7) as sp:
+            assert obs.current_stack() == []
+        t_after = time.perf_counter()
+    assert t_before <= sp.start and sp.start + sp.duration_s <= t_after
+    assert obs.trace_events() == []
+
+
+def test_epoch_puts_trace_times_on_the_host_clock():
+    t_before = time.perf_counter()
+    with obs.span("work"):
+        pass
+    t_after = time.perf_counter()
+    (ev,) = _span_events()
+    start = obs.epoch() + ev["ts"] * 1e-6
+    assert t_before <= start <= start + ev["dur"] * 1e-6 <= t_after
+
+
 def test_sampling_keeps_every_nth():
     obs.configure(sample_every=5)
     for _ in range(20):
@@ -198,6 +232,95 @@ def test_fit_bit_identical_with_obs_on_and_off(torch_trace):
     _same_model(model_on, model_off)
     assert model_off.stats["flops_per_degree"] == [None] * len(model_off.stats["degrees"])
     assert model_on.stats["flops_per_degree"] != model_off.stats["flops_per_degree"]
+
+
+def _classifier(max_iter=100, tol=1e-4):
+    X, y = appendix_c(m=800, seed=4)
+    config = PipelineConfig(method="fast", psi=0.01,
+                            svm=svm.LinearSVMConfig(max_iter=max_iter, tol=tol))
+    clf = VanishingIdealClassifier(config, device="cpu").fit(X[:500], y[:500])
+    return clf, clf.predict(X[500:])
+
+
+@pytest.mark.parametrize("torch_trace", [False, True], ids=["spans", "spans+record_function"])
+def test_classifier_bit_identical_with_obs_on_and_off(torch_trace):
+    obs.configure(torch_trace=torch_trace)
+    on, pred_on = _classifier()
+    with obs.disabled():
+        off, pred_off = _classifier()
+    assert np.array_equal(on.svm.W, off.svm.W) and np.array_equal(on.svm.b, off.svm.b)
+    assert on.svm.stats["iters"] == off.svm.stats["iters"]
+    assert np.array_equal(pred_on, pred_off)
+
+
+# parent of each span of a fit and its predict (the tree is by time: a span
+# lies inside its parent's interval)
+SPAN_TREE = {
+    "pipeline/fit": None, "pipeline/generators": "pipeline/fit",
+    "pipeline/scale": "pipeline/generators", "fit": "pipeline/generators",
+    "fit/degree": "fit", "svm/fit": "pipeline/fit", "svm/upload": "svm/fit",
+    "svm/power": "svm/fit", "svm/fista": "svm/fit", "svm/stop_test": "svm/fista",
+    "svm/fista_block": "svm/fista", "svm/download": "svm/fit",
+    "pipeline/predict": None, "svm/decision": "pipeline/predict",
+}
+
+
+def _inside(e, parent):
+    return parent["ts"] <= e["ts"] and e["ts"] + e["dur"] <= parent["ts"] + parent["dur"]
+
+
+def test_classifier_fit_and_predict_record_the_span_tree():
+    clf, _ = _classifier()
+    events = _span_events()
+    assert {e["name"] for e in events} == set(SPAN_TREE) | {"pipeline/transform"}
+    (top,) = [e for e in events if e["name"] == "pipeline/fit"]
+    (pred,) = [e for e in events if e["name"] == "pipeline/predict"]
+    assert top["args"] == pred["args"] == {"fit": clf.fit_id}
+    assert top["ts"] + top["dur"] <= pred["ts"]
+    for e in events:
+        if e["name"] == "pipeline/transform":  # once in the fit, once in predict
+            assert _inside(e, top) != _inside(e, pred)
+            continue
+        parent = SPAN_TREE[e["name"]]
+        if parent is not None:
+            assert any(_inside(e, p) for p in events if p["name"] == parent), e["name"]
+    assert sum(_inside(e, pred) for e in events if e["name"] == "pipeline/transform") == 1
+    clf2, _ = _classifier()
+    assert clf2.fit_id == clf.fit_id + 1
+
+
+@pytest.mark.parametrize("max_iter,tol", [(100, 1e-4), (64, 1e-4), (0, 1e-4), (10_000, 0.05)],
+                         ids=["partial_chunk", "whole_chunks", "no_steps", "converged"])
+def test_one_span_a_fista_chunk_and_one_a_stop_test(max_iter, tol):
+    clf, _ = _classifier(max_iter=max_iter, tol=tol)
+    iters = clf.svm.stats["iters"]
+    assert iters <= max_iter and (iters < max_iter) == (max_iter == 10_000)
+    names = [e["name"] for e in _span_events()]
+    blocks = math.ceil(iters / svm.CHECK_EVERY)
+    assert names.count("svm/fista_block") == blocks
+    assert names.count("svm/stop_test") == blocks + 1
+
+
+def test_pipeline_stats_are_their_spans_durations():
+    clf, _ = _classifier()
+    dur = {e["name"]: e["dur"] for e in _span_events()
+           if e["name"] in ("pipeline/generators", "svm/fit", "pipeline/fit")}
+    (transform, _) = [e["dur"] for e in _span_events() if e["name"] == "pipeline/transform"]
+    s = clf.stats
+    assert dur["pipeline/generators"] == s["time_generators"] * 1e6
+    assert transform == s["time_transform"] * 1e6
+    assert dur["svm/fit"] == s["time_svm"] * 1e6
+    assert dur["pipeline/fit"] == s["time_total"] * 1e6
+    assert s["time_generators"] + s["time_transform"] + s["time_svm"] <= s["time_total"]
+
+
+def test_pipeline_stats_filled_and_nothing_recorded_with_obs_off():
+    with obs.disabled():
+        clf, _ = _classifier()
+    s = clf.stats
+    assert all(s[k] > 0 for k in ("time_generators", "time_transform", "time_svm", "time_total"))
+    assert s["time_generators"] + s["time_transform"] + s["time_svm"] <= s["time_total"]
+    assert obs.trace_events() == []
 
 
 # ---------------------------------------------------------------------------
@@ -538,33 +661,7 @@ def test_fit_stats_carry_device_fields_and_aggregate_gauges():
 
 
 # ---------------------------------------------------------------------------
-# device: cost capture, build windows, memory sampling, profiler windows
-
-
-def test_step_cost_captured_once_per_signature():
-    calls = []
-
-    def work(b):
-        calls.append(b)
-        return {"flops": 2.0 * b, "bytes_accessed": 4.0 * b}
-
-    before = device.capture_stats()["captures"]
-    cost = device.step_cost(work, ("t", 16), (16,))
-    assert cost["flops"] == 32.0 and cost["bytes_accessed"] == 64.0 and cost["capture_s"] >= 0
-    assert device.step_cost(work, ("t", 16), (16,)) == cost
-    assert device.capture_stats()["captures"] == before + 1 and calls == [16]
-
-
-def test_step_cost_disabled_does_not_poison_cache():
-    def work(b):
-        return {"flops": float(b)}
-
-    obs.configure(enabled=False)
-    try:
-        assert device.step_cost(work, ("d", 8), (8,)) is None
-    finally:
-        obs.configure(enabled=True)
-    assert device.step_cost(work, ("d", 8), (8,))["flops"] == 8.0
+# device: build windows, memory sampling, profiler windows
 
 
 def test_compile_window_reads_kernel_builds():

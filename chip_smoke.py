@@ -21,6 +21,11 @@ Phases, each reported on its own lines:
    the class-batched main paths' shapes (k = 2 classes of 1,048,576 rows at
    L = K = 64; k = 2 spam-wide classes at Lcap = 2048), each timed beside k
    one-class launches, its bound and the batched gather + ``baddbmm``.
+   The fused FISTA step of the SVM head (``fista_step``) at the paper-scale
+   head's shape (1,200,000 x 12, k = 2) against the eager loop on the same
+   tensors (the same steps, W and b within FISTA_TOL, two runs bit for bit),
+   timed with CUDA events and on the device beside its bound and the eager
+   step.
 3. Main path, paper scale: Algorithm 2 (``VanishingIdealClassifier``, OAVI
    fast engine, psi = 0.005, its default ``class_batch="auto"``: the two
    classes fitted as one batched group) on the 2,000,000-sample Appendix C
@@ -339,6 +344,11 @@ FIT_ERR_FACTOR, FIT_ERR_FLOOR = 2.0, 1e-4
 # the CPU's fp32 fits differ by several 1e-3, each about as far from the
 # float64 solution, so it is not.
 FIT_DIRECT_TOL = (1e-4, 1e-5)
+# fused FISTA step vs the eager loop: the same float32 update, the gradient
+# summed in another order (the kernel's rows, shuffle tree, warps and block
+# partials in float64 against cuBLAS); a few hundred accelerated steps carry
+# that to ~1e-5 of max|W| (tests/test_torch_gpu_fista.py)
+FISTA_TOL = 1e-4
 BAND = 1e-3  # verdicts within BAND * psi of psi may flip between sum orders
 # flash kernel (bf16) vs the plain version in fp32 on the same bf16 inputs:
 # the JAX package's tolerance for its bf16 flash kernel (tests/test_kernels.py);
@@ -952,6 +962,52 @@ def check_ihb_update_batched(dev, L, k, reps):
                 shape=dict(L=L, k=k, ell=ells))
 
 
+def check_fista_step(dev, m, p, k, steps, reps):
+    """The fused FISTA step at the SVM head's shape: ``steps`` steps of the
+    kernel's loop against the eager loop on the same tensors, twice for its
+    bits; then one step timed (CUDA events over back-to-back launches, and on
+    the device) beside its bound (X and the class bytes read once) and the
+    eager step (a 32-step block of the eager loop, with its stop test)."""
+    import torch
+
+    from repro_torch.core import svm
+    from repro_torch.kernels import fista_step, ref
+
+    rng = np.random.default_rng(m + p + k)
+    Xh = rng.uniform(0, 1, (m, p)).astype(np.float32)
+    w = rng.standard_normal((p, k))
+    yh = np.argmax(Xh @ w + 0.3 * rng.standard_normal((m, k)), axis=1).astype(np.int8)
+    X, labels = torch.from_numpy(Xh).to(dev), torch.from_numpy(yh).to(dev)
+    Y = ref.class_signs_ref(labels, k, X.dtype)
+    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    never = torch.tensor(-1.0, dtype=torch.float32, device=dev)  # delta >= 0: no tol stop
+    step = svm._step_size(X)
+    tag = f"fista_step m={m} p={p} k={k}, {steps} steps"
+    got = svm._fista_fused(X, labels, k, lam, step, steps, never)
+    again = svm._fista_fused(X, labels, k, lam, step, steps, never)
+    want = svm._fista(X, Y, lam, step, steps, never)
+    if not int(got[2]) == int(want[2]) == steps:
+        raise AssertionError(f"{tag}: steps {int(got[2])} (eager {int(want[2])})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{tag}: two runs differ")
+    scale = float(want[0].abs().max())
+    err = max(check_close(f"{tag} W", got[0], want[0], 0.0, FISTA_TOL * scale),
+              check_close(f"{tag} b", got[1], want[1], 0.0, FISTA_TOL * scale))
+    run = fista_step.FistaStep(X, labels, k, step, lam, never, 1 << 30)
+    ms = time_ms(lambda: run.run(1), reps)
+    block_ms = time_ms(lambda: run.run(svm.CHECK_EVERY), max(1, reps // svm.CHECK_EVERY))
+    dev_ms = device_ms(lambda: run.run(1), "fista_step_kernel", reps)
+    eager_ms = time_ms(lambda: svm._fista(X, Y, lam, step, svm.CHECK_EVERY, never),
+                       3) / svm.CHECK_EVERY
+    b_ms, b_by = bound(4.0 * m * p * k + 4.0 * m * k, m * (4.0 * p + 1.0))
+    log(f"  {tag}: two runs bit-identical; kernel {ms:.4f} ms a step ({block_ms / 32:.4f} "
+        f"ms in 32-step blocks, grid {run.grid}), of it on the device {dev_ms:.4f} ms; eager "
+        f"{eager_ms:.4f} ms a step; bound {b_ms:.6f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, block_ms_per_step=block_ms / 32, device_ms=dev_ms,
+                plain_ms=eager_ms, bound_ms=b_ms, bound_by=b_by, grid=run.grid,
+                shape=dict(m=m, p=p, k=k))
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: main path
 # ---------------------------------------------------------------------------
@@ -1167,6 +1223,12 @@ def main_path_paper_scale():
         if launches[name] != degrees:
             raise AssertionError(f"{name} launched {launches[name]} times, expected one "
                                  f"per degree of the group ({degrees})")
+    # the SVM head: one fused step a FISTA step, none past max_iter
+    iters, max_iter = s["svm"]["iters"], clf.config.svm.max_iter
+    if not (iters <= launches["fista_step"] < iters + 32
+            and (iters < max_iter or launches["fista_step"] == iters)):
+        raise AssertionError(f"fista_step launched {launches['fista_step']} times for "
+                             f"{iters} FISTA steps")
     if not (feats.shape == (Xte.shape[0], sum(m.num_G for m in clf.models))
             and np.all(np.isfinite(feats))):
         raise AssertionError("features are not finite of the expected shape")
@@ -6152,6 +6214,7 @@ def main() -> int:
     degree_b = {"paper": check_ihb_degree_batched(dev, 64, 64, [(4, 6), (4, 6)], reps=20),
                 "spam": check_ihb_degree_batched(dev, 2048, 2048, [(58, 1653), (58, 1653)],
                                                  reps=5)}
+    fista = check_fista_step(dev, 1_200_000, 12, 2, steps=300, reps=200)
 
     launches, paper, paper_data, paper_clf = main_path_paper_scale()
     wide_launches, wide, wide_fast = main_path_wide()
@@ -6298,6 +6361,11 @@ def main() -> int:
              tp_jamba_train_launches=ssm_tp_launches["jamba_train"]["flash_attention"],
              tp_hubert_train_launches=ssm_tp_launches["hubert_train"]["flash_attention"],
              **flash["serve"]),
+        # the SVM head of the paper-scale classifier (phase 3): one launch a
+        # FISTA step
+        dict(name="fista_step", route="cuda", source=src + "fista_step.cu",
+             replaces="none (src/repro/core/svm.py's lax.while_loop)",
+             launches=launches["fista_step"], **fista),
     ]
     for entry in kernels:
         nested = [v["launches"] for v in entry.values() if isinstance(v, dict) and "launches" in v]

@@ -17,14 +17,23 @@ loop runs on the device in chunks of :data:`CHECK_EVERY` iterations and the
 host reads the stopping test once per chunk; an iteration past the stop is
 masked to a no-op, so the result is that of the plain while-loop.
 
+``LinearSVM``'s FISTA step takes one of two paths, by what its input shows:
+a float32 head on the card whose ``p`` features and ``k`` classes fit the
+kernel (:func:`repro_torch.kernels.fista_step.takes`) runs each step as one
+launch of the hand-written kernel ``csrc/fista_step.cu`` (:func:`_fista_fused`,
+the rows' class indices in place of the +-1 matrix); every other head (the
+CPU, float64, wide heads) runs the eager step (:func:`_fista`), whose bits
+are those of the plain loop.
+
 ``LinearSVM.fit`` records its phases as :mod:`repro_torch.obs` spans (inside
 the pipeline's ``svm/fit``): ``svm/upload`` (features and labels to the
 device), ``svm/power`` (the power iteration, as the host launches it: nothing
 waits for it there), ``svm/fista`` (the whole loop) and ``svm/download`` (W,
 b and the step count to the host).  Inside ``svm/fista`` each host read of
 the stopping test is an ``svm/stop_test`` (the host blocked on the device)
-and each chunk's launching an ``svm/fista_block``; no span sits inside a chunk,
-and none synchronizes the device.
+and each chunk's launching an ``svm/fista_block`` (arg ``fused``: the chunk's
+steps issued through the kernel, 0 on the eager path); no span sits inside a
+chunk, and none synchronizes the device.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import _device, obs
+from ..kernels import fista_step, ref
 
 # FISTA iterations between host reads of the stopping test
 CHECK_EVERY = 32
@@ -58,11 +68,22 @@ def _squared_hinge_grad(W, b, X, Y):
     return X.T @ g_scores, torch.sum(g_scores, dim=0)
 
 
-def _soft_threshold(x, t):
-    return torch.sign(x) * torch.clamp(torch.abs(x) - t, min=0.0)
+def _step_size(X):
+    """FISTA's step, 1 / L, with L = 2/m * lmax(X~^T X~) the Lipschitz
+    constant of the squared-hinge gradient (X~ = [X, 1]), lmax by 20 steps of
+    power iteration.  A 0-d tensor on X's device: nothing waits for it."""
+    m = X.shape[0]
+    Xb = torch.cat([X, X.new_ones((m, 1))], dim=1)
+    v = X.new_ones((Xb.shape[1],))
+    for _ in range(20):
+        v = Xb.T @ (Xb @ v)
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
+    lmax = v @ (Xb.T @ (Xb @ v))
+    return 1.0 / torch.clamp(2.0 * lmax / m, min=1e-12)
 
 
 def _fista(X, Y, lam, step, max_iter: int, tol):
+    """The eager FISTA loop (the plain version of the fused step)."""
     p, k = X.shape[1], Y.shape[1]
     W = X.new_zeros((p, k))
     b = X.new_zeros((k,))
@@ -75,17 +96,12 @@ def _fista(X, Y, lam, step, max_iter: int, tol):
             go = bool((i < max_iter) & (delta > tol))
         if not go:
             break
-        with obs.span("svm/fista_block"):
+        with obs.span("svm/fista_block", fused=0):
             for _ in range(CHECK_EVERY):
                 live = (i < max_iter) & (delta > tol)
                 gW, gb = _squared_hinge_grad(Wz, bz, X, Y)
-                W_new = _soft_threshold(Wz - step * gW, step * lam)
-                b_new = bz - step * gb  # bias unpenalized
-                t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-                beta = (t - 1.0) / t_new
-                Wz_new = W_new + beta * (W_new - W)
-                bz_new = b_new + beta * (b_new - b)
-                d_new = torch.max(torch.abs(W_new - W)) + torch.max(torch.abs(b_new - b))
+                W_new, b_new, Wz_new, bz_new, t_new, d_new = ref.fista_update_ref(
+                    W, b, Wz, bz, t, gW, gb, step, lam)
                 W = torch.where(live, W_new, W)
                 b = torch.where(live, b_new, b)
                 Wz = torch.where(live, Wz_new, Wz)
@@ -94,6 +110,25 @@ def _fista(X, Y, lam, step, max_iter: int, tol):
                 delta = torch.where(live, d_new, delta)
                 i = i + live.to(torch.int32)
     return W, b, i
+
+
+def _fista_fused(X, labels, k: int, lam, step, max_iter: int, tol):
+    """The FISTA loop of :func:`_fista`, one launch of the fused kernel a
+    step (its plain version on CPU tensors), over the rows' class indices
+    ``labels`` (int8) in place of the +-1 matrix.  No block issues a step past
+    ``max_iter``."""
+    run = fista_step.FistaStep(X, labels, k, step, lam, tol, max_iter)
+    issued = 0
+    while True:
+        with obs.span("svm/stop_test"):
+            go = bool((run.iters < max_iter) & (run.delta > tol))
+        if not go:
+            break
+        n = min(CHECK_EVERY, max_iter - issued)
+        with obs.span("svm/fista_block", fused=n):
+            run.run(n)
+        issued += n
+    return run.W, run.b, run.iters
 
 
 class LinearSVM:
@@ -116,23 +151,23 @@ class LinearSVM:
             X = _device.tensor(X, dt, dev)
             y = np.asarray(y)
             self.classes_ = np.unique(y)
-            Y = _device.tensor(np.where(y[:, None] == self.classes_[None, :], 1.0, -1.0),
-                               dt, dev)
+            k = len(self.classes_)
+            fused = fista_step.takes(X.device, X.dtype, X.shape[1], k)
+            if fused:  # each row's class index, one byte
+                X = X.contiguous()
+                labels = _device.tensor(np.searchsorted(self.classes_, y), torch.int8, dev)
+            else:
+                Y = _device.tensor(np.where(y[:, None] == self.classes_[None, :], 1.0, -1.0),
+                                   dt, dev)
             lam = torch.tensor(cfg.lam, dtype=dt, device=dev)
             tol = torch.tensor(cfg.tol, dtype=dt, device=dev)
         with obs.span("svm/power"):
-            # Lipschitz constant of the squared-hinge gradient: 2/m * lmax(X~^T X~)
-            m = X.shape[0]
-            Xb = torch.cat([X, X.new_ones((m, 1))], dim=1)
-            # power iteration for the top singular value
-            v = X.new_ones((Xb.shape[1],))
-            for _ in range(20):
-                v = Xb.T @ (Xb @ v)
-                v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-30)
-            lmax = v @ (Xb.T @ (Xb @ v))
-            step = 1.0 / torch.clamp(2.0 * lmax / m, min=1e-12)
+            step = _step_size(X)
         with obs.span("svm/fista"):
-            W, b, iters = _fista(X, Y, lam, step, cfg.max_iter, tol)
+            if fused:
+                W, b, iters = _fista_fused(X, labels, k, lam, step, cfg.max_iter, tol)
+            else:
+                W, b, iters = _fista(X, Y, lam, step, cfg.max_iter, tol)
         with obs.span("svm/download"):
             self.W, self.b = W.cpu().numpy(), b.cpu().numpy()
             self.stats = {"iters": int(iters), "nnz": int((np.abs(self.W) > 0).sum())}

@@ -7,6 +7,9 @@
   ``ihb_update``)
 - flash_attention: online-softmax GQA attention, causal or not, dv != d,
   bf16 on the tensor cores (replaces Pallas ``flash_attention``)
+- fista_step:      one FISTA step of the linear SVM head, gradient pass and
+  update in one launch (replaces no Pallas kernel: the JAX package's loop is
+  a ``lax.while_loop`` that XLA fuses)
 
 ``ops`` holds the public wrappers (plain PyTorch on CPU tensors, the kernel
 on CUDA tensors); ``ref`` holds the plain versions.

@@ -64,6 +64,13 @@ _SIGNATURES = {
     "repro_flash_attention": [_vp] * 4 + [_i] * 8 + [_vp],
     # dtype, d, dv
     "repro_flash_attention_variant": [_i, _i, _i],
+    # X, labels, state, iters, partials, ticket, step, lam, tol, m, p, k,
+    # max_iter, coef, grid, steps, stream
+    "repro_fista_steps": [_vp] * 9 + [_ll, _i, _i, _i, ctypes.c_float, _i, _i, _vp],
+    # m, p, k
+    "repro_fista_grid": [_ll, _i, _i],
+    # p, k
+    "repro_fista_variant": [_i, _i],
 }
 
 

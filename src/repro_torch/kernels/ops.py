@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import fista_step as _fista
 from . import flash_attention as _flash
 from . import gram_update as _gram
 from . import ihb_update as _ihb
@@ -252,11 +253,12 @@ def multihead_attention(q, k, v, *, causal=True, use_kernel=None):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel since the last reset, by Pallas kernel."""
-    return {**_gram.launches, **_ihb.launches, **_flash.launches}
+    """Launches of each CUDA kernel since the last reset, by Pallas kernel
+    (``fista_step``, which replaces none, by its own name)."""
+    return {**_gram.launches, **_ihb.launches, **_flash.launches, **_fista.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gram.launches, _ihb.launches, _flash.launches):
+    for counts in (_gram.launches, _ihb.launches, _flash.launches, _fista.launches):
         for k in counts:
             counts[k] = 0

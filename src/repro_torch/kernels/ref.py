@@ -201,3 +201,71 @@ def attention_ref(q, k, v, *, causal=True, q_heads_per_kv=1):
         s = s.masked_fill(~mask[None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("hqk,hkd->hqd", p.to(v.dtype), v).to(q.dtype)
+
+
+def fista_update_ref(W, b, Wz, bz, t, gW, gb, step, lam):
+    """The FISTA update of the l1 squared-hinge head after its gradient
+    ``(gW, gb)`` at ``(Wz, bz)``: the soft-threshold prox with ``step *
+    lam``, the unpenalized bias, the momentum and the extrapolation.  Returns
+    ``(W', b', Wz', bz', t', delta')`` with ``delta' = max|W' - W| + max|b' -
+    b|``.  ``core/svm.py``'s eager step and :func:`fista_step_ref` run it;
+    ``csrc/fista_step.cu`` does the same float32 operations in this order."""
+    u = Wz - step * gW
+    W_new = torch.sign(u) * torch.clamp(torch.abs(u) - step * lam, min=0.0)
+    b_new = bz - step * gb  # bias unpenalized
+    t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+    beta = (t - 1.0) / t_new
+    Wz_new = W_new + beta * (W_new - W)
+    bz_new = b_new + beta * (b_new - b)
+    d_new = torch.max(torch.abs(W_new - W)) + torch.max(torch.abs(b_new - b))
+    return W_new, b_new, Wz_new, bz_new, t_new, d_new
+
+
+def class_signs_ref(labels, k: int, dtype):
+    """One-vs-rest targets from class indices: ``Y[i, c] = +1`` if
+    ``labels[i] == c`` else ``-1``, the +-1 matrix ``LinearSVM`` trains on."""
+    hit = labels.long()[:, None] == torch.arange(k, device=labels.device)
+    return torch.where(hit, 1.0, -1.0).to(dtype)
+
+
+def fista_state_views(state, p: int, k: int):
+    """``(W (p, k), b, Wz (p, k), bz, t, delta)``: views of the fused FISTA
+    step's state buffer, laid out ``W | b | Wz | bz | t | delta``."""
+    pk = p * k
+    return (state[:pk].view(p, k), state[pk:pk + k], state[pk + k:2 * pk + k].view(p, k),
+            state[2 * pk + k:2 * pk + 2 * k], state[-2], state[-1])
+
+
+def fista_step_ref(X, labels, state, iters, step, lam, tol, max_iter: int, *, blocks: int,
+                   warps: int = 8, rows: int = 32):
+    """One step of ``csrc/fista_step.cu`` in plain PyTorch, on its state
+    buffer and its step count (int32, one element) in place.
+
+    The targets come from the class index (:func:`class_signs_ref`).  The
+    gradient is summed as the kernel sums it: tiles of ``rows`` rows dealt to
+    the ``blocks * warps`` warps of the grid in turn (tile ``i`` to warp ``i %
+    (blocks * warps)``, warp ``w`` in block ``w // warps``), one float32
+    partial a block, the partials summed in block order in float64.  The
+    partials' own sums take the library's order, not the kernel's per-lane
+    order.  A step past the stop (``iters >= max_iter`` or ``delta <= tol``)
+    changes nothing.
+    """
+    m, p = X.shape
+    k = (state.numel() - 2) // (2 * p + 2)
+    W, b, Wz, bz, t, delta = fista_state_views(state, p, k)
+    if not bool((iters < max_iter) & (delta > tol)):
+        return
+    Y = class_signs_ref(labels, k, X.dtype)
+    active = torch.clamp(1.0 - Y * (X @ Wz + bz), min=0.0)
+    g = (-2.0 / m) * (active * Y)
+    owner = (torch.arange(m, device=X.device) // rows) % (blocks * warps) // warps
+    gW = torch.zeros((p, k), dtype=torch.float64, device=X.device)
+    gb = torch.zeros((k,), dtype=torch.float64, device=X.device)
+    for blk in range(blocks):
+        sel = owner == blk
+        gW += (X[sel].T @ g[sel]).double()
+        gb += torch.sum(g[sel], dim=0).double()
+    new = fista_update_ref(W, b, Wz, bz, t, gW.to(X.dtype), gb.to(X.dtype), step, lam)
+    for view, value in zip((W, b, Wz, bz, t, delta), new):
+        view.copy_(value)
+    iters += 1

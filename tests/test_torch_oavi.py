@@ -229,7 +229,7 @@ def test_fit_stats(datasets):
                                     "gram_update_acc_batched": 0,
                                     "ihb_update": 0, "ihb_degree": 0,
                                     "ihb_update_batched": 0, "ihb_degree_batched": 0,
-                                    "flash_attention": 0}
+                                    "flash_attention": 0, "fista_step": 0}
     assert s["time_total"] > 0 and s["api"]["device"] == "cpu"
 
 

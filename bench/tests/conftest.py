@@ -10,13 +10,6 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# the generators entry, which no cell of BENCHMARK.json drives yet: held
-# here to the paper-scale classify cell's limits on the generator numbers
-GENERATORS_CELL = {"name": "appendix_c-2m.generators", "config": "appendix_c-2m",
-                   "traffic": "generators", "chips": 1,
-                   "why": "api.fit_classes of the two training classes alone"}
-GENERATORS_LIMITS = ("structure", "verdict", "mse_gap", "coef_excess")
-
 
 def pytest_configure(config):
     config.addinivalue_line(
@@ -26,29 +19,33 @@ def pytest_configure(config):
 
 
 def spec_and_cell(cell_name):
-    """BENCHMARK.json and the cell's file, with the generators entry's cell
-    added where ``cell_name`` names it."""
+    """BENCHMARK.json and the cell's file."""
     from bench.harness import spec as spec_mod
 
-    spec = spec_mod.benchmark()
-    if cell_name != GENERATORS_CELL["name"]:
-        return spec, spec_mod.cell(cell_name)
-    spec = copy.deepcopy(spec)
-    spec["workloads"].append(dict(GENERATORS_CELL))
-    limits = spec_mod.cell("appendix_c-2m.classify")["limits"]
-    return spec, {"limits": {k: limits[k] for k in GENERATORS_LIMITS}}
+    return spec_mod.benchmark(), spec_mod.cell(cell_name)
+
+
+def merged(base, over):
+    """``base`` with ``over`` merged in: dicts key by key, other values
+    replaced."""
+    out = copy.deepcopy(base)
+    for key, value in over.items():
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            out[key] = merged(out[key], value)
+        else:
+            out[key] = copy.deepcopy(value)
+    return out
 
 
 def _small_config(cell_name):
-    """A cell's configuration at a size the CPU runs in about a second:
-    Appendix C at 6,000 rows, the SVM cut to 100 steps."""
+    """A cell's configuration at a size the CPU runs in about a second: the
+    configuration with its own ``small`` merged in (the run never reads
+    ``small``)."""
     from bench.harness import spec as spec_mod
 
     spec, _ = spec_and_cell(cell_name)
-    cfg = copy.deepcopy(spec_mod.config(spec_mod.workload(spec, cell_name)["config"]))
-    cfg["dataset"]["m"] = 6000
-    cfg["fit"]["svm"]["max_iter"] = 100
-    return cfg
+    cfg = spec_mod.config(spec_mod.workload(spec, cell_name)["config"])
+    return merged({k: v for k, v in cfg.items() if k != "small"}, cfg["small"])
 
 
 @pytest.fixture

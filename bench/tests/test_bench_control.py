@@ -13,8 +13,7 @@ from bench.harness.traffic import make_inputs
 SPEC = spec_mod.benchmark()
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]]
-                         + ["appendix_c-2m.generators"])
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_control_is_not_correct(small_config, cell_spec, cell):
     spec, cell_file = cell_spec(cell)
     w = spec_mod.workload(spec, cell)

@@ -132,6 +132,10 @@ def test_each_reader_reads_the_traced_fits_spans(name, monkeypatch):
         if e["name"] == "svm/fit":
             e["dur"] = 80
     monkeypatch.setattr(obs, "trace_events", lambda: warm + FIT)
+    # the spans' host-clock times are the epoch plus their microseconds; the
+    # process's own epoch is the machine's uptime, and past ~16,000 s a double
+    # holds those times coarser than the tolerance, so they get a fixed one
+    monkeypatch.setattr(obs, "epoch", lambda: EPOCH)
     got = reader(name).read(_run([STATS]))
     assert math.isclose(got, READERS[name], rel_tol=1e-9, abs_tol=1e-12)
 
